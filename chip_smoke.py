@@ -6,19 +6,34 @@
 Phases, each printing one flushed line with its seconds, so a cut run shows
 how far it got:
 
-1. env    - Python, torch and CUDA versions; the card's name and power limit
-            as ``nvidia-smi`` gives them.
-2. build  - compiles every kernel of the serving path from ``csrc/`` with nvcc.
-3. kernel - holds kernel K1 (folded-MQA attention forward) against its plain
-            version on the card at the serving path's shapes, f32 and bf16,
-            and times it beside the plain version and one PyTorch call.
-4. slice  - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
-            checkpoint, three sentences one at a time and then as one batch,
-            with the launch counts zeroed just before and read just after;
-            then the same model on the plain attention with the same noise
-            and durations, held against the kernel path's mel.
-5. profile - one sentence and the batch under torch.profiler: device busy
-            time against wall time, and the kernels that take it.
+1. env     - Python, torch and CUDA versions; the card's name and power limit
+             as ``nvidia-smi`` gives them.
+2. build   - compiles every kernel of both paths from ``csrc/`` with nvcc,
+             one process per source, all started together.
+3. kernel  - holds kernel K1 (folded-MQA attention forward) against its plain
+             version on the card at the serving path's shapes, f32 and bf16,
+             and times it beside the plain version and one PyTorch call.
+4. kernel  - the training path's kernels against their plain versions: K1
+             with dropout, K2 (attention backward) against autograd through
+             the plain K1 in both TPU regimes (M 320 and M 3072), K3 (MAS)
+             for exact equality, K4 (banded CTC) loss and gradient.
+5. slice   - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
+             checkpoint, three sentences one at a time and then as one batch,
+             with the launch counts zeroed just before and read just after;
+             then the same model on the plain attention with the same noise
+             and durations, held against the kernel path's mel.
+6. profile - one sentence and the batch under torch.profiler: device busy
+             time against wall time, and the kernels that take it.
+7. train   - fine-tunes the same checkpoint at full width with its own
+             training setup (batch 32, text 48 x mel 320, bf16, dropout,
+             AdamW): the batch is 32 sentences synthesized by the
+             Synthesizer. (a) one step on the kernel path against the same
+             step on the plain path, in f32 and in bf16 (beside a control:
+             the plain path's bf16 step against its f32 step);
+             (b) 30 bf16 steps, counts zeroed just before and read just
+             after, finite metrics and a falling mel loss; (c) the
+             aligner's durations sum to the mel lengths.
+8. profile - one warm training step under torch.profiler.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -98,28 +113,41 @@ def mqa_inputs(B, N, M, H, dtype, symmetric, gen):
     return q, k, v, slopes, key_lens, q_lens
 
 
-def mqa_bound(q, k, key_lens, q_lens, causal=False, offset=0):
-    """(ms, 'bytes' | 'operations'): the least time for K1's work on these
-    inputs — each input read once, each output written once; 4*D operations
-    per (live query row, valid key) pair."""
-    B, N, H, D = q.shape
-    es = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * es + 4 * B * N * H + 8 * H + 8 * B
+def bound_ms(nbytes: float, ops: float, dtype: str = "float32"):
+    """(ms, 'bytes' | 'operations'): the larger of bytes over the HBM rate
+    and operations over the peak rate of ``dtype``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_pairs(key_lens, q_lens, causal=False, offset=0) -> int:
+    """(live query, valid key) pairs of these lengths, per head."""
     pairs = 0
     for ql, kl in zip(q_lens.tolist(), key_lens.tolist()):
         if causal:
             pairs += sum(max(0, min(kl, n + offset + 1)) for n in range(ql))
         else:
             pairs += ql * kl
-    ops = 4 * D * H * pairs
-    peak = PEAK_OPS_S[str(q.dtype).replace("torch.", "")]
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return pairs
 
 
-def library_call(q, k, v, slopes, key_lens, scale, offset=0, causal=False):
+def mqa_bound(q, k, key_lens, q_lens, causal=False, offset=0, backward=False):
+    """(ms, 'bytes' | 'operations'): the least time for K1's (or with
+    ``backward`` K2's) work on these inputs — each input read once, each
+    output written once; 4*D operations per (live query row, valid key)
+    pair forward (q.k, p.v), 10*D backward (s, dp, dv, dk, dq)."""
+    B, N, H, D = q.shape
+    rows, keys = (4, 4) if backward else (2, 2)  # q o (dO dq) | k v (dk dv)
+    nbytes = (rows * q.numel() + keys * k.numel()) * q.element_size() + 4 * B * N * H
+    ops = (10 if backward else 4) * D * H * attention_pairs(key_lens, q_lens, causal, offset)
+    return bound_ms(nbytes, ops, str(q.dtype).replace("torch.", ""))
+
+
+def library_call(q, k, v, slopes, key_lens, scale, offset=0, causal=False, do=None):
     """One PyTorch call for the same function, the bias and mask built
-    beforehand: scaled_dot_product_attention with an additive ALiBi + mask."""
+    beforehand: scaled_dot_product_attention with an additive ALiBi + mask.
+    With ``do`` it is the backward instead: the gradients of that call's
+    output, the bias a tensor that requires grad, against ``do``."""
     import torch
     import torch.nn.functional as F
 
@@ -138,8 +166,12 @@ def library_call(q, k, v, slopes, key_lens, scale, offset=0, causal=False):
     qh = q.transpose(1, 2)
     kh = k[:, None].expand(B, H, M, D).contiguous()
     vh = v[:, None].expand(B, H, M, D).contiguous()
-    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
-                                                  scale=scale)
+    if do is None:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                      scale=scale)
+    inputs = [x.detach().contiguous().requires_grad_() for x in (qh, kh, vh, bias)]
+    out = F.scaled_dot_product_attention(*inputs[:3], attn_mask=inputs[3], scale=scale)
+    return lambda: torch.autograd.grad(out, inputs, do.transpose(1, 2), retain_graph=True)
 
 
 def phase_env(t0):
@@ -160,13 +192,18 @@ def phase_env(t0):
     return smi.splitlines()[0]
 
 
+SOURCES = ("mqa_fwd", "mqa_bwd", "mas", "ctc")
+
+
 def phase_build(t0):
     from isp_tts_tpu_torch.ops import cuda_build
 
-    cuda_build.load("mqa_fwd")
-    info = cuda_build.BUILD_INFO["mqa_fwd"]
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    say("build", t0, f"mqa_fwd.cu nvcc {info['seconds']:.2f}s; " + " | ".join(regs))
+    cuda_build.build_all(list(SOURCES))
+    for name in SOURCES:
+        info = cuda_build.BUILD_INFO[name]
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("build", t0, f"{name}.cu nvcc {info['seconds']:.2f}s; " + " | ".join(ptxas))
 
 
 KERNEL_CASES = (  # B, N, M, H, dtype, symmetric, offset, causal
@@ -216,11 +253,11 @@ def phase_kernel(t0):
         k_ms = cuda_ms(lambda: mqa_fwd(q, k, v, slopes, key_lens, scale, offset,
                                        q_lens, causal))
         lib_ms = cuda_ms(library_call(q, k, v, slopes, key_lens, scale, offset, causal))
-        bound_ms, _ = mqa_bound(q, k, key_lens, q_lens, causal, offset)
+        b_ms, _ = mqa_bound(q, k, key_lens, q_lens, causal, offset)
         say("kernel", t0, f"K1 B={B} N={N} M={M} H={H} {dt} "
             f"{'sym' if sym else 'asym'} offset={offset} causal={int(causal)} "
             f"max_err={err:.3e} lse_err={lse_err:.3e} bound={bound:.0e} "
-            f"kernel_ms={k_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f}")
+            f"kernel_ms={k_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f}")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -302,21 +339,25 @@ def phase_slice(t0):
     return synth, launches, dec, fb
 
 
-def phase_profile(t0, synth, request, label):
-    """One warm request under torch.profiler: device busy time against the
-    request's wall time, and the kernels that take it."""
+def phase_profile(t0, run, label):
+    """One warm call of ``run`` (a request, a training step) under
+    torch.profiler: device busy time against its wall time, and the
+    kernels that take it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        synth(request)
+        run()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
     # device-side events only (kernels, copies): a host op's own device
-    # total repeats the time of the kernels it launched
+    # total repeats the time of the kernels it launched, and so does a
+    # user-annotated range on the device timeline (the optimizer's step)
     rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0]
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(r[0] for r in rows) / 1e3
     rows.sort(reverse=True)
     if busy_ms == 0:
@@ -325,34 +366,547 @@ def phase_profile(t0, synth, request, label):
         return
     top = "; ".join(f"{name[:60]} x{n} {us / 1e3:.3f} ms" for us, n, name in rows[:8])
     say("profile", t0, f"{label}: wall {wall_ms:.1f} ms under the profiler, device "
-        f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%); top: {top}")
+        f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%) in "
+        f"{sum(r[1] for r in rows)} device calls; top: {top}")
 
 
-def kernel_record(launches, dec, fb):
-    """K1's numbers at the decoder's main-path shape: the batch bucket,
-    N = M = the frame budget, 6 heads, lengths = the batch's frame counts."""
+
+
+# ---------------------------------------------------------------- training
+# K2 against autograd through the plain K1: f32 sums in another order (the
+# JAX package's bound for its kernel against its reference); bf16 gradients
+# are rounded to 8 mantissa bits
+K2_BOUNDS = {"float32": 1e-4, "bfloat16": 2e-2}
+# K4 against its plain version: both run the state recursion in f64, the
+# kernel's transcendental tails in f32, the plain version's in f64
+K4_LOSS_BOUND = 1e-5
+K4_GRAD_BOUND = 1e-4
+# one training step, kernel path against plain path (same weights,
+# generators, dropout masks and noise). In f32 (TF32 off) the two differ
+# only in the order of f32 sums: the step's own bounds, loss terms relative
+# and every parameter's gradient against its max-abs.
+STEP_LOSS_BOUND = 1e-3
+STEP_GRAD_BOUND = 2e-2
+# In bf16, the checkpoint's precision, the loss terms and the gradient norm
+# keep those bounds. Single parameters' gradients do not: the two paths
+# round attention outputs and gradients to bf16 at different points, a few
+# tokens' MAS durations flip, and a gradient that is a sum with cancellation
+# (the ALiBi log-slopes) moves by a large share of its max-abs. The limits
+# for the whole gradient were set from readings on an H100 (700 W): kernel
+# path vs plain path, top-level module gradient norms within 3.2e-3 and a
+# cosine of 0.99968 between the whole gradients; the control, bf16
+# rounding alone (the plain path's bf16 step against its f32 step), 2.3e-2
+# and 0.9849. The limits lie between the two.
+BF16_STEP_BOUNDS = {"loss": STEP_LOSS_BOUND, "norm": STEP_GRAD_BOUND, "module": 1e-2,
+                    "cosine": 0.998}
+TRAIN_STEPS = 30
+BATCH, TEXT_LEN, MEL_LEN = 32, 48, 320  # the checkpoint's own collation
+TRAIN_SENTENCES = [
+    "The box was thrown beside the truck.", "Rice is often served in round bowls.",
+    "The juice of lemons makes fine punch.", "Four hours of steady work faced us.",
+    "A large size in stockings is hard.", "The hogs were fed chopped corn.",
+    "Help the woman get back to her feet.", "A pot of tea helps to pass the evening.",
+    "Smoky fires lack flame and heat.", "The soft cushion broke the fall.",
+    "The salt breeze came across the sea.", "The girl at the booth sold fifty bonds.",
+    "The small pup gnawed a hole in the sock.", "The fish twisted and turned.",
+    "Press the pants and sew a button.", "The swan dive was far short of perfect.",
+    "The beauty of the view stunned the boy.", "Two blue fish swam in the tank.",
+    "Her purse was full of useless trash.", "The colt reared and threw the rider.",
+    "It snowed, rained, and hailed.", "Read verse out loud for pleasure.",
+    "Hoist the load to your left shoulder.", "Take the winding path to reach the lake.",
+    "Note closely the size of the gas tank.", "Wipe the grease off his dirty face.",
+    "Mend the coat before you go out.", "The wrist was badly strained.",
+    "The stray cat gave birth to kittens.", "The lazy cow lay in the cool grass.",
+    "Lift the square stone over the fence.", "The rope will bind the seven books.",
+    "The friendly gang left the store.", "Feel the heat of the weak dying flame.",
+    "A pink shell was found on the beach.", "The sky that morning was clear.",
+    "A stiff cord will do to fasten it.", "The wide road shimmered in the sun.",
+    "The ship was torn apart on the reef.", "Sickness kept him home the third week.",
+    "The term ended in late June.", "Bail the boat to stop it from sinking.",
+    "Fill the ink jar with sticky glue.", "He ate four extra eggs for breakfast.",
+    "We find joy in the simplest things.", "Type out three lists of orders.",
+    "The mute muffled the high tones.", "The crunch of feet in the snow.",
+]
+K2_CASES = (  # B, N, M, H, dtype, rate, offset, causal
+    [(32, 320, 320, H, "float32", rate, 0, False) for H in (6, 4) for rate in (0.0, 0.1)]
+    + [(32, 320, 320, 6, "bfloat16", 0.1, 0, False),
+       (2, 3072, 3072, 6, "float32", 0.1, 0, False),  # K2b's regime, M > 2048
+       (4, 320, 320, 4, "float32", 0.1, 0, True),  # causal
+       (4, 96, 224, 6, "float32", 0.1, 128, False)]  # offset
+)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def seed_tensor(value: int):
     import torch
 
-    from isp_tts_tpu_torch.ops.flash_attention import mqa_attention_reference, mqa_fwd
+    return torch.tensor([value], dtype=torch.int32, device="cuda")
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    B, H = dec.shape[0], 6
-    q, k, v, slopes, _, _ = mqa_inputs(B, fb, fb, H, torch.float32, True, gen)
-    lens = dec.to(torch.int32).contiguous()
-    err, _, _ = check_mqa(q, k, v, slopes, lens, lens)
+
+def k2_grads(q, k, v, slopes, key_lens, q_lens, rate, offset, causal, seed, w,
+             plain=False):
+    """(dq, dk, dv, dslopes) of sum(o * w): through K1 + K2, or with
+    ``plain`` through autograd of the plain K1."""
+    import torch
+
+    from isp_tts_tpu_torch.ops.flash_attention import mqa_attention, mqa_attention_reference
+
+    args = [x.detach().clone().requires_grad_() for x in (q, k, v, slopes)]
     scale = 64 ** -0.5
-    ms = cuda_ms(lambda: mqa_fwd(q, k, v, slopes, lens, scale, 0, lens))
-    plain_ms = cuda_ms(lambda: mqa_attention_reference(q, k, v, slopes, lens, scale,
-                                                       0, lens))
-    library_ms = cuda_ms(library_call(q, k, v, slopes, lens, scale))
-    bound_ms, bound_by = mqa_bound(q, k, lens, lens)
-    return {"name": "K1 mqa_fwd", "route": "cuda",
-            "source": "isp_tts_tpu_torch/csrc/mqa_fwd.cu",
-            "replaces": "isp_tts_tpu/ops/flash_attention.py:736",
-            "launches": launches["K1 mqa_fwd"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "shape": f"B={B} N=M={fb} H={H} D=64 float32"}
+    if plain:
+        o = mqa_attention_reference(*args, key_lens, scale, offset, q_lens, causal, rate,
+                                    seed)[0]
+    else:
+        o = mqa_attention(*args, key_lens, scale, offset, q_lens, causal, rate, seed)
+    torch.autograd.backward(o, w)
+    return [a.grad for a in args]
+
+
+def mas_inputs(B, M, T, gen):
+    """Aligner-like log-attention (a diagonal trend) and ragged lengths with
+    mel_len >= text_len; row 0 full."""
+    import torch
+
+    i = torch.arange(M, device="cuda")[:, None] / M
+    j = torch.arange(T, device="cuda")[None, :] / T
+    logits = torch.randn((B, M, T), generator=gen, device="cuda") - 8.0 * (i - j) ** 2
+    tl = torch.randint(T // 2, T + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    ml = torch.randint(M // 2, M + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    tl[0], ml[0] = T, M
+    return logits.log_softmax(-1).contiguous(), tl, torch.maximum(ml, tl)
+
+
+def ctc_inputs(B, M, T, gen):
+    """The attention loss's input: a blank column of log-prob -1 in front of
+    aligner-like logits, log-softmaxed over T+1."""
+    import torch.nn.functional as F
+
+    logits, tl, ml = mas_inputs(B, M, T, gen)
+    return F.pad(logits, (1, 0), value=-1.0).log_softmax(-1).contiguous(), tl, ml
+
+
+def k4_pair(lp, tl, ml, g, plain=False):
+    """(neg_logp, dlogprobs): K4's forward and backward, or its plain
+    version (autograd through the float64 recursion)."""
+    import torch
+
+    from isp_tts_tpu_torch.ops import ctc
+
+    if plain:
+        x = lp.detach().double().requires_grad_()
+        neg = ctc.ordered_ctc_neg_logp_reference(x, tl, ml)
+        (dlp,) = torch.autograd.grad((neg * g.double()).sum(), x)
+        return neg.detach().float(), dlp.float()
+    neg, ab, al, logz = ctc.ctc_fwd(lp, tl, ml)
+    return neg, ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)
+
+
+def phase_kernel_train(t0):
+    """K1 with dropout, K2, K3 and K4 against their plain versions."""
+    import torch
+
+    from isp_tts_tpu_torch.ops import mas
+    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh,
+                                                       mqa_attention_reference, mqa_bwd,
+                                                       mqa_bwd_reference, mqa_fwd,
+                                                       mqa_keep_mask)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scale = 64 ** -0.5
+    for dt in ("float32", "bfloat16"):
+        for rate in (0.1, 0.3):
+            q, k, v, slopes, kl, ql = mqa_inputs(8, 320, 320, 6, getattr(torch, dt), True, gen)
+            seed = seed_tensor(1234 + int(rate * 10))
+            o, _ = mqa_fwd(q, k, v, slopes, kl, scale, 0, ql, False, rate, seed)
+            torch.cuda.synchronize()
+            o_ref, _ = mqa_attention_reference(q, k, v, slopes, kl, scale, 0, ql, False,
+                                               rate, seed)
+            err = (o.float() - o_ref.float()).abs().max().item()
+            thresh = dropout_thresh(rate)
+            kept = mqa_keep_mask(8, 320, 6, 320, seed, thresh).float().mean().item()
+            bound = BF16_BOUND if dt == "bfloat16" else F32_BOUND
+            if not (err <= bound and abs(kept - thresh / 256) <= 0.01):
+                raise AssertionError(f"K1 with dropout {rate} {dt}: err {err:.3e} (bound "
+                                     f"{bound:.0e}), kept {kept:.4f} vs {thresh / 256:.4f}")
+            say("kernel", t0, f"K1 dropout={rate} B=8 N=M=320 H=6 {dt} max_err={err:.3e} "
+                f"bound={bound:.0e} kept={kept:.4f} thresh/256={thresh / 256:.4f}")
+
+    for B, N, M, H, dt, rate, offset, causal in K2_CASES:
+        q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, getattr(torch, dt), False, gen)
+        w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        seed = seed_tensor(99)
+        got = k2_grads(q, k, v, slopes, kl, ql, rate, offset, causal, seed, w)
+        torch.cuda.synchronize()
+        ref = k2_grads(q, k, v, slopes, kl, ql, rate, offset, causal, seed, w, plain=True)
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        bound = K2_BOUNDS[dt]
+        if not max(errs) <= bound:
+            raise AssertionError(f"K2 B={B} N={N} M={M} H={H} {dt} rate={rate}: relative "
+                                 f"errors dq/dk/dv/dslopes {errs} > {bound:.0e}")
+        o, lse = mqa_fwd(q, k, v, slopes, kl, scale, offset, ql, causal, rate, seed)
+        k_ms = cuda_ms(lambda: mqa_bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale,
+                                       offset, causal, rate), iters=10)
+        p_ms = cuda_ms(lambda: mqa_bwd_reference(q, k, v, slopes, kl, ql, seed, o, lse, w,
+                                                 scale, offset, causal, rate), iters=3)
+        l_ms = cuda_ms(library_call(q, k, v, slopes, kl, scale, offset, causal, do=w), iters=3)
+        b_ms, b_by = mqa_bound(q, k, kl, ql, causal, offset, backward=True)
+        say("kernel", t0, f"K2 B={B} N={N} M={M} H={H} {dt} dropout={rate} offset={offset} "
+            f"causal={int(causal)} rel_err dq={errs[0]:.2e} dk={errs[1]:.2e} "
+            f"dv={errs[2]:.2e} dslopes={errs[3]:.2e} bound={bound:.0e} kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        del q, k, v, got, ref
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+
+    for B, M, T, neg_row in ((32, 320, 48, False), (64, 1024, 192, False),
+                             (32, 320, 48, True)):
+        la, tl, ml = mas_inputs(B, M, T, gen)
+        if neg_row:
+            la[1, 10] = -1e9  # a frame whose logits all sit at the DP's NEG_INF
+        got = mas.monotonic_alignment_search(la, tl, ml)
+        torch.cuda.synchronize()
+        ref = mas.monotonic_alignment_search_reference(la, tl, ml)
+        if not (torch.equal(got, ref) and torch.equal(got.sum(dim=(1, 2)), ml.float())):
+            raise AssertionError(f"K3 B={B} M={M} T={T}: {(got != ref).sum().item()} "
+                                 "elements differ from the plain version")
+        say("kernel", t0, f"K3 B={B} M={M} T={T}{' NEG_INF row' if neg_row else ''}: "
+            "equal to the plain version, durations sum to mel_len")
+
+    for B, M, T in ((32, 320, 48), (64, 1024, 192)):
+        lp, tl, ml = ctc_inputs(B, M, T, gen)
+        g = torch.rand((B,), generator=gen, device="cuda")
+        neg, dlp = k4_pair(lp, tl, ml, g)
+        torch.cuda.synchronize()
+        neg_r, dlp_r = k4_pair(lp, tl, ml, g, plain=True)
+        loss_err, grad_err = rel_err(neg, neg_r), rel_err(dlp, dlp_r)
+        if not (loss_err <= K4_LOSS_BOUND and grad_err <= K4_GRAD_BOUND):
+            raise AssertionError(f"K4 B={B} M={M} T={T}: loss {loss_err:.3e} "
+                                 f"(bound {K4_LOSS_BOUND:.0e}), gradient {grad_err:.3e} "
+                                 f"(bound {K4_GRAD_BOUND:.0e})")
+        say("kernel", t0, f"K4 B={B} M={M} T+1={T + 1} loss rel_err={loss_err:.2e} "
+            f"bound={K4_LOSS_BOUND:.0e} grad rel_err={grad_err:.2e} bound={K4_GRAD_BOUND:.0e}")
+
+
+def training_batch(synth, gen):
+    """The fixed fine-tuning batch, made on the card by the Synthesizer:
+    the first 32 sentences of the pool with at most 48 tokens whose mel
+    fits 320 frames (none is cut), their mels, frame counts and speakers,
+    and dense pitch/energy targets: the per-token predictions repeated over
+    the predicted durations. Returns (batch, token durations, sentences)."""
+    import torch
+
+    from isp_tts_tpu_torch.models.acoustic.adaptor import length_regulate_hard
+
+    encoded = [(s, synth.text_provider(s)) for s in TRAIN_SENTENCES]
+    encoded = [(s, e) for s, e in encoded if e.size <= TEXT_LEN]
+    P = len(encoded)
+    tokens = torch.zeros((P, TEXT_LEN), dtype=torch.long)
+    lens = torch.zeros((P,), dtype=torch.int32)
+    for i, (_, e) in enumerate(encoded):
+        tokens[i, : e.size] = torch.from_numpy(e)
+        lens[i] = e.size
+    tokens, lens = tokens.cuda(), lens.cuda()
+    speaker = (torch.arange(P, device="cuda") % synth.model.speaker_embedding.num_embeddings)
+    noise = torch.randn((P, TEXT_LEN, 3), generator=gen, device="cuda")
+    mel, ad = synth.model.infer(tokens, lens, max_dec_len=MEL_LEN, steps=synth.config.steps,
+                                speaker=speaker, noise=noise)
+    dec = ad.dec_lengths
+    keep = [i for i in range(P) if 0 < int(dec[i]) < MEL_LEN][:BATCH]
+    if len(keep) < BATCH:
+        raise AssertionError(f"only {len(keep)} of {P} sentences fit {MEL_LEN} frames")
+    idx = torch.tensor(keep, device="cuda")
+
+    def dense(x):
+        return length_regulate_hard(x[..., None], ad.duration, MEL_LEN)[0][..., 0]
+
+    batch = {"text_vector": tokens[idx], "text_vector_len": lens[idx], "mel": mel[idx],
+             "mel_len": dec[idx].to(torch.int32), "pitch": dense(ad.pitch)[idx],
+             "energy": dense(ad.energy)[idx], "speaker": speaker[idx]}
+    return batch, ad.duration[idx], [encoded[i][0] for i in keep]
+
+
+def make_trainer(experiment: dict, plain: bool, seed: int, precision: str | None = None):
+    """The checkpoint fine-tuned with its own trainer and loss settings, on
+    the kernel path or (``plain``) on every kernel's plain version: einsum
+    attention, the plain MAS DP and the plain CTC scan."""
+    import torch
+
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticLossConfig, AcousticModelLoss
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    model = AcousticModel.from_pretrained(CKPT)
+    loss_cfg = build_config(AcousticLossConfig, experiment["criterion"])
+    if plain:
+        set_flash(model, "off")
+        model.aligner.config.mas_impl = "scan"
+        loss_cfg.attention_loss.ctc_impl = "scan"
+    cfg = build_config(TrainerConfig, experiment["trainer"])
+    if precision is not None:
+        cfg.precision = precision
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return Trainer(model, AcousticModelLoss(loss_cfg), cfg, generator=gen)
+
+
+def step_result(trainer, batch) -> dict:
+    """One step's loss terms, gradient norm, (clipped) gradients and the
+    aligner's MAS durations."""
+    durations = []
+    hook = trainer.model.aligner.register_forward_hook(
+        lambda m, i, o: durations.append(o.attn_hard_duration.detach()))
+    _, losses, norm = trainer.compute_gradients(batch)
+    hook.remove()
+    return {"loss": {k: v.item() for k, v in losses.items()}, "norm": norm.item(),
+            "grads": {n: p.grad.clone() for n, p in trainer.model.named_parameters()},
+            "durations": durations[0]}
+
+
+def step_diff(got: dict, ref: dict) -> dict:
+    """``got`` against ``ref``: each loss term and the gradient norm
+    (relative), each parameter's gradient against its max-abs (the worst
+    one, and how many are within STEP_GRAD_BOUND), each top-level module's
+    gradient norm (relative), the cosine between the whole gradients, and
+    how many tokens' MAS durations differ."""
+    loss = {k: abs(got["loss"][k] - v) / max(abs(v), 1e-12) for k, v in ref["loss"].items()}
+    grads, sq, dot = {}, {}, 0.0
+    for name, g in ref["grads"].items():
+        mine, g = got["grads"][name].double(), g.double()
+        scale = g.abs().max().item()
+        grads[name] = (mine - g).abs().max().item() / scale if scale else 0.0
+        top = sq.setdefault(name.split(".")[0], [0.0, 0.0])
+        top[0] += mine.square().sum().item()
+        top[1] += g.square().sum().item()
+        dot += (mine * g).sum().item()
+    worst = max(grads, key=grads.get)
+    modules = {k: abs(a ** 0.5 - b ** 0.5) / b ** 0.5 if b else 0.0 for k, (a, b) in sq.items()}
+    total = [sum(v[i] for v in sq.values()) for i in (0, 1)]
+    return {"loss": loss, "norm": abs(got["norm"] - ref["norm"]) / ref["norm"],
+            "worst": (worst, grads[worst]),
+            "within": (sum(e <= STEP_GRAD_BOUND for e in grads.values()), len(grads)),
+            "module": modules, "cosine": dot / (total[0] * total[1]) ** 0.5,
+            "durations": int((got["durations"] != ref["durations"]).sum())}
+
+
+def describe(errs: dict) -> str:
+    return ("loss terms " + ", ".join(f"{k}={v:.1e}" for k, v in errs["loss"].items())
+            + f"; grad norm {errs['norm']:.1e}; {errs['within'][0]} of {errs['within'][1]} "
+            f"parameter gradients within {STEP_GRAD_BOUND:.0e} of their max-abs, worst "
+            f"{errs['worst'][0]} {errs['worst'][1]:.1e}; module grad norms "
+            + ", ".join(f"{k}={v:.1e}" for k, v in errs["module"].items())
+            + f"; gradient cosine {errs['cosine']:.6f}; {errs['durations']} token "
+            "durations differ")
+
+
+def bf16_misses(errs: dict) -> list[str]:
+    """The bf16 step's readings that are outside BF16_STEP_BOUNDS."""
+    b = BF16_STEP_BOUNDS
+    return ([f"loss {k} {v:.1e}" for k, v in errs["loss"].items() if v > b["loss"]]
+            + ([f"grad norm {errs['norm']:.1e}"] if errs["norm"] > b["norm"] else [])
+            + [f"module {k} {v:.1e}" for k, v in errs["module"].items() if v > b["module"]]
+            + ([f"cosine {errs['cosine']:.6f}"] if errs["cosine"] < b["cosine"] else []))
+
+
+def launch_counts(reset: bool = False) -> dict:
+    from isp_tts_tpu_torch.ops import ctc, mas
+    from isp_tts_tpu_torch.ops.flash_attention import mqa_bwd, mqa_fwd
+
+    fns = {"K1 mqa_fwd": mqa_fwd, "K2 mqa_bwd": mqa_bwd,
+           "K3 mas": mas.monotonic_alignment_search, "K4 ctc_fwd": ctc.ctc_fwd,
+           "K4 ctc_bwd": ctc.ctc_bwd}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def phase_train(t0, synth):
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+
+    experiment = load_checkpoint(CKPT)["experiment"]["config"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch, durations, sentences = training_batch(synth, gen)
+    say("train", t0, f"batch of {BATCH} sentences ({len(TRAIN_SENTENCES)} in the pool): "
+        f"tokens {batch['text_vector_len'].tolist()}, frames {batch['mel_len'].tolist()}")
+    cfg = experiment["trainer"]
+    say("train", t0, f"trainer: precision {cfg['precision']}, batch {cfg['batch_size']}, "
+        f"optimization {cfg['optimization']}")
+
+    # (a) one step, kernel path against plain path, in f32 and in bf16
+    results = {}
+    for precision in ("fp32", "bf16"):
+        for plain in (False, True):
+            trainer = make_trainer(experiment, plain, 7, precision)
+            results[precision, plain] = step_result(trainer, batch)
+            del trainer
+    errs = step_diff(results["fp32", False], results["fp32", True])
+    if not (max(errs["loss"].values()) <= STEP_LOSS_BOUND and errs["norm"] <= STEP_GRAD_BOUND
+            and errs["worst"][1] <= STEP_GRAD_BOUND):
+        raise AssertionError(f"kernel path vs plain path, f32 step: {errs}")
+    say("train", t0, f"(a) one f32 step, kernel path vs plain path: {describe(errs)}; "
+        f"bounds {STEP_LOSS_BOUND:.0e} / {STEP_GRAD_BOUND:.0e}")
+    control = step_diff(results["bf16", True], results["fp32", True])
+    say("train", t0, f"(a) control: one bf16 step vs the f32 step, plain path: "
+        f"{describe(control)}")
+    say("train", t0, "(a) one bf16 step, kernel path vs the f32 plain step: "
+        + describe(step_diff(results["bf16", False], results["fp32", True])))
+    errs = step_diff(results["bf16", False], results["bf16", True])
+    say("train", t0, f"(a) one bf16 step, kernel path vs plain path: {describe(errs)}; "
+        f"bounds {BF16_STEP_BOUNDS}")
+    if bf16_misses(errs):
+        raise AssertionError(f"kernel path vs plain path, bf16 step: {bf16_misses(errs)}")
+    del results
+    torch.cuda.empty_cache()
+
+    # (b) the main path: 30 steps, counts zeroed just before, read just after
+    kernel = make_trainer(experiment, False, 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        history += kernel.train([batch], 1)  # metrics come back as floats: synced
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    launches = launch_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    mel = [h["model/mel_loss"] for h in history]
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"a metric went non-finite: {history}")
+    if not np.mean(mel[-5:]) < np.mean(mel[:5]):
+        raise AssertionError(f"mel loss did not fall: {mel}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    warm = step_ms[5:]
+    say("train", t0, f"(b) {TRAIN_STEPS} steps: mel_loss first 5 mean {np.mean(mel[:5]):.5f}, "
+        f"last 5 mean {np.mean(mel[-5:]):.5f}; per step: "
+        + ", ".join(f"{k}={history[-1][k]:.4f}" for k in history[-1]))
+    say("train", t0, f"ms per step (steps 6-{TRAIN_STEPS}, host clock, synced) mean "
+        f"{np.mean(warm):.1f} min {np.min(warm):.1f} max {np.max(warm):.1f}; first "
+        f"{step_ms[0]:.1f}; peak memory {peak_mib:.1f} MiB; launches {launches}, per step "
+        + str({k: v / TRAIN_STEPS for k, v in launches.items()}))
+
+    # (c) MAS durations from the aligner
+    outputs, _ = kernel.eval_step(batch)
+    hard = outputs.aligner_output.attn_hard_duration
+    ml = batch["mel_len"].float()
+    if not torch.equal(hard.sum(dim=1), ml):
+        raise AssertionError(f"durations sum to {hard.sum(dim=1).tolist()}, mel_len "
+                             f"{ml.tolist()}")
+    mask = torch.arange(TEXT_LEN, device="cuda")[None] < batch["text_vector_len"][:, None]
+    gap = ((hard - durations).abs() * mask).sum() / mask.sum()
+    say("train", t0, f"(c) MAS durations sum to mel_len in all {BATCH} rows; mean |MAS - "
+        f"Synthesizer duration| {gap.item():.2f} frames per token (not a gate)")
+    return kernel, batch, launches
+
+
+# ---------------------------------------------------------------- records
+def kernel_records(batch, launches, serve_launches):
+    """Every kernel's numbers at the training path's shapes: the decoder's
+    attention (B 32, N = M = 320, H 6, bf16, dropout 0.1, the batch's frame
+    counts), the aligner's MAS and the attention loss's CTC (B 32, M 320,
+    T 48, the batch's lengths)."""
+    import torch
+    import torch.nn.functional as F
+
+    from isp_tts_tpu_torch.ops import mas
+    from isp_tts_tpu_torch.ops.flash_attention import (mqa_attention_reference, mqa_bwd,
+                                                       mqa_bwd_reference, mqa_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, N, H, rate, scale = BATCH, MEL_LEN, 6, 0.1, 64 ** -0.5
+    q, k, v, slopes, _, _ = mqa_inputs(B, N, N, H, torch.bfloat16, True, gen)
+    lens = batch["mel_len"].contiguous()
+    seed = seed_tensor(2024)
+    o, lse = mqa_fwd(q, k, v, slopes, lens, scale, 0, lens, False, rate, seed)
+    o_ref, _ = mqa_attention_reference(q, k, v, slopes, lens, scale, 0, lens, False, rate, seed)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    grads = mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate)
+    grads_ref = mqa_bwd_reference(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0,
+                                  False, rate)
+    k1_bound = mqa_bound(q, k, lens, lens)
+    k2_bound = mqa_bound(q, k, lens, lens, backward=True)
+    k2_lib = cuda_ms(library_call(q, k, v, slopes, lens, scale, do=do), iters=10)
+    shape = f"B={B} N=M={N} H={H} D=64 bfloat16 dropout={rate}"
+    records = [
+        {"name": "K1 mqa_fwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mqa_fwd.cu",
+         "replaces": "isp_tts_tpu/ops/flash_attention.py:736", "launches": launches["K1 mqa_fwd"],
+         "launches_serving": serve_launches,
+         "max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
+         "ms": cuda_ms(lambda: mqa_fwd(q, k, v, slopes, lens, scale, 0, lens, False, rate,
+                                       seed)),
+         "plain_ms": cuda_ms(lambda: mqa_attention_reference(q, k, v, slopes, lens, scale, 0,
+                                                             lens, False, rate, seed),
+                             iters=5),
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": cuda_ms(library_call(q, k, v, slopes, lens, scale)), "shape": shape},
+        {"name": "K2 mqa_bwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mqa_bwd.cu",
+         "replaces": "isp_tts_tpu/ops/flash_attention.py:998 (K2a), :836 + :927 (K2b)",
+         "launches": launches["K2 mqa_bwd"],
+         "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(grads, grads_ref)),
+         "ms": cuda_ms(lambda: mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale,
+                                       0, False, rate)),
+         "plain_ms": cuda_ms(lambda: mqa_bwd_reference(q, k, v, slopes, lens, lens, seed, o,
+                                                       lse, do, scale, 0, False, rate),
+                             iters=5),
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": k2_lib,
+         "shape": shape},
+    ]
+    torch.cuda.empty_cache()
+
+    T = TEXT_LEN
+    la, _, _ = mas_inputs(B, MEL_LEN, T, gen)
+    tl, ml = batch["text_vector_len"].contiguous(), batch["mel_len"].contiguous()
+    got = mas.monotonic_alignment_search(la, tl, ml)
+    ref = mas.monotonic_alignment_search_reference(la, tl, ml)
+    valid = int((tl.long() * ml.long()).sum())
+    k3_bound = bound_ms(4 * valid + 4 * la.numel() + 8 * B, 3 * valid)
+    records.append(
+        {"name": "K3 mas", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mas.cu",
+         "replaces": "isp_tts_tpu/ops/mas_pallas.py:44 + :66", "launches": launches["K3 mas"],
+         "max_abs_err": (got - ref).abs().max().item(),
+         "ms": cuda_ms(lambda: mas.monotonic_alignment_search(la, tl, ml)),
+         "plain_ms": cuda_ms(lambda: mas.monotonic_alignment_search_reference(la, tl, ml),
+                             iters=3, warmup=1),
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+         "shape": f"B={B} M={MEL_LEN} T={T} float32"})
+
+    lp, _, _ = ctc_inputs(B, MEL_LEN, T, gen)
+    g = torch.rand((B,), generator=gen, device="cuda")
+    neg, dlp = k4_pair(lp, tl, ml, g)
+    neg_r, dlp_r = k4_pair(lp, tl, ml, g, plain=True)
+    W = T + 1
+    frames = int(ml.long().sum())
+    # lp read once, the gradient written once; ~34 operations per (valid
+    # frame, state): two logaddexps forward, two and the occupancies back
+    k4_bound = bound_ms(4 * frames * W + 4 * lp.numel() + 12 * B, 34 * frames * W)
+    x = lp.detach().requires_grad_()
+    labels = torch.arange(1, T + 1, device="cuda").repeat(B, 1)
+
+    def library():
+        loss = F.ctc_loss(x.transpose(0, 1), labels, ml.long(), tl.long(), blank=0,
+                          reduction="sum", zero_infinity=True)
+        torch.autograd.grad(loss, x)
+
+    records.append(
+        {"name": "K4 ctc (fwd + bwd)", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/ctc.cu",
+         "replaces": "isp_tts_tpu/ops/ctc_pallas.py:77 + :114",
+         "launches": launches["K4 ctc_fwd"] + launches["K4 ctc_bwd"],
+         "launches_fwd": launches["K4 ctc_fwd"], "launches_bwd": launches["K4 ctc_bwd"],
+         "max_abs_err": max((neg - neg_r).abs().max().item(), (dlp - dlp_r).abs().max().item()),
+         "ms": cuda_ms(lambda: k4_pair(lp, tl, ml, g)),
+         "plain_ms": cuda_ms(lambda: k4_pair(lp, tl, ml, g, plain=True), iters=3, warmup=1),
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": cuda_ms(library),
+         "shape": f"B={B} M={MEL_LEN} T+1={W} float32"})
+    return records
 
 
 def main() -> int:
@@ -363,12 +917,15 @@ def main() -> int:
     phase_env(t0)
     phase_build(t0)
     phase_kernel(t0)
+    phase_kernel_train(t0)
     synth, launches, dec, fb = phase_slice(t0)
-    phase_profile(t0, synth, SENTENCES[0], "one sentence")
-    phase_profile(t0, synth, SENTENCES, "batch of 3")
-    record = kernel_record(launches, dec, fb)
+    phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
+    phase_profile(t0, lambda: synth(SENTENCES), "batch of 3")
+    trainer, batch, train_launches = phase_train(t0, synth)
+    phase_profile(t0, lambda: trainer.train([batch], 1), "one training step")
+    records = kernel_records(batch, train_launches, launches["K1 mqa_fwd"])
     say("done", t0)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,12 @@
 // n + offset. Rows with n >= q_lens[b], or that saw no valid key, write
 // o = 0 and lse = +inf, as the TPU kernel does.
 //
+// Dropout (thresh < 256) acts on the post-softmax probabilities: the
+// normaliser l sums the undropped p, the value product the dropped ones.
+// The keep bit of (b, row r, key c) is the TPU kernel's _keep_hash of the
+// folded index (b*R + r)*M + c plus the seed, all in uint32 arithmetic, so
+// the backward (mqa_bwd.cu) regenerates it bit for bit.
+//
 // What bounds it on an H100: at the serving shapes (N = M <= 2048, D = 64)
 // it does 4*D operations per (row, key) pair against 2*D*bytes of K/V per
 // key, so the fold of H heads onto one K/V head is what keeps it off the
@@ -34,6 +40,16 @@ constexpr int BR = 64;   // folded rows per block = threads per block
 constexpr int BK = 64;   // keys per shared-memory tile
 constexpr int CK = 16;   // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;
+
+// keep iff the top byte of the hash of (idx + seed) is below thresh
+__device__ __forceinline__ bool keep_bit(uint32_t idx, uint32_t seed,
+                                         uint32_t thresh) {
+  uint32_t u = idx + seed;
+  u *= 2654435761u;
+  u ^= u >> 17;
+  u *= 0x45D9F3Bu;
+  return (u >> 24) < thresh;
+}
 
 __device__ __forceinline__ void widen8(const float* src, float* dst) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
@@ -63,8 +79,9 @@ __global__ void __launch_bounds__(BR)
 mqa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const float* __restrict__ slopes,
                const int* __restrict__ key_lens, const int* __restrict__ q_lens,
-               T* __restrict__ o, float* __restrict__ lse, int N, int M, int H,
-               int offset, int causal, float scale) {
+               const int* __restrict__ seed_ptr, T* __restrict__ o,
+               float* __restrict__ lse, int N, int M, int H, int offset,
+               int causal, float scale, int thresh, float inv_keep) {
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -81,6 +98,11 @@ mqa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float hi = in_range ? slopes[H + h] : 0.f;
   // this row's valid keys are [0, lim)
   const int lim = causal ? min(key_len, max(n + offset + 1, 0)) : key_len;
+  const bool drop = thresh < 256;
+  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
+  // folded index of (b, r, key 0); uint32 wrap as on the TPU
+  const uint32_t idx0 = (static_cast<uint32_t>(b) * static_cast<uint32_t>(R) +
+                         static_cast<uint32_t>(r)) * static_cast<uint32_t>(M);
 
   // keys the block as a whole needs (block-uniform: bounds the tile loop)
   int kend = key_len;
@@ -154,8 +176,13 @@ mqa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < CK; ++jj) {
-        const float p = (c0 + j0 + jj < lim) ? expf(s[jj] - m_new) : 0.f;
+        const int c = c0 + j0 + jj;
+        float p = (c < lim) ? expf(s[jj] - m_new) : 0.f;
         l += p;
+        if (drop) {
+          p = keep_bit(idx0 + static_cast<uint32_t>(c), seed,
+                       static_cast<uint32_t>(thresh)) ? p * inv_keep : 0.f;
+        }
         const float4* vr = reinterpret_cast<const float4*>(vs[j0 + jj]);
 #pragma unroll
         for (int d4 = 0; d4 < D / 4; ++d4) {
@@ -183,8 +210,9 @@ mqa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
                            const void* slopes, const void* key_lens,
-                           const void* q_lens, void* o, void* lse, int B, int N,
-                           int M, int H, int offset, int causal, float scale,
+                           const void* q_lens, const void* seed, void* o,
+                           void* lse, int B, int N, int M, int H, int offset,
+                           int causal, float scale, int thresh, float inv_keep,
                            int dtype, void* stream) {
   const dim3 grid((N * H + BR - 1) / BR, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -193,16 +221,18 @@ extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(slopes),
         static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
-        static_cast<float*>(o), static_cast<float*>(lse), N, M, H, offset,
-        causal, scale);
+        static_cast<const int*>(seed), static_cast<float*>(o),
+        static_cast<float*>(lse), N, M, H, offset, causal, scale, thresh,
+        inv_keep);
   } else if (dtype == 1) {
     mqa_fwd_kernel<__nv_bfloat16><<<grid, BR, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
         static_cast<const float*>(slopes), static_cast<const int*>(key_lens),
-        static_cast<const int*>(q_lens), static_cast<__nv_bfloat16*>(o),
-        static_cast<float*>(lse), N, M, H, offset, causal, scale);
+        static_cast<const int*>(q_lens), static_cast<const int*>(seed),
+        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), N, M, H,
+        offset, causal, scale, thresh, inv_keep);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,11 +1,14 @@
-"""Flow-matching temporal adaptor, inference path.
+"""Flow-matching temporal adaptor: training forward and inference.
 
-Counterpart of ``isp_tts_tpu/models/acoustic/adaptor.py``:
-``FlowTransformerTemporalModule.infer`` (Euler ODE over the geometric time
-grid), ``FlowTemporalAdaptor.infer`` (durations with the -1 sentinel, the
-factor and delta controls, the pitch/energy feature embedding) and the hard
-and soft length regulators. The flow noise is an argument, or is drawn from
-a ``torch.Generator``.
+Counterpart of ``isp_tts_tpu/models/acoustic/adaptor.py``: the OT-CFM
+training forward (``FlowTransformerTemporalModule.__call__``,
+``FlowTemporalAdaptor.__call__``, with the JAX code's stop_gradient points
+as ``.detach()``), ``FlowTransformerTemporalModule.infer`` (Euler ODE over
+the geometric time grid), ``FlowTemporalAdaptor.infer`` (durations with the
+-1 sentinel, the factor and delta controls, the pitch/energy feature
+embedding), the hard and soft length regulators and the mel -> token
+averagers. The flow noise and time are arguments, or are drawn from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -19,9 +22,14 @@ from torch import nn
 from ...config import as_dict, build_config
 from ...nn.embeddings import TimePositionalEmbedding
 from ...nn.transformer import Transformer, TransformerConfig
-from ...utils.masks import get_float_mask_from_lengths, get_mask_3d
+from ...utils.autocast import no_autocast
+from ...utils.masks import get_float_mask_from_lengths, get_mask_3d, masked_mean
+
+#: OT-CFM's minimum noise scale (the JAX config's ``sigma``, never changed)
+SIGMA = 1e-5
 
 
+@no_autocast
 def length_regulate_hard(x: torch.Tensor, durations: torch.Tensor, max_len: int):
     """Repeat token states (B, T, C) by rounded durations (B, T) into
     (B, max_len, C); returns (out, dec_lens clipped at max_len)."""
@@ -34,6 +42,7 @@ def length_regulate_hard(x: torch.Tensor, durations: torch.Tensor, max_len: int)
     return out, dec_lens.clamp_max(max_len)
 
 
+@no_autocast
 def length_regulate_soft(x: torch.Tensor, durations: torch.Tensor,
                          alignment: torch.Tensor, max_len: int | None = None):
     """Soft expansion with a fractional alignment (B, M, T): out = A @ x."""
@@ -43,6 +52,28 @@ def length_regulate_soft(x: torch.Tensor, durations: torch.Tensor,
         out = out[:, :max_len]
         dec_lens = dec_lens.clamp_max(max_len)
     return out, dec_lens
+
+
+@no_autocast
+def average_by_alignment(x: torch.Tensor, alignment: torch.Tensor) -> torch.Tensor:
+    """Mel-frame -> token averages with a soft alignment: x (B, M),
+    alignment (B, M, T) -> (B, T)."""
+    colsum = alignment.sum(dim=1)
+    return torch.einsum("bm,bmt->bt", x, alignment) / (colsum + 1e-5)
+
+
+def average_by_duration(x: torch.Tensor, durations: torch.Tensor) -> torch.Tensor:
+    """Segment means over hard durations, counting nonzero frames only:
+    x (B, M), durations (B, T) -> (B, T)."""
+    M = x.shape[1]
+    ends = torch.cumsum(durations, dim=1).to(torch.int64)
+    starts = nn.functional.pad(ends[:, :-1], (1, 0))
+    x_csum = nn.functional.pad(torch.cumsum(x, dim=1), (1, 0))
+    nz_csum = nn.functional.pad(torch.cumsum((x != 0).float(), dim=1), (1, 0))
+    ends, starts = ends.clamp(0, M), starts.clamp(0, M)
+    sums = x_csum.gather(1, ends) - x_csum.gather(1, starts)
+    counts = nz_csum.gather(1, ends) - nz_csum.gather(1, starts)
+    return torch.where(counts == 0, 0.0, sums / counts.clamp_min(1.0))
 
 
 def generate_soft_path(durations: torch.Tensor, mask3d: torch.Tensor) -> torch.Tensor:
@@ -119,6 +150,35 @@ class FlowTransformerTemporalModule(nn.Module):
         h = torch.cat([x_t, cond], dim=-1)
         return self.linear(self.transformer(h, mask=mask, adaptive_condition=t_emb))
 
+    def forward(self, x: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor | None = None, noise: torch.Tensor | None = None,
+                t: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """Training: t ~ U(0, 1), the OT-CFM flow target, masked MSE.
+
+        ``noise`` (x0, shaped like ``targets``) and ``t`` (B,) are drawn from
+        ``generator`` (noise first) when not given. Returns
+        (x_pred detached, {"flow_loss": loss}).
+        """
+        B, T, _ = x.shape
+        if mask is None:
+            mask = torch.ones((B, T), dtype=torch.bool, device=x.device)
+        x1 = targets.detach().float()
+        if noise is None:
+            noise = torch.randn(x1.shape, generator=generator, device=x.device)
+        if t is None:
+            t = torch.rand((B,), generator=generator, device=x.device)
+        x0, t = noise.to(x1), t.to(x1)
+        t_emb = self.time_embedding(t)
+        tb = t[:, None, None]
+        x_t = (1.0 - (1.0 - SIGMA) * tb) * x0 + tb * x1
+        flow = x1 - (1.0 - SIGMA) * x0
+        fmask = mask[..., None].float()
+        pred_flow = self._velocity(x_t, x, t_emb, mask).float() * fmask
+        loss = masked_mean((pred_flow - flow) ** 2, fmask)
+        x_pred = ((x0 + pred_flow) * fmask).detach()
+        return x_pred, {"flow_loss": loss}
+
     def infer(self, x: torch.Tensor, mask: torch.Tensor | None = None,
               steps: int = 4, step_factor: float = 0.75,
               noise: torch.Tensor | None = None,
@@ -146,6 +206,10 @@ class TemporalAdaptorOutput(NamedTuple):
     dec_lengths: torch.Tensor  # (B,) int32
     pitch: torch.Tensor | None
     energy: torch.Tensor | None
+    log_duration: torch.Tensor | None = None  # training only, like the rest
+    pitch_target: torch.Tensor | None = None
+    energy_target: torch.Tensor | None = None
+    losses: dict | None = None
 
 
 @dataclass
@@ -174,6 +238,66 @@ class FlowTemporalAdaptor(nn.Module):
         self.embedding = TransformerTemporalModule(
             build_config(TemporalModuleConfig, as_dict(cfg.embedding),
                          input_dim=self.feature_dim - 1, output_dim=cfg.encoder_dim))
+
+    def _average_target(self, dense, duration_target, alignment, enc_mask):
+        if alignment is not None:
+            tok = average_by_alignment(dense, alignment)
+        else:
+            tok = average_by_duration(dense, duration_target)
+        return tok * enc_mask.to(tok.dtype)
+
+    def forward(self, enc_out: torch.Tensor, enc_mask: torch.Tensor, max_dec_len: int,
+                duration_target: torch.Tensor, alignment: torch.Tensor | None = None,
+                pitch_target_dense: torch.Tensor | None = None,
+                energy_target_dense: torch.Tensor | None = None,
+                noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> TemporalAdaptorOutput:
+        """Training forward.
+
+        enc_out (B, T, C), enc_mask (B, T) bool; duration_target (B, T) hard
+        durations from the aligner; alignment (B, M, T) soft alignment (used
+        with soft_duration); pitch/energy_target_dense (B, M) frame targets;
+        noise/t/generator: the flow predictor's draws.
+        """
+        if self.soft_duration and alignment is None:
+            raise ValueError("soft_duration requires the soft alignment")
+        alignment = alignment if self.soft_duration else None
+        feats = [torch.log1p(duration_target)[..., None]]
+        pitch_target = energy_target = None
+        if self.use_pitch:
+            pitch_target = self._average_target(pitch_target_dense, duration_target,
+                                                alignment, enc_mask)
+            feats.append(pitch_target[..., None])
+        if self.use_energy:
+            energy_target = self._average_target(energy_target_dense, duration_target,
+                                                 alignment, enc_mask)
+            feats.append(energy_target[..., None])
+        pred, losses = self.predictor(enc_out, torch.cat(feats, dim=-1), enc_mask,
+                                      noise=noise, t=t, generator=generator)
+        log_duration = pred[..., 0]
+        duration = (torch.exp(log_duration) - 1.0).clamp_min(0.0)
+
+        # teacher-forced features feed the embedding network
+        emb_feats = []
+        pitch = energy = None
+        if self.use_pitch:
+            pitch = pred[..., self.pitch_idx]
+            emb_feats.append(pitch_target.detach()[..., None])
+        if self.use_energy:
+            energy = pred[..., self.energy_idx]
+            emb_feats.append(energy_target.detach()[..., None])
+        if emb_feats:
+            enc_out = enc_out + self.embedding(torch.cat(emb_feats, dim=-1), mask=enc_mask)
+
+        if alignment is not None:
+            reg_out, dec_lens = length_regulate_soft(enc_out, duration_target, alignment,
+                                                     max_len=max_dec_len)
+        else:
+            reg_out, dec_lens = length_regulate_hard(enc_out, duration_target, max_dec_len)
+        return TemporalAdaptorOutput(
+            enc_out=reg_out, duration=duration, dec_lengths=dec_lens, pitch=pitch,
+            energy=energy, log_duration=log_duration, pitch_target=pitch_target,
+            energy_target=energy_target, losses=losses)
 
     def infer(self, enc_out: torch.Tensor, enc_mask: torch.Tensor | None = None,
               max_dec_len: int = 2048, duration_target: torch.Tensor | None = None,

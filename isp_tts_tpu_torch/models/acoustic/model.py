@@ -1,15 +1,17 @@
-"""The acoustic model's synthesis path: text ids -> mel.
+"""The acoustic model: text ids -> mel, for training and synthesis.
 
-Counterpart of ``isp_tts_tpu/models/acoustic/model.py:AcousticModel.infer``:
-text embedding, ALiBi-MQA encoder, optional speaker embedding, the flow
-temporal adaptor, length regulation, the decoder and ``to_mel``. The
-aligner is a training module and is not built here. The mel is channel-last,
-(B, frames, mel_dim), as in the JAX package.
+Counterpart of ``isp_tts_tpu/models/acoustic/model.py:AcousticModel``: text
+embedding, ALiBi-MQA encoder, the aligner on the detached encoder output
+(training), optional speaker embedding, the flow temporal adaptor, length
+regulation, the decoder and ``to_mel``. ``forward`` is the training
+forward (``__call__`` there), ``infer`` the synthesis path. The mel is
+channel-last, (B, frames, mel_dim), as in the JAX package.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -19,6 +21,13 @@ from ...nn.transformer import Transformer, TransformerConfig
 from ...utils.masks import get_mask_from_lengths
 from ..base import Model
 from .adaptor import FlowTemporalAdaptor, FlowTemporalAdaptorConfig, TemporalAdaptorOutput
+from .aligner import Aligner, AlignerConfig, AlignerOutput
+
+
+class AcousticModelOutput(NamedTuple):
+    mel: torch.Tensor  # (B, M, mel_dim)
+    adaptor_output: TemporalAdaptorOutput
+    aligner_output: AlignerOutput | None
 
 
 @dataclass
@@ -30,6 +39,7 @@ class AcousticModelConfig:
     decoder: TransformerConfig = field(default_factory=TransformerConfig)
     temporal_adaptor: FlowTemporalAdaptorConfig = field(
         default_factory=FlowTemporalAdaptorConfig)
+    aligner: AlignerConfig = field(default_factory=AlignerConfig)
     num_speakers: int | None = 0
     pitch_mean: float | None = None
     pitch_std: float | None = None
@@ -37,9 +47,6 @@ class AcousticModelConfig:
 
 class AcousticModel(Model):
     Config = AcousticModelConfig
-    #: parameter prefixes of training-only modules: a checkpoint's tensors
-    #: under them are not loaded for synthesis
-    training_only = ("aligner.",)
 
     def __init__(self, config: AcousticModelConfig):
         super().__init__()
@@ -52,6 +59,8 @@ class AcousticModel(Model):
         self.text_embedding = nn.Embedding(len(cfg.encoding_map), cfg.text_dim)
         enc_cfg = build_config(TransformerConfig, as_dict(cfg.encoder), emb_dim=cfg.text_dim)
         self.encoder = Transformer(enc_cfg)
+        self.aligner = Aligner(build_config(AlignerConfig, as_dict(cfg.aligner),
+                                            mel_dim=cfg.mel_dim, text_dim=enc_cfg.dim))
         num_speakers = cfg.num_speakers or 0
         self.speaker_embedding = (nn.Embedding(num_speakers, enc_cfg.dim)
                                   if num_speakers > 0 else None)
@@ -63,6 +72,42 @@ class AcousticModel(Model):
         self.to_mel = nn.Linear(dec_cfg.dim, cfg.mel_dim)
         self.register_buffer("pitch_mean", torch.tensor(float(cfg.pitch_mean or 0.0)))
         self.register_buffer("pitch_std", torch.tensor(float(cfg.pitch_std or 1.0)))
+
+    def forward(self, text: torch.Tensor, text_len: torch.Tensor, mel: torch.Tensor,
+                mel_len: torch.Tensor, pitch: torch.Tensor | None = None,
+                energy: torch.Tensor | None = None, speaker: torch.Tensor | None = None,
+                noise: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> AcousticModelOutput:
+        """Training forward.
+
+        text (B, T) token ids, text_len (B,); mel (B, M, mel_dim) target mel
+        (channel-last), mel_len (B,); pitch / energy (B, M) frame targets;
+        speaker (B,) ids; noise (B, T, features) / t (B,) / generator: the
+        flow predictor's draws.
+        """
+        T, M = text.shape[1], mel.shape[1]
+        enc_mask = get_mask_from_lengths(text_len, T)
+        enc_out = self.encoder(self.text_embedding(text), mask=enc_mask)
+        aligner_output = self.aligner(mel, enc_out.detach(), mel_len, text_len)
+        if self.speaker_embedding is not None and speaker is not None:
+            enc_out = enc_out + self.speaker_embedding(speaker)[:, None, :]
+        ad = self.temporal_adaptor(
+            enc_out, enc_mask, M, aligner_output.attn_hard_duration,
+            alignment=aligner_output.attn_soft, pitch_target_dense=pitch,
+            energy_target_dense=energy, noise=noise, t=t, generator=generator)
+        dec_mask = get_mask_from_lengths(ad.dec_lengths, M)
+        mel_out = self.to_mel(self.decoder(ad.enc_out, mask=dec_mask))
+        mel_out = mel_out * dec_mask[..., None].to(mel_out.dtype)
+        return AcousticModelOutput(mel=mel_out, adaptor_output=ad,
+                                   aligner_output=aligner_output)
+
+    @staticmethod
+    def prepare_inputs(batch: dict) -> dict:
+        """A collated batch (the JAX collator's key names) -> forward kwargs."""
+        return {"text": batch["text_vector"], "text_len": batch["text_vector_len"],
+                "mel": batch["mel"], "mel_len": batch["mel_len"],
+                "pitch": batch.get("pitch"), "energy": batch.get("energy"),
+                "speaker": batch.get("speaker")}
 
     @torch.no_grad()
     def infer(self, input_sequence: torch.Tensor,

@@ -3,7 +3,9 @@
 Counterpart of ``isp_tts_tpu/models/base.py``. :func:`load_jax_state` maps
 the JAX package's flat dotted parameter names (``Model.state_dict()`` there,
 or a checkpoint's ``state``) onto the port's module tree: flax's Dense
-``kernel`` (in, out) becomes torch's ``weight`` (out, in), LayerNorm
+``kernel`` (in, out) becomes torch's ``weight`` (out, in), a Conv ``kernel``
+(K, in, out) the Conv1d ``weight`` (out, in, K) by the same reversal of
+axes, LayerNorm
 ``scale`` and Embed ``embedding`` become ``weight``, and every value is cast
 to the port parameter's dtype, as ``load_params`` casts to the live one.
 """
@@ -35,19 +37,15 @@ class Model(nn.Module):
     """Base for the port's models; subclasses set ``Config``."""
 
     Config: type = None  # type: ignore
-    #: prefixes of checkpoint tensors that belong to training-only modules
-    training_only: tuple = ()
 
     def load_jax_state(self, flat: dict[str, np.ndarray]) -> None:
         """Load the JAX package's flat parameters, strictly: every port
         tensor must be given with its shape, and every given tensor must be
-        used, apart from those under ``training_only`` prefixes."""
+        used."""
         own = self.state_dict()
         mapped: dict[str, torch.Tensor] = {}
         unexpected = []
         for key, value in flat.items():
-            if key.startswith(self.training_only):
-                continue
             name, transpose = torch_name(key)
             if name not in own:
                 unexpected.append(key)

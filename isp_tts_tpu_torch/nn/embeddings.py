@@ -47,14 +47,6 @@ def sinusoidal_embedding(positions: torch.Tensor, dim: int, theta: float = 10000
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
-def alibi_distance_bias(n_q: int, n_k: int, offset: int = 0,
-                        device=None) -> torch.Tensor:
-    """(n_q, n_k) matrix of -|j - (i + offset)|."""
-    i = torch.arange(offset, n_q + offset, device=device)
-    j = torch.arange(n_k, device=device)
-    return -(j[None, :] - i[:, None]).abs().float()
-
-
 class LearnedALiBiBias(nn.Module):
     """ALiBi with trainable per-head log-slopes; ``symmetric=False`` keeps
     separate lower- and upper-triangle slopes. The parameter's shape is the
@@ -69,24 +61,6 @@ class LearnedALiBiBias(nn.Module):
         if not symmetric:
             slopes = torch.stack([slopes, torch.roll(slopes, -1, dims=0)])
         self.log_slopes = nn.Parameter(torch.log(slopes))
-
-    def apply_slopes(self, dist: torch.Tensor, offset: int = 0) -> torch.Tensor:
-        """This layer's slopes on a (n_q, n_k) distance matrix ->
-        (total_heads, n_q, n_k) bias; heads past ``heads`` get none."""
-        n_q, n_k = dist.shape
-        slopes = torch.exp(self.log_slopes.float())
-        if self.symmetric:
-            bias = slopes * dist[None]
-        else:
-            i = torch.arange(n_q, device=dist.device)[:, None]
-            j = torch.arange(n_k, device=dist.device)[None, :]
-            lower = j <= i + offset
-            bias = torch.where(lower[None], slopes[0] * dist[None],
-                               slopes[1] * dist[None])
-        if self.total_heads > self.heads:
-            pad = bias.new_zeros((self.total_heads - self.heads, n_q, n_k))
-            bias = torch.cat([bias, pad], dim=0)
-        return bias
 
     def slopes2(self) -> torch.Tensor:
         """(2, total_heads) [lower, upper] slopes for the kernel path."""

@@ -1,7 +1,5 @@
-"""Position-wise feed-forward block (counterpart of ``isp_tts_tpu/nn/feedforward.py``).
-
-Inference only: a config's dropout is ignored.
-"""
+"""Position-wise feed-forward block (counterpart of ``isp_tts_tpu/nn/feedforward.py``):
+Linear -> activation (or GLU) -> dropout (train mode) -> Linear."""
 
 from __future__ import annotations
 
@@ -10,13 +8,14 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .layers import choose_activation
+from .layers import FastDropout, choose_activation
 
 
 @dataclass
 class FeedForwardConfig:
     dim: int = 384
     inner_dim: int = 1536
+    dropout: float = 0.0
     activation: str = "relu"
     bias: bool = False
     glu: bool = False
@@ -31,6 +30,7 @@ class FeedForward(nn.Module):
         self.fc1 = nn.Linear(cfg.dim, cfg.inner_dim * (2 if cfg.glu else 1),
                              bias=cfg.bias)
         self.fc2 = nn.Linear(cfg.inner_dim, cfg.dim, bias=cfg.bias)
+        self.dropout = FastDropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)
@@ -39,4 +39,4 @@ class FeedForward(nn.Module):
             h = h * self.act(gate)
         else:
             h = self.act(h)
-        return self.fc2(h)
+        return self.fc2(self.dropout(h))

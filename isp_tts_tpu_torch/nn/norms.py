@@ -38,5 +38,9 @@ class AdaptiveLayerNorm(nn.Module):
         if condition is not None:
             if condition.dim() == x.dim() - 1:
                 condition = condition[:, None, :]
-            normed = self.weight(condition) * normed + self.bias(condition)
+            # f32 maps of the condition, as the JAX package's AdaLN linears
+            # (built without a compute dtype) under a bf16 policy
+            with torch.autocast(x.device.type, enabled=False):
+                c = condition.float()
+                normed = self.weight(c) * normed + self.bias(c)
         return normed.to(x.dtype)

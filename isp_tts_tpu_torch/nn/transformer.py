@@ -48,13 +48,13 @@ class TransformerLayer(nn.Module):
         self.feed_forward = FeedForward(
             build_config(FeedForwardConfig, as_dict(cfg.feed_forward), dim=cfg.dim))
 
-    def forward(self, x, mask=None, adaptive_condition=None, shared_bias=None):
+    def forward(self, x, mask=None, adaptive_condition=None):
         if self.adaptive_norm and adaptive_condition is None:
             raise ValueError("adaptive_condition must be provided for AdaptiveLayerNorm")
         fmask = mask[..., None].to(x.dtype) if mask is not None else None
         residual = x
         out = self.attention_norm(x, adaptive_condition) if self.pre_norm else x
-        out, shared_bias = self.attention(out, mask=mask, shared_bias=shared_bias)
+        out = self.attention(out, mask=mask)
         out = out + residual
         if not self.pre_norm:
             out = self.attention_norm(out, adaptive_condition)
@@ -68,7 +68,7 @@ class TransformerLayer(nn.Module):
             out = self.feed_forward_norm(out, adaptive_condition)
         if fmask is not None:
             out = out * fmask
-        return out, shared_bias
+        return out
 
 
 @dataclass
@@ -108,10 +108,8 @@ class Transformer(nn.Module):
                                                device=x.device, dtype=x.dtype)
         if self.project_emb is not None:
             x = self.project_emb(x)
-        shared_bias = None
         for layer in self.layers:
-            x, shared_bias = layer(x, mask=mask, adaptive_condition=adaptive_condition,
-                                   shared_bias=shared_bias)
+            x = layer(x, mask=mask, adaptive_condition=adaptive_condition)
         if self.norm is not None:
             x = self.norm(x)
         if mask is not None:

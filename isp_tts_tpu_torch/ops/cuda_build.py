@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
 
 #: name -> loaded library; filled by :func:`load`
 _LOADED: dict[str, ctypes.CDLL] = {}
-#: name -> {"seconds": build seconds (0.0 when cached), "log": nvcc output}
+#: name -> {"seconds": seconds from the start of its build batch to the end of
+#: its nvcc (0.0 when cached), "log": nvcc output}
 BUILD_INFO: dict[str, dict] = {}
 
 
@@ -56,27 +57,58 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached"})
+    return build_all([name])[name]
+
+
+def build_all(names: list[str]) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing, one
+    nvcc process per source, all started together; raise if any fails."""
+    out = {name: library_path(name) for name in names}
+    todo = [n for n in names if not out[n].exists()]
+    for name in names:
+        if name not in todo:
+            BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached"})
+    if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a temporary name and rename: a concurrent build or a run
-    # cut mid-build never leaves a half-written library under the real name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    # build to temporary names and rename: a concurrent build or a run cut
+    # mid-build never leaves a half-written library under the real name
+    jobs = {}
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(nvcc_command(CSRC / f"{name}.cu", Path(tmp)),
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-        os.replace(tmp, out)
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            log = tempfile.TemporaryFile(mode="w+")
+            proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", Path(tmp)),
+                                    stdout=log, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, log)
+        pending = set(todo)
+        while pending:
+            for name in sorted(pending):
+                proc, tmp, log = jobs[name]
+                if proc.poll() is None:
+                    if time.perf_counter() - t0 > 600:
+                        raise RuntimeError(f"nvcc took over 600 s for {name}.cu")
+                    continue
+                pending.discard(name)
+                log.seek(0)
+                BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log.read()}
+            time.sleep(0.05)
+        failed = [f"nvcc failed for {name}.cu:\n{BUILD_INFO[name]['log']}"
+                  for name, (proc, _, _) in jobs.items() if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, (_, tmp, _) in jobs.items():
+            os.replace(tmp, out[name])
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                        "log": proc.stdout + proc.stderr}
+        for proc, tmp, log in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return out
 
 

@@ -1,13 +1,23 @@
-"""Folded multi-query attention forward (kernel K1) and its plain version.
+"""Folded multi-query attention: forward (kernel K1), backward (kernel K2),
+their plain versions, and the autograd function that joins them.
 
-Counterpart of the forward of ``isp_tts_tpu/ops/flash_attention.py:flash_attention_mqa``
-(``_mqa_fwd`` -> Pallas ``_mqa_fwd_kernel``); symmetric ALiBi is two equal
-slope rows. On a CUDA tensor
-:func:`mqa_fwd` launches the hand-written Hopper kernel in
-``csrc/mqa_fwd.cu``; on a CPU tensor it runs :func:`mqa_attention_reference`,
-the plain einsum version, which is also what the kernel is held against on
-the card. Any other device raises. Dropout is a training feature and comes
-with the backward (K2); inference never drops.
+Counterpart of ``isp_tts_tpu/ops/flash_attention.py:flash_attention_mqa``:
+the forward ``_mqa_fwd`` (Pallas ``_mqa_fwd_kernel``) and the backward
+``_mqa_bwd`` (Pallas ``_mqa_dfused_kernel`` when the key axis fits
+resident, ``_mqa_dq_kernel`` + ``_mqa_dkv_kernel`` above it). Symmetric
+ALiBi is two equal slope rows. On a CUDA tensor :func:`mqa_fwd` launches
+the hand-written Hopper kernel in ``csrc/mqa_fwd.cu`` and :func:`mqa_bwd`
+the one in ``csrc/mqa_bwd.cu`` (one design for both TPU regimes); on a CPU
+tensor they run :func:`mqa_attention_reference` and
+:func:`mqa_bwd_reference`, the plain einsum versions the kernels are held
+against on the card. Any other device raises.
+
+Dropout acts on the post-softmax probabilities, as in the JAX package: the
+normaliser uses the undropped probabilities, the value product the dropped
+ones. The keep mask is a pure integer hash of the global folded index
+``(b * N*H + n*H + h) * M + c`` plus a seed (``_keep_hash`` there), so the
+forward and the backward regenerate the same bits and nothing of shape
+(N*H, M) is stored.
 """
 
 from __future__ import annotations
@@ -16,14 +26,79 @@ import ctypes
 
 import torch
 
+from ..utils.autocast import no_autocast
+
 NEG_INF = -1e30
 HEAD_DIM = 64
+_M32 = 0xFFFFFFFF
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def dropout_thresh(rate: float) -> int:
+    """8-bit keep threshold: keep iff (hash >> 24) < thresh, a keep
+    probability of round((1 - rate) * 256) / 256."""
+    return int(round((1.0 - rate) * 256.0))
+
+
+def drop_params(rate: float) -> tuple[int, float] | None:
+    """(thresh, 1 / (1 - rate)), or None where the rate means no dropout
+    (0, or small enough to quantise to keep-everything)."""
+    if not rate:
+        return None
+    thresh = dropout_thresh(rate)
+    if thresh >= 256:
+        return None
+    return thresh, 1.0 / (1.0 - rate)
+
+
+def _mul32(u: torch.Tensor, c: int) -> torch.Tensor:
+    """u * c mod 2**32 for int64 u in [0, 2**32), without int64 overflow."""
+    return (u * (c & 0xFFFF) + (((u * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def keep_hash(idx: torch.Tensor, seed, thresh: int) -> torch.Tensor:
+    """The JAX package's ``_keep_hash`` in int64 arithmetic masked to 32
+    bits after every step: bool keep mask of int64 indices ``idx``."""
+    u = (idx + seed) & _M32
+    u = _mul32(u, 2654435761)
+    u = u ^ (u >> 17)
+    u = _mul32(u, 0x45D9F3B)
+    return (u >> 24) < thresh
+
+
+def mqa_keep_mask(B: int, N: int, H: int, M: int, seed: torch.Tensor,
+                  thresh: int) -> torch.Tensor:
+    """(B, N, H, M) keep mask; element (b, n, h, c) hashes the folded index
+    (b * N*H + n*H + h) * M + c with the (1,) int32 ``seed``."""
+    idx = torch.arange(B * N * H * M, dtype=torch.int64, device=seed.device)
+    return keep_hash(idx, seed.to(torch.int64), thresh).reshape(B, N, H, M)
+
+
+def _geometry(N, M, offset, slopes, device):
+    """(dist (N, M), lower (N, M), bias (N, H, M)) of the in-kernel ALiBi."""
+    n = torch.arange(N, device=device)[:, None]
+    c = torch.arange(M, device=device)[None, :]
+    dist = -(c - n - offset).abs().float()
+    lower = c <= n + offset
+    sl = slopes.float()
+    bias = torch.where(lower[:, None, :], sl[0][None, :, None] * dist[:, None, :],
+                       sl[1][None, :, None] * dist[:, None, :])
+    return dist, lower, bias
+
+
+def _valid(key_lens, lower, causal, M, device):
+    """(B, N|1, 1, M) bool: keys each query may attend."""
+    c = torch.arange(M, device=device)[None, :]
+    valid = c[None] < key_lens.to(device)[:, None, None]  # (B, 1, M)
+    if causal:
+        valid = valid & lower[None]
+    return valid[:, :, None, :]
+
+
+@no_autocast
 def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
-                            q_lens=None, causal=False):
+                            q_lens=None, causal=False, dropout_rate=0.0, seed=None):
     """Plain version of K1. Shapes as in :func:`mqa_fwd`; math in f32.
 
     Returns (o (B, N, H, D) in q's dtype, lse (B, N*H) f32).
@@ -31,23 +106,16 @@ def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
     B, N, H, _ = q.shape
     M = k.shape[1]
     dev = q.device
-    s = torch.einsum("bnhd,bmd->bnhm", q.float(), k.float()) * scale
-    n = torch.arange(N, device=dev)[:, None]
-    c = torch.arange(M, device=dev)[None, :]
-    dist = -(c - n - offset).abs().float()  # (N, M)
-    lower = c <= n + offset
-    sl = slopes.float()
-    bias = torch.where(lower[:, None, :], sl[0][None, :, None] * dist[:, None, :],
-                       sl[1][None, :, None] * dist[:, None, :])  # (N, H, M)
-    s = s + bias[None]
-    valid = c[None] < key_lens.to(dev)[:, None, None]  # (B, 1, M)
-    if causal:
-        valid = valid & lower[None]
-    valid = valid[:, :, None, :]  # (B, N|1, 1, M)
+    _, lower, bias = _geometry(N, M, offset, slopes, dev)
+    s = torch.einsum("bnhd,bmd->bnhm", q.float(), k.float()) * scale + bias[None]
+    valid = _valid(key_lens, lower, causal, M, dev)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * valid
     l = p.sum(dim=-1, keepdim=True)
+    drop = drop_params(dropout_rate)
+    if drop is not None:
+        p = p * mqa_keep_mask(B, N, H, M, seed, drop[0]) * drop[1]
     o = torch.einsum("bnhm,bmd->bnhd", p, v.float()) / l.clamp_min(1e-30)
     if q_lens is None:
         q_lens = torch.full((B,), N, dtype=torch.int32, device=dev)
@@ -59,14 +127,51 @@ def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
     return o, lse.reshape(B, N * H)
 
 
-def _check(q, k, v, slopes, key_lens, q_lens):
+@no_autocast
+def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
+                      offset=0, causal=False, dropout_rate=0.0):
+    """Plain version of K2: the gradients of K1's o from the saved o and lse.
+
+    p is recomputed as exp(s - lse) (0 on dead rows, whose lse is +inf);
+    delta = rowsum(dO * O); with dropout the mask multiplies p in dv and dp.
+    Returns (dq, dk, dv in their inputs' dtypes, dslopes (2, H) f32 split by
+    the lower and upper triangle).
+    """
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    dev = q.device
+    dist, lower, bias = _geometry(N, M, offset, slopes, dev)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bnhd,bmd->bnhm", qf, kf) * scale + bias[None]
+    s = s.masked_fill(~_valid(key_lens, lower, causal, M, dev), NEG_INF)
+    p = torch.exp(s - lse.reshape(B, N, H, 1))
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bnhd,bmd->bnhm", dof, vf)
+    pv = p
+    drop = drop_params(dropout_rate)
+    if drop is not None:
+        mf = mqa_keep_mask(B, N, H, M, seed, drop[0]) * drop[1]
+        pv = p * mf
+        dp = dp * mf
+    dv = torch.einsum("bnhm,bnhd->bmd", pv, dof)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bnhm,bmd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bnhm,bnhd->bmd", ds, qf) * scale
+    dsd = ds * dist[None, :, None, :]
+    low = lower[None, :, None, :]
+    dslopes = torch.stack([torch.where(low, dsd, 0.0).sum(dim=(0, 1, 3)),
+                           torch.where(low, 0.0, dsd).sum(dim=(0, 1, 3))])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dslopes
+
+
+def _check(q, k, v, slopes, key_lens, q_lens, seed, *more):
     if q.dim() != 4 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q must be (B, N, H, D) and k, v (B, M, D)")
     B, N, H, D = q.shape
     if D != HEAD_DIM:
-        raise ValueError(f"K1 takes head dim {HEAD_DIM}, got {D}")
+        raise ValueError(f"the attention kernels take head dim {HEAD_DIM}, got {D}")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"K1 takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"the attention kernels take float32 or bfloat16, got {q.dtype}")
     if k.shape != (B, k.shape[1], D) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -74,53 +179,52 @@ def _check(q, k, v, slopes, key_lens, q_lens):
         raise TypeError("q, k and v must share one dtype")
     if slopes.shape != (2, H) or slopes.dtype != torch.float32:
         raise ValueError(f"slopes must be (2, {H}) float32")
+    if H > 64:
+        raise ValueError(f"the attention kernels take at most 64 heads, got {H}")
     for name, lens in (("key_lens", key_lens), ("q_lens", q_lens)):
         if lens.shape != (B,) or lens.dtype != torch.int32:
             raise ValueError(f"{name} must be ({B},) int32")
-    for name, t in (("q", q), ("k", k), ("v", v), ("slopes", slopes),
-                    ("key_lens", key_lens), ("q_lens", q_lens)):
+    if seed.shape != (1,) or seed.dtype != torch.int32:
+        raise ValueError("seed must be (1,) int32")
+    for i, t in enumerate((q, k, v, slopes, key_lens, q_lens, seed, *more)):
         if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+            raise ValueError(f"argument {i} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"argument {i} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+            raise ValueError(f"argument {i} must be 16-byte aligned")
 
 
-def _kernel():
-    """The built K1 entry point, with its C signature declared."""
+def _kernel(name: str, symbol: str, argtypes: list):
+    """A built kernel entry point, with its C signature declared."""
     from .cuda_build import load
 
-    fn = load("mqa_fwd").isp_mqa_fwd
+    fn = getattr(load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, slopes, key_lens, q_lens, scale, offset, causal):
-    B, N, H, D = q.shape
-    M = k.shape[1]
-    o = torch.empty_like(q)
-    lse = torch.empty((B, N * H), dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o, lse
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
-                 key_lens.data_ptr(), q_lens.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), B, N, M, H, int(offset), int(bool(causal)),
-                 float(scale), _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"K1 mqa_fwd launch failed: CUDA error {err}")
-    mqa_fwd.launches += 1
-    return o, lse
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _stream(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _defaults(q, q_lens, seed):
+    if q_lens is None:
+        q_lens = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
+                            device=q.device)
+    if seed is None:
+        seed = torch.zeros((1,), dtype=torch.int32, device=q.device)
+    return q_lens, seed
 
 
 def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
-            causal=False):
+            causal=False, dropout_rate=0.0, seed=None):
     """Folded-MQA attention forward.
 
     Args:
@@ -132,22 +236,120 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
       scale: logit scale. offset: the query-to-key diagonal offset.
       q_lens: optional (B,) int32 valid query counts; rows past them give 0.
       causal: query n attends keys <= n + offset only.
+      dropout_rate: probability dropout; seed: (1,) int32 on q's device.
 
     Returns:
       (o (B, N, H, 64) in q's dtype, lse (B, N*H) float32 row logsumexp,
       +inf on rows that attended nothing).
     """
-    if q_lens is None:
-        q_lens = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
-                            device=q.device)
+    q_lens, seed = _defaults(q, q_lens, seed)
     if q.device.type == "cpu":
-        return mqa_attention_reference(q, k, v, slopes, key_lens, scale,
-                                       offset, q_lens, causal)
+        return mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset,
+                                       q_lens, causal, dropout_rate, seed)
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {q.device}")
-    _check(q, k, v, slopes, key_lens, q_lens)
-    return _launch(q, k, v, slopes, key_lens, q_lens, scale, offset, causal)
+    _check(q, k, v, slopes, key_lens, q_lens, seed)
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, N * H), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
+    fn = _kernel("mqa_fwd", "isp_mqa_fwd", [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), B, N, M, H, int(offset), int(bool(causal)),
+             float(scale), thresh, inv_keep, _DTYPE_CODES[q.dtype],
+             _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"K1 mqa_fwd launch failed: CUDA error {err}")
+    mqa_fwd.launches += 1
+    return o, lse
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)
 mqa_fwd.launches = 0
+
+
+def _dkv_splits(B: int, M: int) -> int:
+    """Row splits of K2's dk/dv pass: enough blocks to fill the card's 132
+    SMs about four times over, each split a partial sum reduced after."""
+    blocks = B * -(-M // 64)
+    return max(1, min(16, -(-528 // blocks)))
+
+
+def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
+            offset=0, causal=False, dropout_rate=0.0):
+    """Folded-MQA attention backward: (dq, dk, dv, dslopes (2, H) f32).
+
+    The arguments are K1's, its outputs o and lse, and do = dL/do. dk and
+    dv are (B, M, 64), summed over the H heads that share the key/value row.
+    """
+    if q.device.type == "cpu":
+        return mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do,
+                                 scale, offset, causal, dropout_rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"K2 runs on cuda or cpu tensors, not {q.device}")
+    _check(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError("o and do must match q's shape and dtype")
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    if lse.shape != (B, N * H) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {N * H}) float32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dslopes = torch.zeros((2, H), dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_(), dslopes
+    splits = _dkv_splits(B, M)
+    delta = torch.empty((B, N * H), dtype=torch.float32, device=q.device)
+    work = torch.empty((splits, 2, B, M, HEAD_DIM), dtype=torch.float32,
+                       device=q.device)
+    thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
+    fn = _kernel("mqa_bwd", "isp_mqa_bwd",
+                 [_P] * 16 + [_I] * 6 + [_F, _I, _F, _I, _I, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(), work.data_ptr(),
+             B, N, M, H, int(offset), int(bool(causal)), float(scale), thresh,
+             inv_keep, splits, _DTYPE_CODES[q.dtype], _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"K2 mqa_bwd launch failed: CUDA error {err}")
+    mqa_bwd.launches += 1
+    return dq, dk, dv, dslopes
+
+
+#: kernel launches since the count was last set to 0 (CPU calls never count)
+mqa_bwd.launches = 0
+
+
+class _MQAAttention(torch.autograd.Function):
+    """K1 forward, K2 backward (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal,
+                dropout_rate):
+        o, lse = mqa_fwd(q, k, v, slopes, key_lens, scale, offset, q_lens, causal,
+                         dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, slopes, key_lens, q_lens, seed, o, lse)
+        ctx.args = (scale, offset, causal, dropout_rate)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, slopes, key_lens, q_lens, seed, o, lse = ctx.saved_tensors
+        dq, dk, dv, dslopes = mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse,
+                                      do.contiguous(), *ctx.args)
+        return dq, dk, dv, dslopes, None, None, None, None, None, None, None
+
+
+def mqa_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
+                  causal=False, dropout_rate=0.0, seed=None):
+    """Differentiable folded-MQA attention: :func:`mqa_fwd`'s output o, with
+    :func:`mqa_bwd` as its backward. Arguments as in :func:`mqa_fwd`."""
+    q_lens, seed = _defaults(q, q_lens, seed)
+    return _MQAAttention.apply(q, k, v, slopes, key_lens, q_lens, seed, scale,
+                               offset, causal, dropout_rate)

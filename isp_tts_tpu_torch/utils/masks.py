@@ -23,3 +23,11 @@ def get_mask_3d(widths: torch.Tensor, heights: torch.Tensor, max_w: int,
     mask_w = get_mask_from_lengths(widths, max_w)
     mask_h = get_mask_from_lengths(heights, max_h)
     return mask_w[:, :, None] & mask_h[:, None, :]
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean over the batch of per-sample masked means (each sample weighs
+    the same whatever its length), as the JAX package's ``masked_mean``."""
+    mask = mask.expand(x.shape).to(x.dtype)
+    axes = tuple(range(1, x.dim())) if x.dim() > 1 else (0,)
+    return ((x * mask).sum(dim=axes) / mask.sum(dim=axes).clamp_min(eps)).mean()

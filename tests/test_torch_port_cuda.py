@@ -1,6 +1,7 @@
-"""Kernel K1 on the card against its plain version, and the Synthesizer's
-kernel path against its plain-attention path. These need an NVIDIA card and
-nvcc, and skip without them; on the card run
+"""Kernels K1-K4 on the card against their plain versions, the
+Synthesizer's kernel path against its plain-attention path, and one
+training step's kernel path against its plain path. These need an NVIDIA
+card and nvcc, and skip without them; on the card run
 
     python -m pytest -m cuda tests/test_torch_port_cuda.py
 """
@@ -19,7 +20,7 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1 has no CPU build)")
+        pytest.skip("needs a CUDA device (the kernels have no CPU build)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -79,3 +80,135 @@ def test_synthesizer_kernel_path_matches_plain_path(card):
                                     duration_target=ad_k.duration)
     assert torch.equal(ad_k.dec_lengths, ad_p.dec_lengths)
     assert (mel_k - mel_p).abs().max().item() <= 1e-3
+
+
+def _mqa(card, B, N, M, H, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(B, N, H, 64).astype(np.float32)).to(card, dtype)
+    k = torch.from_numpy(rng.randn(B, M, 64).astype(np.float32)).to(card, dtype)
+    v = torch.from_numpy(rng.randn(B, M, 64).astype(np.float32)).to(card, dtype)
+    sl = np.asarray(alibi_slopes(H), np.float32)
+    slopes = torch.from_numpy(np.stack([sl, sl * 0.5])).to(card)
+    key_lens = torch.tensor([M] + [M // 2 + 3] * (B - 1), dtype=torch.int32, device=card)
+    q_lens = torch.tensor([N] + [N // 2 + 1] * (B - 1), dtype=torch.int32, device=card)
+    return q, k, v, slopes, key_lens, q_lens
+
+
+@pytest.mark.parametrize("B,N,M,H,offset,causal,rate,dtype,bound", [
+    (4, 320, 320, 6, 0, False, 0.1, torch.float32, 1e-4),
+    (4, 320, 320, 4, 0, False, 0.0, torch.float32, 1e-4),
+    (2, 300, 300, 4, 0, True, 0.1, torch.float32, 1e-4),
+    (2, 96, 224, 6, 128, False, 0.1, torch.float32, 1e-4),
+    (2, 2304, 2304, 6, 0, False, 0.1, torch.float32, 1e-4),
+    (4, 320, 320, 6, 0, False, 0.1, torch.bfloat16, 2e-2),
+])
+def test_k2_matches_autograd_through_plain_k1(card, B, N, M, H, offset, causal, rate, dtype,
+                                              bound):
+    from isp_tts_tpu_torch.ops.flash_attention import mqa_attention, mqa_bwd
+
+    q, k, v, slopes, key_lens, q_lens = _mqa(card, B, N, M, H, dtype)
+    seed = torch.tensor([31], dtype=torch.int32, device=card)
+    w = torch.randn(q.shape, device=card).to(dtype)
+
+    def grads(fn):
+        args = [x.clone().requires_grad_() for x in (q, k, v, slopes)]
+        torch.autograd.backward(fn(*args), w)
+        return [a.grad.float() for a in args]
+
+    before = mqa_bwd.launches
+    got = grads(lambda *a: mqa_attention(*a, key_lens, 0.125, offset, q_lens, causal, rate,
+                                         seed))
+    torch.cuda.synchronize()
+    assert mqa_bwd.launches == before + 1
+    ref = grads(lambda *a: mqa_attention_reference(*a, key_lens, 0.125, offset, q_lens, causal,
+                                                   rate, seed)[0])
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= bound * b.abs().max().item()
+
+
+@pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192)])
+def test_k3_equals_plain_mas(card, B, M, T):
+    from isp_tts_tpu_torch.ops.mas import (monotonic_alignment_search,
+                                           monotonic_alignment_search_reference)
+
+    rng = np.random.RandomState(1)
+    i, j = np.arange(M)[:, None] / M, np.arange(T)[None, :] / T
+    la = torch.from_numpy((rng.randn(B, M, T) - 8 * (i - j) ** 2).astype(np.float32))
+    la = la.log_softmax(-1).to(card)
+    tl = torch.from_numpy(rng.randint(T // 2, T + 1, size=B).astype(np.int32)).to(card)
+    ml = torch.from_numpy(rng.randint(T, M + 1, size=B).astype(np.int32)).to(card)
+    got = monotonic_alignment_search(la, tl, ml)
+    torch.cuda.synchronize()
+    assert torch.equal(got, monotonic_alignment_search_reference(la, tl, ml))
+    assert torch.equal(got.sum(dim=(1, 2)), ml.float())
+
+
+@pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192)])
+def test_k4_matches_plain_version(card, B, M, T):
+    from isp_tts_tpu_torch.ops import ctc
+
+    rng = np.random.RandomState(2)
+    lp = torch.from_numpy(rng.randn(B, M, T + 1).astype(np.float32)).log_softmax(-1).to(card)
+    tl = torch.from_numpy(rng.randint(1, T + 1, size=B).astype(np.int32)).to(card)
+    ml = torch.from_numpy(rng.randint(T, M + 1, size=B).astype(np.int32)).to(card)
+    g = torch.rand((B,), device=card)
+    neg, ab, al, logz = ctc.ctc_fwd(lp, tl, ml)
+    dlp = ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)
+    torch.cuda.synchronize()
+    x = lp.double().requires_grad_()
+    neg_r = ctc.ordered_ctc_neg_logp_reference(x, tl, ml)
+    (dlp_r,) = torch.autograd.grad((neg_r * g.double()).sum(), x)
+    neg_r = neg_r.detach().float()
+    assert (neg - neg_r).abs().max() <= 1e-5 * neg_r.abs().max()
+    assert (dlp - dlp_r).abs().max() <= 1e-4 * dlp_r.abs().max()
+
+
+def test_training_step_kernel_path_matches_plain_path(card):
+    """One f32 training step of a small model with dropout: the kernel path
+    (K1-K4) against the plain path (einsum attention, plain MAS and CTC),
+    same weights, generators and noise."""
+    import copy
+
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticLossConfig, AcousticModelLoss
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
+    from isp_tts_tpu_torch.nn.attention import Attention
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    layer = {"attention": {"heads": 4, "head_dim": 64, "one_kv_head": True,
+                           "alibi_pos_bias": True, "dropout": 0.1},
+             "feed_forward": {"inner_dim": 256, "activation": "gelu", "dropout": 0.1}}
+    stack = {"dim": 128, "depth": 2, "transformer_layer": layer}
+    cfg = {"encoding_map": {c: i for i, c in enumerate(["<pad>", "</s>", *"abcdefgh "])},
+           "mel_dim": 16, "text_dim": 128, "encoder": stack, "decoder": stack,
+           "temporal_adaptor": {"predictor": {"transformer": stack, "time_embedding_dim": 16},
+                                "embedding": {"transformer": stack}, "soft_duration": True},
+           "aligner": {"attention_dim": 16, "key_kernel_size": 5, "query_kernel_size": 5}}
+    torch.manual_seed(0)
+    model = AcousticModel(build_config(AcousticModelConfig, cfg))
+    plain = copy.deepcopy(model)
+    for m in plain.modules():
+        if isinstance(m, Attention):
+            m.flash = "off"
+    plain.aligner.config.mas_impl = "scan"
+    rng = np.random.RandomState(3)
+    B, T, M = 4, 24, 96
+    batch = {"text_vector": torch.from_numpy(rng.randint(2, 11, size=(B, T))),
+             "text_vector_len": torch.tensor([24, 20, 13, 9]),
+             "mel": torch.from_numpy(rng.randn(B, M, 16).astype(np.float32)),
+             "mel_len": torch.tensor([96, 80, 60, 40]),
+             "pitch": torch.from_numpy(rng.randn(B, M).astype(np.float32)),
+             "energy": torch.from_numpy(rng.randn(B, M).astype(np.float32))}
+    out = []
+    for mod, ctc_impl in ((model, "auto"), (plain, "scan")):
+        loss_cfg = build_config(AcousticLossConfig, {"attention_loss": {"ctc_impl": ctc_impl}})
+        trainer = Trainer(mod, AcousticModelLoss(loss_cfg), TrainerConfig(precision="fp32"),
+                          generator=torch.Generator(device=card).manual_seed(4))
+        out.append(trainer.compute_gradients(batch))
+    (_, lk, nk), (_, lp, np_) = out
+    for key in lp:
+        assert abs(lk[key].item() - lp[key].item()) <= 1e-3 * abs(lp[key].item()), key
+    assert abs(nk.item() - np_.item()) <= 2e-2 * np_.item()
+    for (name, a), b in zip(model.named_parameters(), plain.parameters()):
+        assert (a.grad - b.grad).abs().max() <= 2e-2 * b.grad.abs().max(), name

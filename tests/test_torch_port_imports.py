@@ -48,7 +48,9 @@ def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["blocked_loaded"] == []
     for name in ("checkpoint", "serving", "ops.flash_attention", "ops.cuda_build",
-                 "models.acoustic.model", "data.text.table"):
+                 "ops.mas", "ops.ctc", "models.acoustic.model",
+                 "models.acoustic.aligner", "models.acoustic.loss",
+                 "training.optimizers", "training.trainer", "data.text.table"):
         assert f"isp_tts_tpu_torch.{name}" in out["modules"]
 
 
@@ -58,11 +60,18 @@ def test_no_cpp_extension_and_plain_nvcc_build(monkeypatch):
             assert "cpp_extension" not in path.read_text(), path
             assert "ninja" not in path.read_text(), path
     monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "/usr/local/cuda/bin/nvcc")
-    cmd = cuda_build.nvcc_command(cuda_build.CSRC / "mqa_fwd.cu", Path("/x/lib.so"))
-    assert Path(cmd[0]).name == "nvcc"
-    for flag in ("-O3", "-arch=sm_90a", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert not any(part.startswith(("-I", "-L", "-l")) for part in cmd)  # no torch or python headers
+    sources = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
+    assert sources == ["ctc", "mas", "mqa_bwd", "mqa_fwd"]
+    for name in sources:
+        text = (cuda_build.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C"' in text and "#include <torch" not in text, name
+        assert "Python.h" not in text, name
+        cmd = cuda_build.nvcc_command(cuda_build.CSRC / f"{name}.cu", Path("/x/lib.so"))
+        assert Path(cmd[0]).name == "nvcc"
+        for flag in ("-O3", "-arch=sm_90a", "-shared", "-fPIC"):
+            assert flag in cmd
+        # no torch or python headers
+        assert not any(part.startswith(("-I", "-L", "-l")) for part in cmd)
     assert cuda_build.BUILD_DIR == PORT / "_build"
     assert "isp_tts_tpu_torch/_build/" in (ROOT / ".gitignore").read_text().split()
 

@@ -122,6 +122,6 @@ def test_full_width_checkpoint_matches():
     lens = np.array([enc.vector_len], np.int32)
     ad = _compare(jm, pm, tokens, lens, 256, 0, 2e-3)
     assert 0 < int(ad.dec_lengths[0]) < 256
-    # the carry used every parameter the JAX model serves with
-    assert len(jax_flat(jm)) == len(pm.state_dict()) + sum(
-        k.startswith("aligner.") for k in jax_flat(jm))
+    # the carry used every parameter of the JAX model, the aligner's too
+    assert len(jax_flat(jm)) == len(pm.state_dict())
+    assert any(k.startswith("aligner.") for k in pm.state_dict())

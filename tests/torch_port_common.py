@@ -1,16 +1,41 @@
 """Shared helpers for the tests that hold the PyTorch port against the JAX
-package: carry a JAX module's parameters into its port counterpart, and
-perturb JAX parameters so zero-initialised ones (AdaLN) carry signal."""
+package: carry a JAX module's parameters into its port counterpart,
+perturb JAX parameters so zero-initialised ones (AdaLN) carry signal, and
+run one training step (forward, loss, gradients) on each side."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 from flax import nnx
 
+from isp_tts_tpu.models.acoustic import loss as jloss
 from isp_tts_tpu.models.base import flatten_state
+from isp_tts_tpu_torch.models.acoustic import loss as ploss
 from isp_tts_tpu_torch.models.base import torch_name
+
+
+#: a small acoustic model with every training module, soft durations on
+_SMALL_LAYER = {"attention": {"heads": 2, "head_dim": 64, "one_kv_head": True,
+                        "alibi_pos_bias": True},
+          "feed_forward": {"inner_dim": 128, "activation": "gelu"}}
+SMALL = {
+    "encoding_map": {c: i for i, c in enumerate(["<pad>", "</s>", *"abcdefgh "])},
+    "mel_dim": 16,
+    "text_dim": 64,
+    "encoder": {"dim": 64, "depth": 2, "transformer_layer": _SMALL_LAYER},
+    "decoder": {"dim": 64, "depth": 2, "transformer_layer": _SMALL_LAYER},
+    "temporal_adaptor": {
+        "predictor": {"transformer": {"dim": 64, "depth": 2, "transformer_layer": dict(
+            _SMALL_LAYER, attention=dict(_SMALL_LAYER["attention"], heads=3, alibi_symmetric=False))},
+            "time_embedding_dim": 16},
+        "embedding": {"transformer": {"dim": 64, "depth": 1, "transformer_layer": _SMALL_LAYER}},
+        "pitch": True, "energy": True, "soft_duration": True},
+    "aligner": {"attention_dim": 8, "key_kernel_size": 5, "query_kernel_size": 3},
+    "num_speakers": 2,
+}
 
 
 def jax_flat(module) -> dict[str, np.ndarray]:
@@ -56,3 +81,54 @@ def carry(flat: dict[str, np.ndarray], module: torch.nn.Module) -> None:
 
 def t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
+
+
+def flat_grads(grads) -> dict[str, np.ndarray]:
+    pure = grads.to_pure_dict() if hasattr(grads, "to_pure_dict") else grads
+    return {k: np.asarray(v) for k, v in flatten_state(pure).items()}
+
+
+def assert_grads_match(jgrads: dict, model: torch.nn.Module, rtol: float):
+    """Every JAX gradient against the port's, in the port's layout, to
+    ``rtol`` of its max-abs."""
+    assert len(jgrads) == len(list(model.parameters()))
+    for key, g in jgrads.items():
+        name, transpose = torch_name(key)
+        ref = g.T if transpose else g
+        ours = model.get_parameter(name).grad
+        assert ours is not None, name
+        scale = max(np.abs(ref).max(), 1e-12)
+        err = np.abs(ours.numpy() - ref).max()
+        assert err <= rtol * scale, f"{name}: {err:.3e} > {rtol} * {scale:.3e}"
+
+
+def jax_step(jm, inputs, key):
+    """(loss, loss dict, flat grads) of the JAX training step."""
+    crit = jloss.AcousticModelLoss()
+
+    def loss_fn(m):
+        outputs = m(**{k: jnp.asarray(v) for k, v in inputs.items()}, key=key)
+        return crit({k: jnp.asarray(v) for k, v in inputs.items()}, outputs, 0)
+
+    # one compiled program: op-by-op autodiff of the whole model is slower
+    (loss, losses), grads = nnx.jit(nnx.value_and_grad(loss_fn, has_aux=True))(jm)
+    return float(loss), {k: float(v) for k, v in losses.items()}, flat_grads(grads)
+
+
+def port_step(pm, inputs, x0, tt):
+    """(loss, loss dict) of the port's step; gradients land in .grad."""
+    crit = ploss.AcousticModelLoss()
+    tin = {k: t(v) for k, v in inputs.items()}
+    tin["text"] = tin["text"].long()
+    tin["speaker"] = tin["speaker"].long()
+    outputs = pm(**tin, noise=t(x0), t=t(tt))
+    loss, losses = crit(tin, outputs, 0)
+    loss.backward()
+    return loss.item(), {k: v.item() for k, v in losses.items()}
+
+
+def flow_draws(key, B, T):
+    """The flow predictor's (x0, t) as the JAX model draws them from ``key``."""
+    noise_key, time_key = jax.random.split(key)
+    return (np.asarray(jax.random.normal(noise_key, (B, T, 3))),
+            np.asarray(jax.random.uniform(time_key, (B,))))

@@ -8,8 +8,8 @@ how far it got:
 
 1. env     - Python, torch and CUDA versions; the card's name and power limit
              as ``nvidia-smi`` gives them.
-2. build   - compiles every kernel of both paths from ``csrc/`` with nvcc,
-             one process per source, all started together.
+2. build   - compiles every kernel of the three paths from ``csrc/`` with
+             nvcc, one process per source, all started together.
 3. kernel  - holds kernel K1 (folded-MQA attention forward) against its plain
              version on the card at the serving path's shapes, f32 and bf16,
              and times it beside the plain version and one PyTorch call.
@@ -17,14 +17,24 @@ how far it got:
              with dropout, K2 (attention backward) against autograd through
              the plain K1 in both TPU regimes (M 320 and M 3072), K3 (MAS)
              for exact equality, K4 (banded CTC) loss and gradient.
-5. slice   - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
+5. kernel  - the per-head attention kernels K5a (forward) and K5b (backward)
+             against their plain versions: the decoder's training shape in
+             f32 and bf16 with and without dropout, 4 heads, causal with an
+             offset, one shared key/value head, and M 3072.
+6. slice   - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
              checkpoint, three sentences one at a time and then as one batch,
              with the launch counts zeroed just before and read just after;
              then the same model on the plain attention with the same noise
              and durations, held against the kernel path's mel.
-6. profile - one sentence and the batch under torch.profiler: device busy
+7. profile - one sentence and the batch under torch.profiler: device busy
              time against wall time, and the kernels that take it.
-7. train   - fine-tunes the same checkpoint at full width with its own
+8. slice   - the multi-KV-head model: the same checkpoint with every
+             attention layer's one key/value head replicated to all heads
+             (it computes what the checkpoint computes), served the same way
+             through ``Synthesizer(model)`` on K5a; its mel against its own
+             plain path and against the one-KV-head model's mel on K1.
+9. profile - one warm multi-KV-head request.
+10. train  - fine-tunes the same checkpoint at full width with its own
              training setup (batch 32, text 48 x mel 320, bf16, dropout,
              AdamW): the batch is 32 sentences synthesized by the
              Synthesizer. (a) one step on the kernel path against the same
@@ -33,7 +43,11 @@ how far it got:
              (b) 30 bf16 steps, counts zeroed just before and read just
              after, finite metrics and a falling mel loss; (c) the
              aligner's durations sum to the mel lengths.
-8. profile - one warm training step under torch.profiler.
+11. profile - one warm training step under torch.profiler.
+12. train  - the same for the multi-KV-head model on K5a/K5b, and, in f32
+             with dropout off, its ``to_kv`` gradient summed over the heads
+             against the one-KV-head model's (K5b against K2 on the model).
+13. profile - one warm multi-KV-head training step.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -91,16 +105,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mqa_inputs(B, N, M, H, dtype, symmetric, gen):
-    """Unit-scale q/k/v, trained-like ALiBi slopes and ragged lengths."""
+def mqa_inputs(B, N, M, H, dtype, symmetric, gen, kv_heads=None):
+    """Unit-scale q/k/v, trained-like ALiBi slopes and ragged lengths; k/v
+    (B, M, 64), or (B, M, kv_heads, 64) for the per-head kernels."""
     import torch
 
     from isp_tts_tpu_torch.nn.embeddings import alibi_slopes
 
     dev = "cuda"
+    kv = (B, M, 64) if kv_heads is None else (B, M, kv_heads, 64)
     q = torch.randn((B, N, H, 64), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, M, 64), generator=gen, device=dev).to(dtype)
-    v = torch.randn((B, M, 64), generator=gen, device=dev).to(dtype)
+    k = torch.randn(kv, generator=gen, device=dev).to(dtype)
+    v = torch.randn(kv, generator=gen, device=dev).to(dtype)
     sl = torch.tensor(alibi_slopes(H), device=dev)
     sl = sl * (0.5 + torch.rand((H,), generator=gen, device=dev))
     hi = sl if symmetric else sl * (0.5 + torch.rand((H,), generator=gen, device=dev))
@@ -131,11 +147,13 @@ def attention_pairs(key_lens, q_lens, causal=False, offset=0) -> int:
     return pairs
 
 
-def mqa_bound(q, k, key_lens, q_lens, causal=False, offset=0, backward=False):
-    """(ms, 'bytes' | 'operations'): the least time for K1's (or with
-    ``backward`` K2's) work on these inputs — each input read once, each
-    output written once; 4*D operations per (live query row, valid key)
-    pair forward (q.k, p.v), 10*D backward (s, dp, dv, dk, dq)."""
+def attention_bound(q, k, key_lens, q_lens, causal=False, offset=0, backward=False):
+    """(ms, 'bytes' | 'operations'): the least time for an attention
+    forward's work on these inputs (K1, K5a), or with ``backward`` its
+    backward's (K2, K5b) — each input read once, each output written once
+    (k and v carry their Hkv heads: (B, M, D) or (B, M, Hkv, D)); 4*D
+    operations per (live query row, valid key) pair forward (q.k, p.v),
+    10*D backward (s, dp, dv, dk, dq)."""
     B, N, H, D = q.shape
     rows, keys = (4, 4) if backward else (2, 2)  # q o (dO dq) | k v (dk dv)
     nbytes = (rows * q.numel() + keys * k.numel()) * q.element_size() + 4 * B * N * H
@@ -164,8 +182,10 @@ def library_call(q, k, v, slopes, key_lens, scale, offset=0, causal=False, do=No
         valid = valid & lower[None]
     bias = bias[None].masked_fill(~valid[:, None], float("-inf")).to(q.dtype)
     qh = q.transpose(1, 2)
-    kh = k[:, None].expand(B, H, M, D).contiguous()
-    vh = v[:, None].expand(B, H, M, D).contiguous()
+    if k.dim() == 3:  # one key/value head
+        k, v = k[:, :, None], v[:, :, None]
+    kh = k.transpose(1, 2).expand(B, H, M, D).contiguous()
+    vh = v.transpose(1, 2).expand(B, H, M, D).contiguous()
     if do is None:
         return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
                                                       scale=scale)
@@ -192,7 +212,7 @@ def phase_env(t0):
     return smi.splitlines()[0]
 
 
-SOURCES = ("mqa_fwd", "mqa_bwd", "mas", "ctc")
+SOURCES = ("mqa_fwd", "mqa_bwd", "mas", "ctc", "flash_fwd", "flash_bwd")
 
 
 def phase_build(t0):
@@ -253,7 +273,7 @@ def phase_kernel(t0):
         k_ms = cuda_ms(lambda: mqa_fwd(q, k, v, slopes, key_lens, scale, offset,
                                        q_lens, causal))
         lib_ms = cuda_ms(library_call(q, k, v, slopes, key_lens, scale, offset, causal))
-        b_ms, _ = mqa_bound(q, k, key_lens, q_lens, causal, offset)
+        b_ms, _ = attention_bound(q, k, key_lens, q_lens, causal, offset)
         say("kernel", t0, f"K1 B={B} N={N} M={M} H={H} {dt} "
             f"{'sym' if sym else 'asym'} offset={offset} causal={int(causal)} "
             f"max_err={err:.3e} lse_err={lse_err:.3e} bound={bound:.0e} "
@@ -270,19 +290,61 @@ def set_flash(model, mode: str) -> None:
             m.flash = mode
 
 
-def phase_slice(t0):
+def multi_kv_head(cfg):
+    """A model config with one key/value head per query head in every
+    attention layer (``one_kv_head: false``); the widths stay."""
+    if isinstance(cfg, dict):
+        return {k: (dict(v, one_kv_head=False) if k == "attention" else multi_kv_head(v))
+                for k, v in cfg.items()}
+    return cfg
+
+
+def replicate_kv_heads(flat: dict, heads: dict) -> dict:
+    """One-KV-head parameters (JAX names and layout) for the multi-KV-head
+    model: each ``to_kv`` kernel (dim, 2*D), K then V, becomes
+    (dim, 2*H*D) with its K and V halves tiled H times (``heads``: layer
+    prefix -> H), so the model computes what the checkpoint computes."""
+    out = dict(flat)
+    for key, w in flat.items():
+        if key.endswith("attention.to_kv.kernel"):
+            k, v = np.split(w, 2, axis=1)
+            H = heads[key[: -len(".to_kv.kernel")]]
+            out[key] = np.concatenate([k] * H + [v] * H, axis=1)
+    return out
+
+
+def attention_heads(model) -> dict:
+    """layer prefix -> query heads, for every attention layer of a model."""
+    from isp_tts_tpu_torch.nn.attention import Attention
+
+    return {name: m.heads for name, m in model.named_modules() if isinstance(m, Attention)}
+
+
+def mha_model():
+    """The committed checkpoint as a multi-KV-head model, on the card, in
+    eval mode: its config with ``one_kv_head: false`` in the encoder,
+    decoder, predictor and feature embedding (6 x 384 with 6 heads x 64;
+    3 x 256 and 1 x 256 with 4 heads), its weights with each layer's
+    key/value head replicated."""
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
+
+    blob = load_checkpoint(CKPT)["model"]
+    model = AcousticModel(build_config(AcousticModelConfig, multi_kv_head(blob["config"])))
+    model.load_jax_state(replicate_kv_heads(blob["state"], attention_heads(model)))
+    return model.to("cuda").eval()
+
+
+def serve_requests(t0, synth, kernel: str) -> int:
+    """The serving path: the three sentences one at a time, then as one
+    batch, each request twice; launch counts zeroed just before and read
+    just after. Checks the mels and that ``kernel`` launched and no other
+    attention kernel did; returns its launches."""
     import torch
 
-    from isp_tts_tpu_torch.ops.flash_attention import mqa_fwd
-    from isp_tts_tpu_torch.serving import Synthesizer
-
-    synth = Synthesizer.from_pretrained(CKPT)
-    say("slice", t0, f"loaded {CKPT.name} on {synth.device}: "
-        f"{sum(p.numel() for p in synth.model.parameters())} parameters")
-
-    # the main path: counts zeroed just before, read just after
     torch.cuda.reset_peak_memory_stats()
-    mqa_fwd.launches = 0
+    launch_counts(reset=True)
     request_ms = []  # (first, second) for each request
     outputs = []
     for text in SENTENCES + [SENTENCES]:
@@ -293,7 +355,7 @@ def phase_slice(t0):
             pair.append(1e3 * (time.perf_counter() - t))
         outputs.append(out)
         request_ms.append(pair)
-    launches = {"K1 mqa_fwd": mqa_fwd.launches}
+    launches = {k: v for k, v in launch_counts().items() if v}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     budget = synth.config.frame_budgets[-1]
@@ -302,22 +364,33 @@ def phase_slice(t0):
         if not (m.ndim == 2 and m.shape[1] == synth.model.mel_dim and 0 < m.shape[0] < budget
                 and np.isfinite(m).all()):
             raise AssertionError(f"bad mel: shape {m.shape}, finite {np.isfinite(m).all()}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if set(launches) != {kernel}:
+        raise AssertionError(f"the serving path should launch {kernel} alone: {launches}")
     say("slice", t0, "ms per request, first/second call (3 singles, then the batch "
         "of 3): " + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in request_ms)
-        + f"; frames {[m.shape[0] for m in mels]}; launches {launches}; "
+        + f"; frames {[m.shape[0] for m in mels]}; launches {launches} "
+        f"({launches[kernel] / (2 * len(request_ms)):.1f} per synthesis); "
         f"peak memory {peak_mib:.1f} MiB")
+    return launches[kernel]
 
-    # kernel path vs plain path: same model, noise and durations
+
+def batch_draws(synth):
+    """The three sentences as one padded batch, and flow noise from a seed."""
+    import torch
+
     tokens, lens, fb, B = synth.prepare(SENTENCES)
     tok = torch.from_numpy(tokens).long().cuda()
     ln = torch.from_numpy(lens).cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     noise = torch.randn((tok.shape[0], tok.shape[1], 3), generator=gen, device="cuda")
-    model = synth.model
-    _, ad = model.infer(tok, ln, max_dec_len=fb, noise=noise)
-    durations = ad.duration
+    return tok, ln, fb, B, noise
+
+
+def kernel_vs_plain(t0, model, tok, ln, fb, B, noise, durations):
+    """The model's mel on its kernels against the same model on the plain
+    attention, same noise and durations; returns the kernel path's mel."""
+    import torch
+
     mel_k, ad_k = model.infer(tok, ln, max_dec_len=fb, noise=noise,
                               duration_target=durations)
     set_flash(model, "off")
@@ -326,7 +399,7 @@ def phase_slice(t0):
                                   duration_target=durations)
     finally:
         set_flash(model, "auto")
-    dec = ad_k.dec_lengths  # pad rows included: the decoder's K1 calls see them
+    dec = ad_k.dec_lengths  # pad rows included: the decoder's calls see them
     mel_err = (mel_k - mel_p).abs().max().item()
     real = dec[:B]
     if not (torch.equal(dec, ad_p.dec_lengths) and (real > 0).all() and (real < fb).all()):
@@ -336,7 +409,49 @@ def phase_slice(t0):
         raise AssertionError(f"kernel-path mel differs from the plain path by {mel_err:.3e}")
     say("slice", t0, f"kernel path vs plain path: mel max_err={mel_err:.3e} "
         f"bound={MEL_BOUND:.0e}, dec_lengths {real.tolist()} < budget {fb}")
-    return synth, launches, dec, fb
+    return mel_k
+
+
+def phase_slice(t0):
+    """The one-KV-head checkpoint served on K1. Returns the Synthesizer,
+    K1's launches, and the batch, noise, durations and K1 mel that the
+    multi-KV-head model is held to."""
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    synth = Synthesizer.from_pretrained(CKPT)
+    say("slice", t0, f"loaded {CKPT.name} on {synth.device}: "
+        f"{sum(p.numel() for p in synth.model.parameters())} parameters")
+    launches = serve_requests(t0, synth, "K1 mqa_fwd")
+    tok, ln, fb, B, noise = batch_draws(synth)
+    _, ad = synth.model.infer(tok, ln, max_dec_len=fb, noise=noise)
+    durations = ad.duration
+    mel = kernel_vs_plain(t0, synth.model, tok, ln, fb, B, noise, durations)
+    return synth, launches, (tok, ln, fb, B, noise, durations, mel)
+
+
+def phase_slice_mha(t0, reference):
+    """The multi-KV-head model served on K5a, held to its plain path and to
+    the one-KV-head model's mel on K1 (``reference`` from phase_slice)."""
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    model = mha_model()
+    synth = Synthesizer(model)
+    heads = attention_heads(model)
+    kv = {name: tuple(m.weight.shape) for name, m in model.named_modules()
+          if name.endswith("layers.0.attention.to_kv")}
+    say("slice", t0, f"multi-KV-head model from {CKPT.name}: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, {len(heads)} "
+        f"attention layers, heads {sorted(set(heads.values()))}, to_kv weights {kv}")
+    launches = serve_requests(t0, synth, "K5a flash_fwd")
+    tok, ln, fb, B, noise, durations, mel_mqa = reference
+    mel = kernel_vs_plain(t0, model, tok, ln, fb, B, noise, durations)
+    err = (mel - mel_mqa).abs().max().item()
+    if not err <= MEL_BOUND:
+        raise AssertionError(f"multi-KV-head mel on K5a differs from the one-KV-head mel "
+                             f"on K1 by {err:.3e}")
+    say("slice", t0, f"multi-KV-head model on K5a vs the one-KV-head model on K1: mel "
+        f"max_err={err:.3e} bound={MEL_BOUND:.0e}")
+    return synth, launches
 
 
 def phase_profile(t0, run, label):
@@ -392,12 +507,18 @@ STEP_GRAD_BOUND = 2e-2
 # round attention outputs and gradients to bf16 at different points, a few
 # tokens' MAS durations flip, and a gradient that is a sum with cancellation
 # (the ALiBi log-slopes) moves by a large share of its max-abs. The limits
-# for the whole gradient were set from readings on an H100 (700 W): kernel
-# path vs plain path, top-level module gradient norms within 3.2e-3 and a
-# cosine of 0.99968 between the whole gradients; the control, bf16
-# rounding alone (the plain path's bf16 step against its f32 step), 2.3e-2
-# and 0.9849. The limits lie between the two.
-BF16_STEP_BOUNDS = {"loss": STEP_LOSS_BOUND, "norm": STEP_GRAD_BOUND, "module": 1e-2,
+# for the whole gradient are set from readings on an H100 (700 W), between
+# the kernel path's distance from the plain path and the control, bf16
+# rounding alone (the plain path's bf16 step against its f32 step): near
+# the geometric mean of the worst reading and the smallest control.
+# First readings (f32 residual stream): top-level module gradient norms
+# within 3.2e-3 and a gradient cosine of 0.99968, control 2.3e-2 and
+# 0.9849: limits 1e-2 and 0.998. With the residual stream in bf16, as the
+# JAX policy runs it, module norms read 8.5e-3 (one-KV-head model) and
+# 1.0e-2 (multi-KV-head), cosines 0.99950 and 0.99972, controls 2.9e-2 and
+# 3.5e-2, 0.9836 and 0.9784: the module limit is set again by the same
+# rule to sqrt(1.0e-2 * 2.9e-2) = 1.7e-2; the cosine limit holds.
+BF16_STEP_BOUNDS = {"loss": STEP_LOSS_BOUND, "norm": STEP_GRAD_BOUND, "module": 1.7e-2,
                     "cosine": 0.998}
 TRAIN_STEPS = 30
 BATCH, TEXT_LEN, MEL_LEN = 32, 48, 320  # the checkpoint's own collation
@@ -447,21 +568,14 @@ def seed_tensor(value: int):
     return torch.tensor([value], dtype=torch.int32, device="cuda")
 
 
-def k2_grads(q, k, v, slopes, key_lens, q_lens, rate, offset, causal, seed, w,
-             plain=False):
-    """(dq, dk, dv, dslopes) of sum(o * w): through K1 + K2, or with
-    ``plain`` through autograd of the plain K1."""
+def attention_grads(fn, q, k, v, slopes, key_lens, q_lens, rate, offset, causal, seed, w):
+    """(dq, dk, dv, dslopes) of sum(fn(q, k, v, slopes, ...) * w), where
+    ``fn`` is a differentiable attention: a kernel pair's autograd function
+    or a plain version under autograd."""
     import torch
 
-    from isp_tts_tpu_torch.ops.flash_attention import mqa_attention, mqa_attention_reference
-
     args = [x.detach().clone().requires_grad_() for x in (q, k, v, slopes)]
-    scale = 64 ** -0.5
-    if plain:
-        o = mqa_attention_reference(*args, key_lens, scale, offset, q_lens, causal, rate,
-                                    seed)[0]
-    else:
-        o = mqa_attention(*args, key_lens, scale, offset, q_lens, causal, rate, seed)
+    o = fn(*args, key_lens, 64 ** -0.5, offset, q_lens, causal, rate, seed)
     torch.autograd.backward(o, w)
     return [a.grad for a in args]
 
@@ -510,7 +624,7 @@ def phase_kernel_train(t0):
     import torch
 
     from isp_tts_tpu_torch.ops import mas
-    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh,
+    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh, mqa_attention,
                                                        mqa_attention_reference, mqa_bwd,
                                                        mqa_bwd_reference, mqa_fwd,
                                                        mqa_keep_mask)
@@ -539,9 +653,11 @@ def phase_kernel_train(t0):
         q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, getattr(torch, dt), False, gen)
         w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         seed = seed_tensor(99)
-        got = k2_grads(q, k, v, slopes, kl, ql, rate, offset, causal, seed, w)
+        got = attention_grads(mqa_attention, q, k, v, slopes, kl, ql, rate, offset, causal,
+                              seed, w)
         torch.cuda.synchronize()
-        ref = k2_grads(q, k, v, slopes, kl, ql, rate, offset, causal, seed, w, plain=True)
+        ref = attention_grads(lambda *a: mqa_attention_reference(*a)[0], q, k, v, slopes, kl,
+                              ql, rate, offset, causal, seed, w)
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         bound = K2_BOUNDS[dt]
         if not max(errs) <= bound:
@@ -553,7 +669,7 @@ def phase_kernel_train(t0):
         p_ms = cuda_ms(lambda: mqa_bwd_reference(q, k, v, slopes, kl, ql, seed, o, lse, w,
                                                  scale, offset, causal, rate), iters=3)
         l_ms = cuda_ms(library_call(q, k, v, slopes, kl, scale, offset, causal, do=w), iters=3)
-        b_ms, b_by = mqa_bound(q, k, kl, ql, causal, offset, backward=True)
+        b_ms, b_by = attention_bound(q, k, kl, ql, causal, offset, backward=True)
         say("kernel", t0, f"K2 B={B} N={N} M={M} H={H} {dt} dropout={rate} offset={offset} "
             f"causal={int(causal)} rel_err dq={errs[0]:.2e} dk={errs[1]:.2e} "
             f"dv={errs[2]:.2e} dslopes={errs[3]:.2e} bound={bound:.0e} kernel_ms={k_ms:.4f} "
@@ -589,6 +705,96 @@ def phase_kernel_train(t0):
                                  f"(bound {K4_GRAD_BOUND:.0e})")
         say("kernel", t0, f"K4 B={B} M={M} T+1={T + 1} loss rel_err={loss_err:.2e} "
             f"bound={K4_LOSS_BOUND:.0e} grad rel_err={grad_err:.2e} bound={K4_GRAD_BOUND:.0e}")
+
+
+K5_CASES = (  # B, N, M, H, Hkv, dtype, rate, offset, causal
+    [(32, 320, 320, 6, 6, dt, rate, 0, False)
+     for dt in ("float32", "bfloat16") for rate in (0.0, 0.1)]
+    + [(32, 320, 320, 4, 4, "float32", 0.1, 0, False),  # the predictor's heads
+       (4, 96, 224, 6, 6, "float32", 0.1, 128, True),  # causal, offset 128
+       (32, 320, 320, 6, 1, "float32", 0.1, 0, False),  # one shared key/value head
+       (2, 3072, 3072, 6, 6, "float32", 0.1, 0, False)]  # long sequences
+)
+
+
+def phase_kernel_mha(t0):
+    """K5a and K5b against their plain versions (the backward against
+    autograd through the plain K5a), with ragged lengths and one key length
+    of 0, and the kept share under dropout; each case timed beside its
+    plain version, one PyTorch call and its bound."""
+    import torch
+
+    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh, flash_attention,
+                                                       flash_attention_reference,
+                                                       flash_bwd, flash_bwd_reference,
+                                                       flash_fwd, head_keep_mask)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    scale = 64 ** -0.5
+    for B, N, M, H, Hkv, dt, rate, offset, causal in K5_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, dtype, False, gen, kv_heads=Hkv)
+        if B > 2:
+            kl[1] = 0  # a row with no key: every query row of it is dead
+        seed = seed_tensor(4321)
+        o, lse = flash_fwd(q, k, v, slopes, kl, scale, offset, ql, causal, rate, seed)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = flash_attention_reference(q, k, v, slopes, kl, scale, offset, ql,
+                                                   causal, rate, seed)
+        live = torch.isfinite(lse_ref)
+        if not torch.equal(torch.isfinite(lse), live):
+            raise AssertionError("K5a lse marks other rows dead than the plain version")
+        err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse[live] - lse_ref[live]).abs().max().item()
+        bound = F32_BOUND if dt == "float32" else BF16_BOUND
+        if not (err <= bound and lse_err <= bound * (1 + lse_ref[live].abs().max().item())):
+            raise AssertionError(f"K5a B={B} N={N} H={H} Hkv={Hkv} {dt} rate={rate}: o err "
+                                 f"{err:.3e}, lse err {lse_err:.3e}, bound {bound:.0e}")
+        kept = ""
+        if rate:
+            thresh = dropout_thresh(rate)
+            share = head_keep_mask(B, H, N, M, seed, thresh).float().mean().item()
+            if abs(share - thresh / 256) > 0.01:
+                raise AssertionError(f"K5a kept share {share:.4f} vs {thresh / 256:.4f}")
+            kept = f" kept={share:.4f} thresh/256={thresh / 256:.4f}"
+        w = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        got = attention_grads(flash_attention, q, k, v, slopes, kl, ql, rate, offset,
+                              causal, seed, w)
+        torch.cuda.synchronize()
+        ref = attention_grads(lambda *a: flash_attention_reference(*a)[0], q, k, v, slopes,
+                              kl, ql, rate, offset, causal, seed, w)
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        if not max(errs) <= K2_BOUNDS[dt]:
+            raise AssertionError(f"K5b B={B} N={N} H={H} Hkv={Hkv} {dt} rate={rate}: "
+                                 f"relative errors dq/dk/dv/dslopes {errs} > "
+                                 f"{K2_BOUNDS[dt]:.0e}")
+        del got, ref
+        big = N > 1024
+        f_ms = cuda_ms(lambda: flash_fwd(q, k, v, slopes, kl, scale, offset, ql, causal,
+                                         rate, seed), iters=10)
+        b_ms = cuda_ms(lambda: flash_bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale,
+                                         offset, causal, rate), iters=10)
+        fp_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, slopes, kl, scale, offset,
+                                                          ql, causal, rate, seed),
+                        iters=2 if big else 5, warmup=1)
+        bp_ms = cuda_ms(lambda: flash_bwd_reference(q, k, v, slopes, kl, ql, seed, o, lse, w,
+                                                    scale, offset, causal, rate),
+                        iters=2 if big else 5, warmup=1)
+        fl_ms = cuda_ms(library_call(q, k, v, slopes, kl, scale, offset, causal), iters=5)
+        bl_ms = cuda_ms(library_call(q, k, v, slopes, kl, scale, offset, causal, do=w),
+                        iters=3)
+        fb = attention_bound(q, k, kl, ql, causal, offset)
+        bb = attention_bound(q, k, kl, ql, causal, offset, backward=True)
+        say("kernel", t0, f"K5 B={B} N={N} M={M} H={H} Hkv={Hkv} {dt} dropout={rate} "
+            f"offset={offset} causal={int(causal)}: K5a max_err={err:.3e} "
+            f"lse_err={lse_err:.3e} bound={bound:.0e}{kept}; K5b rel_err dq={errs[0]:.2e} "
+            f"dk={errs[1]:.2e} dv={errs[2]:.2e} dslopes={errs[3]:.2e} "
+            f"bound={K2_BOUNDS[dt]:.0e}; K5a kernel_ms={f_ms:.4f} plain_ms={fp_ms:.4f} "
+            f"library_ms={fl_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]}); K5b kernel_ms="
+            f"{b_ms:.4f} plain_ms={bp_ms:.4f} library_ms={bl_ms:.4f} bound_ms={bb[0]:.4f} "
+            f"({bb[1]})")
+        del q, k, v, o, lse, w
+        torch.cuda.empty_cache()
 
 
 def training_batch(synth, gen):
@@ -629,10 +835,12 @@ def training_batch(synth, gen):
     return batch, ad.duration[idx], [encoded[i][0] for i in keep]
 
 
-def make_trainer(experiment: dict, plain: bool, seed: int, precision: str | None = None):
+def make_trainer(experiment: dict, plain: bool, seed: int, precision: str | None = None,
+                 mha: bool = False):
     """The checkpoint fine-tuned with its own trainer and loss settings, on
     the kernel path or (``plain``) on every kernel's plain version: einsum
-    attention, the plain MAS DP and the plain CTC scan."""
+    attention, the plain MAS DP and the plain CTC scan. With ``mha`` the
+    model is the multi-KV-head one (:func:`mha_model`)."""
     import torch
 
     from isp_tts_tpu_torch.config import build_config
@@ -641,7 +849,7 @@ def make_trainer(experiment: dict, plain: bool, seed: int, precision: str | None
     from isp_tts_tpu_torch.training.trainer import Trainer
     from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
 
-    model = AcousticModel.from_pretrained(CKPT)
+    model = mha_model() if mha else AcousticModel.from_pretrained(CKPT)
     loss_cfg = build_config(AcousticLossConfig, experiment["criterion"])
     if plain:
         set_flash(model, "off")
@@ -698,7 +906,7 @@ def describe(errs: dict) -> str:
             + f"; grad norm {errs['norm']:.1e}; {errs['within'][0]} of {errs['within'][1]} "
             f"parameter gradients within {STEP_GRAD_BOUND:.0e} of their max-abs, worst "
             f"{errs['worst'][0]} {errs['worst'][1]:.1e}; module grad norms "
-            + ", ".join(f"{k}={v:.1e}" for k, v in errs["module"].items())
+            + ", ".join(f"{k}={v:.2e}" for k, v in errs["module"].items())
             + f"; gradient cosine {errs['cosine']:.6f}; {errs['durations']} token "
             "durations differ")
 
@@ -714,51 +922,65 @@ def bf16_misses(errs: dict) -> list[str]:
 
 def launch_counts(reset: bool = False) -> dict:
     from isp_tts_tpu_torch.ops import ctc, mas
-    from isp_tts_tpu_torch.ops.flash_attention import mqa_bwd, mqa_fwd
+    from isp_tts_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, mqa_bwd, mqa_fwd
 
     fns = {"K1 mqa_fwd": mqa_fwd, "K2 mqa_bwd": mqa_bwd,
            "K3 mas": mas.monotonic_alignment_search, "K4 ctc_fwd": ctc.ctc_fwd,
-           "K4 ctc_bwd": ctc.ctc_bwd}
+           "K4 ctc_bwd": ctc.ctc_bwd, "K5a flash_fwd": flash_fwd,
+           "K5b flash_bwd": flash_bwd}
     if reset:
         for fn in fns.values():
             fn.launches = 0
     return {name: fn.launches for name, fn in fns.items()}
 
 
-def phase_train(t0, synth):
+def phase_batch(t0, synth):
+    """The fixed fine-tuning batch and the checkpoint's experiment config."""
     import torch
 
     from isp_tts_tpu_torch.checkpoint import load_checkpoint
 
     experiment = load_checkpoint(CKPT)["experiment"]["config"]
     gen = torch.Generator(device="cuda").manual_seed(5)
-    batch, durations, sentences = training_batch(synth, gen)
+    batch, durations, _ = training_batch(synth, gen)
     say("train", t0, f"batch of {BATCH} sentences ({len(TRAIN_SENTENCES)} in the pool): "
         f"tokens {batch['text_vector_len'].tolist()}, frames {batch['mel_len'].tolist()}")
     cfg = experiment["trainer"]
     say("train", t0, f"trainer: precision {cfg['precision']}, batch {cfg['batch_size']}, "
         f"optimization {cfg['optimization']}")
+    return experiment, batch, durations
 
+
+#: each path's attention kernels; the other path's must not launch on it
+PATH_KERNELS = {False: ("K1 mqa_fwd", "K2 mqa_bwd"), True: ("K5a flash_fwd", "K5b flash_bwd")}
+
+
+def phase_train(t0, experiment, batch, durations, mha=False):
+    """The training path of the one-KV-head checkpoint (K1, K2) or, with
+    ``mha``, of the multi-KV-head model (K5a, K5b); K3 and K4 on both."""
+    import torch
+
+    label = "train-mha" if mha else "train"
     # (a) one step, kernel path against plain path, in f32 and in bf16
     results = {}
     for precision in ("fp32", "bf16"):
         for plain in (False, True):
-            trainer = make_trainer(experiment, plain, 7, precision)
+            trainer = make_trainer(experiment, plain, 7, precision, mha=mha)
             results[precision, plain] = step_result(trainer, batch)
             del trainer
     errs = step_diff(results["fp32", False], results["fp32", True])
     if not (max(errs["loss"].values()) <= STEP_LOSS_BOUND and errs["norm"] <= STEP_GRAD_BOUND
             and errs["worst"][1] <= STEP_GRAD_BOUND):
         raise AssertionError(f"kernel path vs plain path, f32 step: {errs}")
-    say("train", t0, f"(a) one f32 step, kernel path vs plain path: {describe(errs)}; "
+    say(label, t0, f"(a) one f32 step, kernel path vs plain path: {describe(errs)}; "
         f"bounds {STEP_LOSS_BOUND:.0e} / {STEP_GRAD_BOUND:.0e}")
     control = step_diff(results["bf16", True], results["fp32", True])
-    say("train", t0, f"(a) control: one bf16 step vs the f32 step, plain path: "
+    say(label, t0, f"(a) control: one bf16 step vs the f32 step, plain path: "
         f"{describe(control)}")
-    say("train", t0, "(a) one bf16 step, kernel path vs the f32 plain step: "
+    say(label, t0, "(a) one bf16 step, kernel path vs the f32 plain step: "
         + describe(step_diff(results["bf16", False], results["fp32", True])))
     errs = step_diff(results["bf16", False], results["bf16", True])
-    say("train", t0, f"(a) one bf16 step, kernel path vs plain path: {describe(errs)}; "
+    say(label, t0, f"(a) one bf16 step, kernel path vs plain path: {describe(errs)}; "
         f"bounds {BF16_STEP_BOUNDS}")
     if bf16_misses(errs):
         raise AssertionError(f"kernel path vs plain path, bf16 step: {bf16_misses(errs)}")
@@ -766,7 +988,7 @@ def phase_train(t0, synth):
     torch.cuda.empty_cache()
 
     # (b) the main path: 30 steps, counts zeroed just before, read just after
-    kernel = make_trainer(experiment, False, 7)
+    kernel = make_trainer(experiment, False, 7, mha=mha)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch_counts(reset=True)
@@ -782,13 +1004,15 @@ def phase_train(t0, synth):
         raise AssertionError(f"a metric went non-finite: {history}")
     if not np.mean(mel[-5:]) < np.mean(mel[:5]):
         raise AssertionError(f"mel loss did not fall: {mel}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    path = PATH_KERNELS[mha] + ("K3 mas", "K4 ctc_fwd", "K4 ctc_bwd")
+    if min(launches[k] for k in path) == 0 or any(launches[k] for k in PATH_KERNELS[not mha]):
+        raise AssertionError(f"the training path should launch {path} and no other "
+                             f"attention kernel: {launches}")
     warm = step_ms[5:]
-    say("train", t0, f"(b) {TRAIN_STEPS} steps: mel_loss first 5 mean {np.mean(mel[:5]):.5f}, "
+    say(label, t0, f"(b) {TRAIN_STEPS} steps: mel_loss first 5 mean {np.mean(mel[:5]):.5f}, "
         f"last 5 mean {np.mean(mel[-5:]):.5f}; per step: "
         + ", ".join(f"{k}={history[-1][k]:.4f}" for k in history[-1]))
-    say("train", t0, f"ms per step (steps 6-{TRAIN_STEPS}, host clock, synced) mean "
+    say(label, t0, f"ms per step (steps 6-{TRAIN_STEPS}, host clock, synced) mean "
         f"{np.mean(warm):.1f} min {np.min(warm):.1f} max {np.max(warm):.1f}; first "
         f"{step_ms[0]:.1f}; peak memory {peak_mib:.1f} MiB; launches {launches}, per step "
         + str({k: v / TRAIN_STEPS for k, v in launches.items()}))
@@ -802,17 +1026,72 @@ def phase_train(t0, synth):
                              f"{ml.tolist()}")
     mask = torch.arange(TEXT_LEN, device="cuda")[None] < batch["text_vector_len"][:, None]
     gap = ((hard - durations).abs() * mask).sum() / mask.sum()
-    say("train", t0, f"(c) MAS durations sum to mel_len in all {BATCH} rows; mean |MAS - "
+    say(label, t0, f"(c) MAS durations sum to mel_len in all {BATCH} rows; mean |MAS - "
         f"Synthesizer duration| {gap.item():.2f} frames per token (not a gate)")
-    return kernel, batch, launches
+    return kernel, launches
+
+
+#: the multi-KV-head step's to_kv gradient, summed over its head blocks,
+#: against the one-KV-head step's: f32 sums in another order (K5b sums dk/dv
+#: per head then over heads, K2 over folded rows and splits)
+KV_GRAD_BOUND = 1e-4
+
+
+def phase_kv_grad(t0, experiment, batch):
+    """One f32 step with dropout off and no clip, kernel path, of the
+    multi-KV-head model and of the one-KV-head checkpoint: each layer's
+    ``to_kv`` gradient summed over its H head blocks (K then V) against the
+    one-KV-head gradient (K5b against K2 on the model)."""
+    import torch
+
+    from isp_tts_tpu_torch.nn.layers import FastDropout
+
+    results, heads = {}, None
+    for mha in (False, True):
+        trainer = make_trainer(experiment, False, 7, "fp32", mha=mha)
+        for m in trainer.model.modules():
+            if isinstance(m, FastDropout):
+                m.rate = 0.0
+        trainer.config.optimization.grad_clip_norm = None  # the norms differ
+        if mha:
+            heads = attention_heads(trainer.model)
+        results[mha] = step_result(trainer, batch)
+        del trainer
+    kv_err, other_err = {}, {}
+    for name, g in results[True]["grads"].items():
+        ref = results[False]["grads"][name]
+        if name.endswith("to_kv.weight"):  # (2*H*D, dim): K heads, then V heads
+            H = heads[name[: -len(".to_kv.weight")]]
+            g = g.reshape(2, H, -1, g.shape[-1]).sum(dim=1).reshape(ref.shape)
+            kv_err[name] = rel_err(g, ref)
+        else:
+            other_err[name] = rel_err(g, ref)
+    worst = max(kv_err, key=kv_err.get)
+    other = max(other_err, key=other_err.get)
+    loss = {k: abs(results[True]["loss"][k] - v) / max(abs(v), 1e-12)
+            for k, v in results[False]["loss"].items()}
+    say("train-mha", t0, f"f32 step, dropout off, multi-KV-head vs one-KV-head model on "
+        f"the kernel path: to_kv gradients summed over heads within {kv_err[worst]:.2e} of "
+        f"their max-abs in {len(kv_err)} layers (worst {worst}), bound "
+        f"{KV_GRAD_BOUND:.0e}; other gradients worst {other} {other_err[other]:.2e}; loss "
+        f"terms " + ", ".join(f"{k}={v:.1e}" for k, v in loss.items())
+        + f"; {int((results[True]['durations'] != results[False]['durations']).sum())} "
+        "token durations differ")
+    if len(kv_err) != 16 or kv_err[worst] > KV_GRAD_BOUND:
+        raise AssertionError(f"multi-KV-head to_kv gradients: {kv_err}")
+    del results
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- records
-def kernel_records(batch, launches, serve_launches):
+def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_launches):
     """Every kernel's numbers at the training path's shapes: the decoder's
     attention (B 32, N = M = 320, H 6, bf16, dropout 0.1, the batch's frame
-    counts), the aligner's MAS and the attention loss's CTC (B 32, M 320,
-    T 48, the batch's lengths)."""
+    counts; K5a/K5b with 6 key/value heads), the aligner's MAS and the
+    attention loss's CTC (B 32, M 320, T 48, the batch's lengths); K5a also
+    at the serving decoder's shape (B 4, N = M = 1024, H 6, f32, ragged).
+    ``launches`` are the one-KV-head training run's counts (K1-K4),
+    ``mha_launches`` the multi-KV-head run's (K5a, K5b)."""
     import torch
     import torch.nn.functional as F
 
@@ -831,8 +1110,8 @@ def kernel_records(batch, launches, serve_launches):
     grads = mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate)
     grads_ref = mqa_bwd_reference(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0,
                                   False, rate)
-    k1_bound = mqa_bound(q, k, lens, lens)
-    k2_bound = mqa_bound(q, k, lens, lens, backward=True)
+    k1_bound = attention_bound(q, k, lens, lens)
+    k2_bound = attention_bound(q, k, lens, lens, backward=True)
     k2_lib = cuda_ms(library_call(q, k, v, slopes, lens, scale, do=do), iters=10)
     shape = f"B={B} N=M={N} H={H} D=64 bfloat16 dropout={rate}"
     records = [
@@ -861,6 +1140,7 @@ def kernel_records(batch, launches, serve_launches):
          "shape": shape},
     ]
     torch.cuda.empty_cache()
+    records += k5_records(batch, mha_launches, mha_serve_launches)
 
     T = TEXT_LEN
     la, _, _ = mas_inputs(B, MEL_LEN, T, gen)
@@ -909,6 +1189,62 @@ def kernel_records(batch, launches, serve_launches):
     return records
 
 
+def k5_records(batch, launches, serve_launches):
+    """K5a's and K5b's records (see :func:`kernel_records`)."""
+    import torch
+
+    from isp_tts_tpu_torch.ops.flash_attention import (flash_attention_reference, flash_bwd,
+                                                       flash_bwd_reference, flash_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, N, H, rate, scale = BATCH, MEL_LEN, 6, 0.1, 64 ** -0.5
+    q, k, v, slopes, _, _ = mqa_inputs(B, N, N, H, torch.bfloat16, True, gen, kv_heads=H)
+    lens = batch["mel_len"].contiguous()
+    seed = seed_tensor(2025)
+    fwd_args = (q, k, v, slopes, lens, scale, 0, lens, False, rate, seed)
+    o, lse = flash_fwd(*fwd_args)
+    o_ref, _ = flash_attention_reference(*fwd_args)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    bwd_args = (q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate)
+    grads = flash_bwd(*bwd_args)
+    grads_ref = flash_bwd_reference(*bwd_args)
+    fb, bb = attention_bound(q, k, lens, lens), attention_bound(q, k, lens, lens, backward=True)
+    shape = f"B={B} N=M={N} H={H} Hkv={H} D=64 bfloat16 dropout={rate}"
+
+    # the serving decoder's shape: the batch bucket of 4 at a frame budget of 1024
+    sq, sk, sv, ss, skl, sql = mqa_inputs(4, 1024, 1024, H, torch.float32, True, gen,
+                                          kv_heads=H)
+    serving_ms = cuda_ms(lambda: flash_fwd(sq, sk, sv, ss, skl, scale, 0, sql))
+    serving_bound = attention_bound(sq, sk, skl, sql)
+    serving_library = cuda_ms(library_call(sq, sk, sv, ss, skl, scale))
+    records = [
+        {"name": "K5a flash_fwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "isp_tts_tpu/ops/flash_attention.py:80", "launches": launches["K5a flash_fwd"],
+         "launches_serving": serve_launches,
+         "max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
+         "ms": cuda_ms(lambda: flash_fwd(*fwd_args)),
+         "plain_ms": cuda_ms(lambda: flash_attention_reference(*fwd_args), iters=5),
+         "bound_ms": fb[0], "bound_by": fb[1],
+         "library_ms": cuda_ms(library_call(q, k, v, slopes, lens, scale)), "shape": shape,
+         "serving_ms": serving_ms, "serving_bound_ms": serving_bound[0],
+         "serving_library_ms": serving_library,
+         "serving_shape": "B=4 N=M=1024 H=6 Hkv=6 D=64 float32 ragged lengths"},
+        {"name": "K5b flash_bwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "isp_tts_tpu/ops/flash_attention.py:155 + :229",
+         "launches": launches["K5b flash_bwd"],
+         "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(grads, grads_ref)),
+         "ms": cuda_ms(lambda: flash_bwd(*bwd_args)),
+         "plain_ms": cuda_ms(lambda: flash_bwd_reference(*bwd_args), iters=5),
+         "bound_ms": bb[0], "bound_by": bb[1],
+         "library_ms": cuda_ms(library_call(q, k, v, slopes, lens, scale, do=do), iters=10),
+         "shape": shape},
+    ]
+    del q, k, v, o, lse, do, grads, grads_ref, sq, sk, sv
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -918,12 +1254,25 @@ def main() -> int:
     phase_build(t0)
     phase_kernel(t0)
     phase_kernel_train(t0)
-    synth, launches, dec, fb = phase_slice(t0)
+    phase_kernel_mha(t0)
+    synth, serve_launches, reference = phase_slice(t0)
     phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
     phase_profile(t0, lambda: synth(SENTENCES), "batch of 3")
-    trainer, batch, train_launches = phase_train(t0, synth)
+    mha_synth, mha_serve_launches = phase_slice_mha(t0, reference)
+    phase_profile(t0, lambda: mha_synth(SENTENCES[0]), "one sentence, multi-KV-head")
+    del mha_synth, reference
+    experiment, batch, durations = phase_batch(t0, synth)
+    del synth
+    trainer, train_launches = phase_train(t0, experiment, batch, durations)
     phase_profile(t0, lambda: trainer.train([batch], 1), "one training step")
-    records = kernel_records(batch, train_launches, launches["K1 mqa_fwd"])
+    del trainer
+    mha_trainer, mha_launches = phase_train(t0, experiment, batch, durations, mha=True)
+    phase_profile(t0, lambda: mha_trainer.train([batch], 1),
+                  "one training step, multi-KV-head")
+    del mha_trainer
+    phase_kv_grad(t0, experiment, batch)
+    records = kernel_records(batch, train_launches, serve_launches, mha_launches,
+                             mha_serve_launches)
     say("done", t0)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """Config dataclasses from the plain dicts a checkpoint embeds.
 
 A copy of the one function of ``isp_tts_tpu/config/registry.py`` that
-serving needs: :func:`build_config` builds a config dataclass from a dict
+the port needs: :func:`build_config` builds a config dataclass from a dict
 and keyword overrides (the overrides win), recursing into fields whose type
-is itself a config dataclass. Keys the dataclass does not declare are
-dropped, so a checkpoint written with more settings than the port uses
-still loads.
+is itself a config dataclass. Undeclared keys that start with ``_`` (the
+recipe loader's meta keys, such as ``_name_``) are dropped, as there. Any
+other key the dataclass does not declare raises, unless the dataclass
+lists it in its ``IGNORED_KEYS``: keys of the JAX config that cannot change
+what the port computes (a trainer's logging and save settings, say). So a
+setting the port does not compute is refused, never silently dropped.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ def build_config(config_cls: Type[T], cfg: dict | None = None, **kwargs) -> T:
     """Build ``config_cls`` from ``cfg`` updated by ``kwargs``."""
     merged = dict(cfg or {})
     merged.update(kwargs)
+    names = {f.name for f in dataclasses.fields(config_cls)}
+    ignored = getattr(config_cls, "IGNORED_KEYS", frozenset())
+    unknown = sorted(k for k in merged
+                     if k not in names and k not in ignored and not k.startswith("_"))
+    if unknown:
+        raise ValueError(f"{config_cls.__name__}: the port does not compute {unknown}")
     hints = typing.get_type_hints(config_cls)
     known = {}
     for f in dataclasses.fields(config_cls):

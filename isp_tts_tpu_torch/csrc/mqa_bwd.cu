@@ -40,10 +40,7 @@
 //
 // Plain C interface for ctypes; returns the first launch's cudaGetLastError.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -53,38 +50,6 @@ constexpr int BK = 64;    // dq pass: keys per shared-memory tile
 constexpr int BC = 64;    // dk/dv pass: keys per block = threads
 constexpr int TR = 16;    // dk/dv pass: rows per shared-memory tile
 constexpr int MAXH = 64;  // heads the slope reduction holds
-
-__device__ __forceinline__ bool keep_bit(uint32_t idx, uint32_t seed,
-                                         uint32_t thresh) {
-  uint32_t u = idx + seed;
-  u *= 2654435761u;
-  u ^= u >> 17;
-  u *= 0x45D9F3Bu;
-  return (u >> 24) < thresh;
-}
-
-__device__ __forceinline__ void widen8(const float* src, float* dst) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-
-__device__ __forceinline__ void widen8(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // ---------------------------------------------------------------- pass 1
 template <typename T>
@@ -200,7 +165,7 @@ mqa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dp = fmaf(dor[4 * d4 + 2], vv.z, dp);
         dp = fmaf(dor[4 * d4 + 3], vv.w, dp);
       }
-      const float dist = -fabsf(static_cast<float>(c - n - offset));
+      const float dist = alibi_dist(c, n, offset);
       const bool lower = c <= n + offset;
       const float p = expf(sd * scale + (lower ? lo : hi) * dist - L);
       if (drop) {
@@ -358,7 +323,7 @@ mqa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dp = fmaf(gv.z, vt[4 * d4 + 2][threadIdx.x], dp);
         dp = fmaf(gv.w, vt[4 * d4 + 3][threadIdx.x], dp);
       }
-      const float dist = -fabsf(static_cast<float>(c - n - offset));
+      const float dist = alibi_dist(c, n, offset);
       const float slope = (c <= n + offset) ? slo_s[h] : shi_s[h];
       const float p = expf(sd * scale + slope * dist - L);
       float mf = 1.f;

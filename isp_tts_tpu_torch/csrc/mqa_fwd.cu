@@ -28,10 +28,7 @@
 // Plain C interface for ctypes; the launch goes on the caller's stream and
 // the function returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -40,39 +37,6 @@ constexpr int BR = 64;   // folded rows per block = threads per block
 constexpr int BK = 64;   // keys per shared-memory tile
 constexpr int CK = 16;   // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;
-
-// keep iff the top byte of the hash of (idx + seed) is below thresh
-__device__ __forceinline__ bool keep_bit(uint32_t idx, uint32_t seed,
-                                         uint32_t thresh) {
-  uint32_t u = idx + seed;
-  u *= 2654435761u;
-  u ^= u >> 17;
-  u *= 0x45D9F3Bu;
-  return (u >> 24) < thresh;
-}
-
-__device__ __forceinline__ void widen8(const float* src, float* dst) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-
-__device__ __forceinline__ void widen8(const __nv_bfloat16* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(BR)
@@ -163,7 +127,7 @@ mqa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dot = fmaf(qr[4 * d4 + 2], kv.z, dot);
           dot = fmaf(qr[4 * d4 + 3], kv.w, dot);
         }
-        const float dist = -fabsf((float)(c - n - offset));
+        const float dist = alibi_dist(c, n, offset);
         const float slope = (c <= n + offset) ? lo : hi;
         const float val = dot * scale + slope * dist;
         s[jj] = (c < lim) ? val : NEG_INF;

@@ -25,10 +25,6 @@ from ...nn.transformer import Transformer, TransformerConfig
 from ...utils.autocast import no_autocast
 from ...utils.masks import get_float_mask_from_lengths, get_mask_3d, masked_mean
 
-#: OT-CFM's minimum noise scale (the JAX config's ``sigma``, never changed)
-SIGMA = 1e-5
-
-
 @no_autocast
 def length_regulate_hard(x: torch.Tensor, durations: torch.Tensor, max_len: int):
     """Repeat token states (B, T, C) by rounded durations (B, T) into
@@ -92,6 +88,7 @@ class TemporalModuleConfig:
     output_dim: int = 256
     transformer: TransformerConfig = field(
         default_factory=lambda: TransformerConfig(dim=128, depth=2))
+    detach_inputs: bool = False  # stop the gradient into the input features
 
 
 class TransformerTemporalModule(nn.Module):
@@ -104,8 +101,11 @@ class TransformerTemporalModule(nn.Module):
                              emb_dim=cfg.input_dim)
         self.transformer = Transformer(t_cfg)
         self.linear = nn.Linear(t_cfg.dim, cfg.output_dim)
+        self.detach_inputs = cfg.detach_inputs
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.detach_inputs:
+            x = x.detach()
         out = self.linear(self.transformer(x, mask=mask))
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
@@ -119,6 +119,8 @@ class FlowTemporalModuleConfig:
     transformer: TransformerConfig = field(
         default_factory=lambda: TransformerConfig(dim=128, depth=2))
     time_embedding_dim: int | None = None
+    sigma: float = 1e-5  # OT-CFM's minimum noise scale
+    detach_inputs: bool = False  # stop the flow loss's gradient into the encoder
 
 
 def time_grid(steps: int, step_factor: float = 0.75) -> torch.Tensor:
@@ -145,6 +147,8 @@ class FlowTransformerTemporalModule(nn.Module):
         self.transformer = Transformer(t_cfg)
         self.linear = nn.Linear(t_cfg.dim, cfg.output_dim)
         self.output_dim = cfg.output_dim
+        self.sigma = cfg.sigma
+        self.detach_inputs = cfg.detach_inputs
 
     def _velocity(self, x_t, cond, t_emb, mask):
         h = torch.cat([x_t, cond], dim=-1)
@@ -171,10 +175,11 @@ class FlowTransformerTemporalModule(nn.Module):
         x0, t = noise.to(x1), t.to(x1)
         t_emb = self.time_embedding(t)
         tb = t[:, None, None]
-        x_t = (1.0 - (1.0 - SIGMA) * tb) * x0 + tb * x1
-        flow = x1 - (1.0 - SIGMA) * x0
+        x_t = (1.0 - (1.0 - self.sigma) * tb) * x0 + tb * x1
+        flow = x1 - (1.0 - self.sigma) * x0
         fmask = mask[..., None].float()
-        pred_flow = self._velocity(x_t, x, t_emb, mask).float() * fmask
+        cond = x.detach() if self.detach_inputs else x
+        pred_flow = self._velocity(x_t, cond, t_emb, mask).float() * fmask
         loss = masked_mean((pred_flow - flow) ** 2, fmask)
         x_pred = ((x0 + pred_flow) * fmask).detach()
         return x_pred, {"flow_loss": loss}

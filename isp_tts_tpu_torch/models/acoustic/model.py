@@ -11,7 +11,7 @@ channel-last, (B, frames, mel_dim), as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import torch
 from torch import nn
@@ -32,6 +32,10 @@ class AcousticModelOutput(NamedTuple):
 
 @dataclass
 class AcousticModelConfig:
+    #: the audio front end's geometry, which serving's vocoder reads; the
+    #: model does not
+    IGNORED_KEYS: ClassVar[frozenset] = frozenset({"audio_config"})
+
     encoding_map: dict = None  # type: ignore  # the checkpoint's symbol -> id table
     mel_dim: int = 80
     text_dim: int = 384

@@ -108,10 +108,16 @@ class Transformer(nn.Module):
                                                device=x.device, dtype=x.dtype)
         if self.project_emb is not None:
             x = self.project_emb(x)
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            # the residual stream runs in the compute dtype, as the JAX
+            # package's ``stream_dtype``: its adds are bf16 under bf16 autocast
+            # (the norms still take their statistics in f32)
+            x = x.to(torch.get_autocast_dtype(dev))
         for layer in self.layers:
             x = layer(x, mask=mask, adaptive_condition=adaptive_condition)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x.float())
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
         return x

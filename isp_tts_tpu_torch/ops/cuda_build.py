@@ -3,9 +3,10 @@
 Each source under ``isp_tts_tpu_torch/csrc/`` has a plain C interface and
 no PyTorch or Python headers, so ``nvcc`` builds it in seconds into a shared
 library under ``isp_tts_tpu_torch/_build/`` (listed in ``.gitignore``). The
-library's file name carries a hash of the source and of the command, so an
-edited source builds anew and an unchanged one is built once. Nothing is
-built at import time: :func:`load` builds at first use.
+library's file name carries a hash of the source, of the shared headers
+(``csrc/*.cuh``) and of the command, so an edited source builds anew and an
+unchanged one is built once. Nothing is built at import time: :func:`load`
+builds at first use.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ def nvcc_command(source: Path, out: Path) -> list[str]:
 
 def library_path(name: str) -> Path:
     source = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(source.read_bytes()
+    # the shared headers count too: an edited header rebuilds every source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

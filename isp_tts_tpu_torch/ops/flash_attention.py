@@ -1,23 +1,35 @@
-"""Folded multi-query attention: forward (kernel K1), backward (kernel K2),
-their plain versions, and the autograd function that joins them.
+"""Attention kernels and their plain versions: the folded-MQA forward (K1)
+and backward (K2), the per-head forward (K5a) and backward (K5b), and the
+autograd function that joins a forward to its backward.
 
-Counterpart of ``isp_tts_tpu/ops/flash_attention.py:flash_attention_mqa``:
-the forward ``_mqa_fwd`` (Pallas ``_mqa_fwd_kernel``) and the backward
-``_mqa_bwd`` (Pallas ``_mqa_dfused_kernel`` when the key axis fits
-resident, ``_mqa_dq_kernel`` + ``_mqa_dkv_kernel`` above it). Symmetric
-ALiBi is two equal slope rows. On a CUDA tensor :func:`mqa_fwd` launches
-the hand-written Hopper kernel in ``csrc/mqa_fwd.cu`` and :func:`mqa_bwd`
-the one in ``csrc/mqa_bwd.cu`` (one design for both TPU regimes); on a CPU
-tensor they run :func:`mqa_attention_reference` and
-:func:`mqa_bwd_reference`, the plain einsum versions the kernels are held
-against on the card. Any other device raises.
+Counterpart of ``isp_tts_tpu/ops/flash_attention.py``:
+
+- ``flash_attention_mqa`` (one key/value head): the forward ``_mqa_fwd``
+  (Pallas ``_mqa_fwd_kernel``) and the backward ``_mqa_bwd`` (Pallas
+  ``_mqa_dfused_kernel`` when the key axis fits resident,
+  ``_mqa_dq_kernel`` + ``_mqa_dkv_kernel`` above it). On a CUDA tensor
+  :func:`mqa_fwd` launches ``csrc/mqa_fwd.cu`` and :func:`mqa_bwd`
+  ``csrc/mqa_bwd.cu`` (one design for both TPU regimes).
+- ``flash_attention`` (Hkv key/value heads, Hkv = H or 1): the forward
+  ``_flash_fwd`` (Pallas ``_fwd_kernel``) and the backward ``_flash_bwd``
+  (``_dq_kernel`` + ``_dkv_kernel``). On a CUDA tensor :func:`flash_fwd`
+  launches ``csrc/flash_fwd.cu`` and :func:`flash_bwd` ``csrc/flash_bwd.cu``.
+
+On a CPU tensor each wrapper runs its plain einsum version
+(:func:`mqa_attention_reference`, :func:`mqa_bwd_reference`,
+:func:`flash_attention_reference`, :func:`flash_bwd_reference`), which the
+kernels are held against on the card. Any other device raises. Every
+function takes q in the projection's natural (B, N, H, D) layout, so the
+projections need no transposes. Symmetric ALiBi is two equal slope rows.
 
 Dropout acts on the post-softmax probabilities, as in the JAX package: the
 normaliser uses the undropped probabilities, the value product the dropped
-ones. The keep mask is a pure integer hash of the global folded index
-``(b * N*H + n*H + h) * M + c`` plus a seed (``_keep_hash`` there), so the
-forward and the backward regenerate the same bits and nothing of shape
-(N*H, M) is stored.
+ones. The keep mask is a pure integer hash of a global element index plus
+a seed (``_keep_hash`` there), so the forward and the backward regenerate
+the same bits and nothing of shape (N, M) is stored. The two families hash
+different indices, as there: the folded ``(b*N*H + n*H + h)*M + c``
+(``_mqa_keep``) and the per-head ``((b*H + h)*N + n)*M + c``
+(``_head_keep``), both over the unpadded N and M, mod 2**32.
 """
 
 from __future__ import annotations
@@ -75,6 +87,14 @@ def mqa_keep_mask(B: int, N: int, H: int, M: int, seed: torch.Tensor,
     return keep_hash(idx, seed.to(torch.int64), thresh).reshape(B, N, H, M)
 
 
+def head_keep_mask(B: int, H: int, N: int, M: int, seed: torch.Tensor,
+                   thresh: int) -> torch.Tensor:
+    """(B, H, N, M) keep mask; element (b, h, n, c) hashes the per-head
+    index ((b*H + h)*N + n)*M + c with the (1,) int32 ``seed``."""
+    idx = torch.arange(B * H * N * M, dtype=torch.int64, device=seed.device)
+    return keep_hash(idx, seed.to(torch.int64), thresh).reshape(B, H, N, M)
+
+
 def _geometry(N, M, offset, slopes, device):
     """(dist (N, M), lower (N, M), bias (N, H, M)) of the in-kernel ALiBi."""
     n = torch.arange(N, device=device)[:, None]
@@ -96,7 +116,80 @@ def _valid(key_lens, lower, causal, M, device):
     return valid[:, :, None, :]
 
 
+def _keep(drop, mask_fn):
+    """The dropped probabilities' multiplier (B, N, H, M), or None."""
+    if drop is None:
+        return None
+    return mask_fn(drop[0]) * drop[1]
+
+
+def _heads(k, H):
+    """k/v (B, M, Hkv, D) as (B, M, H, D) f32: one key/value head is shared."""
+    kf = k.float()
+    return kf.expand(-1, -1, H, -1) if kf.shape[2] == 1 else kf
+
+
 @no_autocast
+def _attention_reference(q, k, v, slopes, key_lens, scale, offset, q_lens, causal, keep):
+    """The plain forward of both families: q (B, N, H, D), k/v (B, M, Hkv,
+    D), ``keep`` from :func:`_keep`. Returns (o in q's dtype, lse (B, N, H)
+    f32, +inf on dead rows)."""
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    dev = q.device
+    _, lower, bias = _geometry(N, M, offset, slopes, dev)
+    s = torch.einsum("bnhd,bmhd->bnhm", q.float(), _heads(k, H)) * scale + bias[None]
+    valid = _valid(key_lens, lower, causal, M, dev)
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l = p.sum(dim=-1, keepdim=True)
+    if keep is not None:
+        p = p * keep
+    o = torch.einsum("bnhm,bmhd->bnhd", p, _heads(v, H)) / l.clamp_min(1e-30)
+    if q_lens is None:
+        q_lens = torch.full((B,), N, dtype=torch.int32, device=dev)
+    q_live = torch.arange(N, device=dev)[None, :] < q_lens.to(dev)[:, None]
+    live = q_live[:, :, None, None] & (l > 0)
+    o = torch.where(live, o, torch.zeros((), device=dev)).to(q.dtype)
+    lse = torch.where(live[..., 0], m[..., 0] + torch.log(l.clamp_min(1e-30))[..., 0],
+                      torch.full((), float("inf"), device=dev))
+    return o, lse
+
+
+@no_autocast
+def _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse, do, scale, offset,
+                             causal, keep):
+    """The plain backward of both families from the saved o and lse
+    (B, N, H). Returns (dq, dk, dv in their inputs' dtypes, dk/dv summed
+    over the heads that share a key/value head; dslopes (2, H) f32)."""
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    dev = q.device
+    dist, lower, bias = _geometry(N, M, offset, slopes, dev)
+    qf, kf, vf, dof = q.float(), _heads(k, H), _heads(v, H), do.float()
+    s = torch.einsum("bnhd,bmhd->bnhm", qf, kf) * scale + bias[None]
+    s = s.masked_fill(~_valid(key_lens, lower, causal, M, dev), NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bnhd,bmhd->bnhm", dof, vf)
+    pv = p
+    if keep is not None:
+        pv = p * keep
+        dp = dp * keep
+    dv = torch.einsum("bnhm,bnhd->bmhd", pv, dof)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bnhm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bnhm,bnhd->bmhd", ds, qf) * scale
+    if k.shape[2] == 1:
+        dk, dv = dk.sum(dim=2, keepdim=True), dv.sum(dim=2, keepdim=True)
+    dsd = ds * dist[None, :, None, :]
+    low = lower[None, :, None, :]
+    dslopes = torch.stack([torch.where(low, dsd, 0.0).sum(dim=(0, 1, 3)),
+                           torch.where(low, 0.0, dsd).sum(dim=(0, 1, 3))])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dslopes
+
+
 def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
                             q_lens=None, causal=False, dropout_rate=0.0, seed=None):
     """Plain version of K1. Shapes as in :func:`mqa_fwd`; math in f32.
@@ -105,29 +198,13 @@ def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
     """
     B, N, H, _ = q.shape
     M = k.shape[1]
-    dev = q.device
-    _, lower, bias = _geometry(N, M, offset, slopes, dev)
-    s = torch.einsum("bnhd,bmd->bnhm", q.float(), k.float()) * scale + bias[None]
-    valid = _valid(key_lens, lower, causal, M, dev)
-    s = s.masked_fill(~valid, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * valid
-    l = p.sum(dim=-1, keepdim=True)
-    drop = drop_params(dropout_rate)
-    if drop is not None:
-        p = p * mqa_keep_mask(B, N, H, M, seed, drop[0]) * drop[1]
-    o = torch.einsum("bnhm,bmd->bnhd", p, v.float()) / l.clamp_min(1e-30)
-    if q_lens is None:
-        q_lens = torch.full((B,), N, dtype=torch.int32, device=dev)
-    q_live = torch.arange(N, device=dev)[None, :] < q_lens.to(dev)[:, None]
-    live = q_live[:, :, None, None] & (l > 0)
-    o = torch.where(live, o, torch.zeros((), device=dev)).to(q.dtype)
-    lse = torch.where(live[..., 0], m[..., 0] + torch.log(l.clamp_min(1e-30))[..., 0],
-                      torch.full((), float("inf"), device=dev))
+    keep = _keep(drop_params(dropout_rate),
+                 lambda thresh: mqa_keep_mask(B, N, H, M, seed, thresh))
+    o, lse = _attention_reference(q, k[:, :, None], v[:, :, None], slopes, key_lens,
+                                  scale, offset, q_lens, causal, keep)
     return o, lse.reshape(B, N * H)
 
 
-@no_autocast
 def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
                       offset=0, causal=False, dropout_rate=0.0):
     """Plain version of K2: the gradients of K1's o from the saved o and lse.
@@ -139,48 +216,68 @@ def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale
     """
     B, N, H, _ = q.shape
     M = k.shape[1]
-    dev = q.device
-    dist, lower, bias = _geometry(N, M, offset, slopes, dev)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.einsum("bnhd,bmd->bnhm", qf, kf) * scale + bias[None]
-    s = s.masked_fill(~_valid(key_lens, lower, causal, M, dev), NEG_INF)
-    p = torch.exp(s - lse.reshape(B, N, H, 1))
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
-    dp = torch.einsum("bnhd,bmd->bnhm", dof, vf)
-    pv = p
-    drop = drop_params(dropout_rate)
-    if drop is not None:
-        mf = mqa_keep_mask(B, N, H, M, seed, drop[0]) * drop[1]
-        pv = p * mf
-        dp = dp * mf
-    dv = torch.einsum("bnhm,bnhd->bmd", pv, dof)
-    ds = p * (dp - delta)
-    dq = torch.einsum("bnhm,bmd->bnhd", ds, kf) * scale
-    dk = torch.einsum("bnhm,bnhd->bmd", ds, qf) * scale
-    dsd = ds * dist[None, :, None, :]
-    low = lower[None, :, None, :]
-    dslopes = torch.stack([torch.where(low, dsd, 0.0).sum(dim=(0, 1, 3)),
-                           torch.where(low, 0.0, dsd).sum(dim=(0, 1, 3))])
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dslopes
+    keep = _keep(drop_params(dropout_rate),
+                 lambda thresh: mqa_keep_mask(B, N, H, M, seed, thresh))
+    dq, dk, dv, dslopes = _attention_bwd_reference(
+        q, k[:, :, None], v[:, :, None], slopes, key_lens, o, lse.reshape(B, N, H), do,
+        scale, offset, causal, keep)
+    return dq, dk[:, :, 0], dv[:, :, 0], dslopes
 
 
-def _check(q, k, v, slopes, key_lens, q_lens, seed, *more):
-    if q.dim() != 4 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("q must be (B, N, H, D) and k, v (B, M, D)")
+def flash_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
+                              q_lens=None, causal=False, dropout_rate=0.0, seed=None):
+    """Plain version of K5a. Shapes as in :func:`flash_fwd`; math in f32.
+
+    Returns (o (B, N, H, D) in q's dtype, lse (B, H, N) f32).
+    """
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    keep = _keep(drop_params(dropout_rate), lambda thresh: head_keep_mask(
+        B, H, N, M, seed, thresh).permute(0, 2, 1, 3))
+    o, lse = _attention_reference(q, k, v, slopes, key_lens, scale, offset, q_lens,
+                                  causal, keep)
+    return o, lse.transpose(1, 2).contiguous()
+
+
+def flash_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
+                        offset=0, causal=False, dropout_rate=0.0):
+    """Plain version of K5b: the gradients of K5a's o from the saved o and
+    lse (B, H, N), as :func:`mqa_bwd_reference` does for K1. Returns (dq,
+    dk, dv in their inputs' dtypes, dk/dv (B, M, Hkv, D) summed over the
+    heads when Hkv = 1; dslopes (2, H) f32)."""
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    keep = _keep(drop_params(dropout_rate), lambda thresh: head_keep_mask(
+        B, H, N, M, seed, thresh).permute(0, 2, 1, 3))
+    return _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse.transpose(1, 2),
+                                    do, scale, offset, causal, keep)
+
+
+def _check(q, k, v, slopes, key_lens, q_lens, seed, *more, per_head=False):
+    """Raise on what the kernels do not take. k and v are (B, M, D) for the
+    folded-MQA kernels, (B, M, Hkv, D) with Hkv in {1, H} with ``per_head``."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, N, H, D), got {tuple(q.shape)}")
     B, N, H, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"the attention kernels take head dim {HEAD_DIM}, got {D}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernels take float32 or bfloat16, got {q.dtype}")
-    if k.shape != (B, k.shape[1], D) or v.shape != k.shape:
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+    if per_head:
+        fits = k.dim() == 4 and k.shape[0] == B and k.shape[2] in (1, H) and k.shape[3] == D
+        want = "(B, M, Hkv, D) with Hkv 1 or H"
+    else:
+        fits = k.dim() == 3 and k.shape[0] == B and k.shape[2] == D
+        want = "(B, M, D)"
+    if not fits or v.shape != k.shape:
+        raise ValueError(f"k and v must be {want}: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, q {tuple(q.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     if slopes.shape != (2, H) or slopes.dtype != torch.float32:
         raise ValueError(f"slopes must be (2, {H}) float32")
-    if H > 64:
-        raise ValueError(f"the attention kernels take at most 64 heads, got {H}")
+    if not per_head and H > 64:
+        raise ValueError(f"the folded-MQA kernels take at most 64 heads, got {H}")
     for name, lens in (("key_lens", key_lens), ("q_lens", q_lens)):
         if lens.shape != (B,) or lens.dtype != torch.int32:
             raise ValueError(f"{name} must be ({B},) int32")
@@ -326,14 +423,108 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
 mqa_bwd.launches = 0
 
 
-class _MQAAttention(torch.autograd.Function):
-    """K1 forward, K2 backward (their plain versions on CPU tensors)."""
+def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
+              causal=False, dropout_rate=0.0, seed=None):
+    """Per-head attention forward.
+
+    Args:
+      q: (B, N, H, 64) float32 or bfloat16 (the q projection's layout).
+      k, v: (B, M, Hkv, 64), q's dtype, Hkv = H (one key/value head per
+        query head) or 1 (one shared by all).
+      slopes, key_lens, scale, offset, q_lens, causal, dropout_rate, seed:
+        as in :func:`mqa_fwd`; the dropout mask is the per-head hash.
+
+    Returns:
+      (o (B, N, H, 64) in q's dtype, lse (B, H, N) float32 row logsumexp,
+      +inf on rows that attended nothing).
+    """
+    q_lens, seed = _defaults(q, q_lens, seed)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, slopes, key_lens, scale, offset,
+                                         q_lens, causal, dropout_rate, seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"K5a runs on cuda or cpu tensors, not {q.device}")
+    _check(q, k, v, slopes, key_lens, q_lens, seed, per_head=True)
+    B, N, H, _ = q.shape
+    M, Hkv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
+    fn = _kernel("flash_fwd", "isp_flash_fwd", [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), B, N, M, H, Hkv, int(offset), int(bool(causal)),
+             float(scale), thresh, inv_keep, _DTYPE_CODES[q.dtype], _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"K5a flash_fwd launch failed: CUDA error {err}")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+#: kernel launches since the count was last set to 0 (CPU calls never count)
+flash_fwd.launches = 0
+
+
+def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
+              offset=0, causal=False, dropout_rate=0.0):
+    """Per-head attention backward: (dq, dk, dv, dslopes (2, H) f32).
+
+    The arguments are K5a's, its outputs o and lse, and do = dL/do. dk and
+    dv have k's shape; with Hkv = 1 they are summed over the H heads.
+    """
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do,
+                                   scale, offset, causal, dropout_rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"K5b runs on cuda or cpu tensors, not {q.device}")
+    _check(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, per_head=True)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError("o and do must match q's shape and dtype")
+    B, N, H, _ = q.shape
+    M, Hkv = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, N) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {H}, {N}) float32")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dslopes = torch.zeros((2, H), dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_(), dslopes
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    # Hkv = 1: per-head f32 partial dk/dv, summed over the heads by a third launch
+    work = (torch.empty((2, B, H, M, HEAD_DIM), dtype=torch.float32, device=q.device)
+            if Hkv == 1 else None)
+    thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
+    fn = _kernel("flash_bwd", "isp_flash_bwd",
+                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
+             None if work is None else work.data_ptr(), B, N, M, H, Hkv, int(offset),
+             int(bool(causal)), float(scale), thresh, inv_keep, _DTYPE_CODES[q.dtype],
+             _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"K5b flash_bwd launch failed: CUDA error {err}")
+    flash_bwd.launches += 1
+    return dq, dk, dv, dslopes
+
+
+#: kernel launches since the count was last set to 0 (CPU calls never count)
+flash_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """A kernel forward (K1 or K5a) and its kernel backward (K2 or K5b),
+    or their plain versions on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal,
-                dropout_rate):
-        o, lse = mqa_fwd(q, k, v, slopes, key_lens, scale, offset, q_lens, causal,
-                         dropout_rate, seed)
+    def forward(ctx, kernels, q, k, v, slopes, key_lens, q_lens, seed, scale, offset,
+                causal, dropout_rate):
+        fwd, ctx.bwd = kernels
+        o, lse = fwd(q, k, v, slopes, key_lens, scale, offset, q_lens, causal,
+                     dropout_rate, seed)
         ctx.save_for_backward(q, k, v, slopes, key_lens, q_lens, seed, o, lse)
         ctx.args = (scale, offset, causal, dropout_rate)
         return o
@@ -341,9 +532,9 @@ class _MQAAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, slopes, key_lens, q_lens, seed, o, lse = ctx.saved_tensors
-        dq, dk, dv, dslopes = mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse,
+        dq, dk, dv, dslopes = ctx.bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse,
                                       do.contiguous(), *ctx.args)
-        return dq, dk, dv, dslopes, None, None, None, None, None, None, None
+        return None, dq, dk, dv, dslopes, None, None, None, None, None, None, None
 
 
 def mqa_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
@@ -351,5 +542,14 @@ def mqa_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     """Differentiable folded-MQA attention: :func:`mqa_fwd`'s output o, with
     :func:`mqa_bwd` as its backward. Arguments as in :func:`mqa_fwd`."""
     q_lens, seed = _defaults(q, q_lens, seed)
-    return _MQAAttention.apply(q, k, v, slopes, key_lens, q_lens, seed, scale,
-                               offset, causal, dropout_rate)
+    return _FlashAttention.apply((mqa_fwd, mqa_bwd), q, k, v, slopes, key_lens, q_lens,
+                                 seed, scale, offset, causal, dropout_rate)
+
+
+def flash_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
+                    causal=False, dropout_rate=0.0, seed=None):
+    """Differentiable per-head attention: :func:`flash_fwd`'s output o, with
+    :func:`flash_bwd` as its backward. Arguments as in :func:`flash_fwd`."""
+    q_lens, seed = _defaults(q, q_lens, seed)
+    return _FlashAttention.apply((flash_fwd, flash_bwd), q, k, v, slopes, key_lens,
+                                 q_lens, seed, scale, offset, causal, dropout_rate)

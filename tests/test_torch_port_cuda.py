@@ -212,3 +212,70 @@ def test_training_step_kernel_path_matches_plain_path(card):
     assert abs(nk.item() - np_.item()) <= 2e-2 * np_.item()
     for (name, a), b in zip(model.named_parameters(), plain.parameters()):
         assert (a.grad - b.grad).abs().max() <= 2e-2 * b.grad.abs().max(), name
+
+
+def _flash(card, B, N, M, H, Hkv, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(B, N, H, 64).astype(np.float32)).to(card, dtype)
+    k = torch.from_numpy(rng.randn(B, M, Hkv, 64).astype(np.float32)).to(card, dtype)
+    v = torch.from_numpy(rng.randn(B, M, Hkv, 64).astype(np.float32)).to(card, dtype)
+    sl = np.asarray(alibi_slopes(H), np.float32)
+    slopes = torch.from_numpy(np.stack([sl, sl * 0.5])).to(card)
+    key_lens = torch.tensor([M, 0] + [M // 2 + 3] * (B - 2), dtype=torch.int32, device=card)
+    q_lens = torch.tensor([N] + [N // 2 + 1] * (B - 1), dtype=torch.int32, device=card)
+    return q, k, v, slopes, key_lens, q_lens
+
+
+K5_CASES = [  # B, N, M, H, Hkv, offset, causal, rate, dtype, bound
+    (4, 320, 320, 6, 6, 0, False, 0.1, torch.float32, 1e-4),
+    (4, 320, 320, 4, 4, 0, False, 0.0, torch.float32, 1e-4),
+    (4, 320, 320, 6, 1, 0, False, 0.1, torch.float32, 1e-4),
+    (3, 96, 224, 6, 6, 128, True, 0.1, torch.float32, 1e-4),
+    (4, 320, 320, 6, 6, 0, False, 0.1, torch.bfloat16, 2e-2),
+]
+
+
+@pytest.mark.parametrize("B,N,M,H,Hkv,offset,causal,rate,dtype,bound", K5_CASES)
+def test_k5a_matches_plain_version(card, B, N, M, H, Hkv, offset, causal, rate, dtype,
+                                   bound):
+    from isp_tts_tpu_torch.ops.flash_attention import flash_attention_reference, flash_fwd
+
+    q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, Hkv, dtype)
+    seed = torch.tensor([17], dtype=torch.int32, device=card)
+    before = flash_fwd.launches
+    o, lse = flash_fwd(q, k, v, slopes, key_lens, 0.125, offset, q_lens, causal, rate, seed)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    o_ref, lse_ref = flash_attention_reference(q, k, v, slopes, key_lens, 0.125, offset,
+                                               q_lens, causal, rate, seed)
+    assert (o.float() - o_ref.float()).abs().max().item() <= bound
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[live] - lse_ref[live]).abs().max().item() <= 1e-4 * (
+        1 + lse_ref[live].abs().max().item())
+
+
+@pytest.mark.parametrize("B,N,M,H,Hkv,offset,causal,rate,dtype,bound", K5_CASES)
+def test_k5b_matches_autograd_through_plain_k5a(card, B, N, M, H, Hkv, offset, causal,
+                                                rate, dtype, bound):
+    from isp_tts_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       flash_attention_reference, flash_bwd)
+
+    q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, Hkv, dtype, seed=1)
+    seed = torch.tensor([29], dtype=torch.int32, device=card)
+    w = torch.randn(q.shape, device=card).to(dtype)
+
+    def grads(fn):
+        args = [x.clone().requires_grad_() for x in (q, k, v, slopes)]
+        torch.autograd.backward(fn(*args), w)
+        return [a.grad.float() for a in args]
+
+    before = flash_bwd.launches
+    got = grads(lambda *a: flash_attention(*a, key_lens, 0.125, offset, q_lens, causal,
+                                           rate, seed))
+    torch.cuda.synchronize()
+    assert flash_bwd.launches == before + 1
+    ref = grads(lambda *a: flash_attention_reference(*a, key_lens, 0.125, offset, q_lens,
+                                                     causal, rate, seed)[0])
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= bound * b.abs().max().item()

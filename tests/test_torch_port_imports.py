@@ -48,7 +48,8 @@ def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["blocked_loaded"] == []
     for name in ("checkpoint", "serving", "ops.flash_attention", "ops.cuda_build",
-                 "ops.mas", "ops.ctc", "models.acoustic.model",
+                 "ops.mas", "ops.ctc", "models.acoustic.model", "nn.attention",
+                 "training.trainer_config", "config",
                  "models.acoustic.aligner", "models.acoustic.loss",
                  "training.optimizers", "training.trainer", "data.text.table"):
         assert f"isp_tts_tpu_torch.{name}" in out["modules"]
@@ -61,7 +62,20 @@ def test_no_cpp_extension_and_plain_nvcc_build(monkeypatch):
             assert "ninja" not in path.read_text(), path
     monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "/usr/local/cuda/bin/nvcc")
     sources = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
-    assert sources == ["ctc", "mas", "mqa_bwd", "mqa_fwd"]
+    assert sources == ["ctc", "flash_bwd", "flash_fwd", "mas", "mqa_bwd", "mqa_fwd"]
+    headers = [p.name for p in cuda_build.CSRC.glob("*.cuh")]
+    assert headers == ["attention_common.cuh"]
+    for name in headers + [f"{s}.cu" for s in sources]:
+        text = (cuda_build.CSRC / name).read_text()
+        assert "#include <torch" not in text and "Python.h" not in text, name
+    # an edited shared header gives every source a new library name
+    before = cuda_build.library_path("flash_fwd")
+    monkeypatch.setattr(cuda_build.Path, "read_bytes",
+                        lambda self, real=cuda_build.Path.read_bytes:
+                        real(self) + (b"//" if self.suffix == ".cuh" else b""))
+    assert cuda_build.library_path("flash_fwd") != before
+    monkeypatch.undo()
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "/usr/local/cuda/bin/nvcc")
     for name in sources:
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         assert 'extern "C"' in text and "#include <torch" not in text, name

@@ -15,6 +15,8 @@ from isp_tts_tpu.models.acoustic import loss as jloss
 from isp_tts_tpu.models.base import flatten_state
 from isp_tts_tpu_torch.models.acoustic import loss as ploss
 from isp_tts_tpu_torch.models.base import torch_name
+# the multi-KV-head scaffolding the smoke run uses on the committed checkpoint
+from chip_smoke import attention_heads, multi_kv_head, replicate_kv_heads  # noqa: F401
 
 
 #: a small acoustic model with every training module, soft durations on
@@ -36,6 +38,10 @@ SMALL = {
     "aligner": {"attention_dim": 8, "key_kernel_size": 5, "query_kernel_size": 3},
     "num_speakers": 2,
 }
+
+
+#: SMALL with one key/value head per query head in every attention layer
+SMALL_MHA = multi_kv_head(SMALL)
 
 
 def jax_flat(module) -> dict[str, np.ndarray]:

@@ -1,6 +1,7 @@
-// Device helpers shared by the attention kernels (mqa_fwd.cu, mqa_bwd.cu,
-// flash_fwd.cu, flash_bwd.cu): the dropout keep hash, the ALiBi distance,
-// and widening loads / narrowing stores between the input type and f32.
+// Device helpers shared by the attention kernels (mqa_bwd.cu, flash_bwd.cu,
+// and the forward kernels through attention_fwd.cuh): the dropout keep
+// hash, the ALiBi distance, and widening loads / narrowing stores between
+// the input type and f32.
 //
 // Every .cu file that includes this header is its own translation unit, so
 // the helpers sit in an anonymous namespace there.
@@ -17,14 +18,18 @@ namespace {
 // The JAX package's _keep_hash (isp_tts_tpu/ops/flash_attention.py): keep
 // iff the top byte of the hash of (idx + seed) is below thresh. All in
 // uint32 arithmetic, so an index past 2^32 wraps as the int32 index does
-// there.
+// there. The hash is keep_mix((idx + seed) * KEEP_MUL): the first product
+// is linear in idx, so a loop over consecutive keys can step it by KEEP_MUL.
+constexpr uint32_t KEEP_MUL = 2654435761u;
+
+__device__ __forceinline__ uint32_t keep_mix(uint32_t u) {
+  u ^= u >> 17;
+  return u * 0x45D9F3Bu;
+}
+
 __device__ __forceinline__ bool keep_bit(uint32_t idx, uint32_t seed,
                                          uint32_t thresh) {
-  uint32_t u = idx + seed;
-  u *= 2654435761u;
-  u ^= u >> 17;
-  u *= 0x45D9F3Bu;
-  return (u >> 24) < thresh;
+  return (keep_mix((idx + seed) * KEEP_MUL) >> 24) < thresh;
 }
 
 // The ALiBi distance of key c from query n: -|c - n - offset|. The bias is

@@ -19,182 +19,57 @@
 // the index ((b*H + h)*N + n)*M + c plus the seed, in uint32 arithmetic, so
 // the backward regenerates it bit for bit.
 //
-// What bounds it on an H100: 4*D operations per (live query, valid key)
-// pair against the K/V bytes of each key, read once per block of BQ
-// queries; at the serving and training shapes (N = M <= 3072, D = 64) it is
-// bound by the CUDA cores' f32 FMA rate (no tensor cores yet). The design:
-// one block of BQ threads per (batch, head, tile of BQ queries), one thread
-// per query row holding its q row and f32 accumulator in registers; each
-// K/V tile of BK keys is staged in shared memory once and read by all BQ
-// rows. Softmax is online, in f32, in chunks of CK keys. Key tiles past the
-// key length, and under `causal` past the block's last query, are never
-// loaded; a block of dead rows loads none. bf16 inputs are widened to f32
-// as they are staged.
+// What bounds it on an H100: bytes. At the decoder's bf16 training shape
+// (B 32, N = M = 320, H 6, Hkv 6) it moves q, o and H heads of K/V, ~32 MB:
+// 9.5 us at 3.35 TB/s, against at most 5.0 GFLOP (4*64 operations per
+// (query, key) pair, every length full), 5.1 us at the bf16 tensor-core
+// peak; in f32 at the serving shape (B 4, N = M = 1024) the work, at most
+// 6.4 GFLOP: 39 us at the 3xTF32 rate (three TF32 MMAs a product, 495
+// TFLOP/s over 3). So the design keeps the logits and probabilities out of
+// device memory and the arithmetic on the tensor cores: the tile core of
+// attention_fwd.cuh (mma.sync, cp.async double-buffered K/V tiles), one
+// block per (batch, head, 64 queries). In bf16 P.V takes P as p_hi + p_lo,
+// two bf16 MMAs, since the TPU kernel computes P.V in f32.
 //
 // Plain C interface for ctypes; the launch goes on the caller's stream and
-// the function returns cudaGetLastError().
+// the function returns the CUDA error of the launch.
 
-#include "attention_common.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
-constexpr int D = 64;    // head dim (every recipe)
-constexpr int BQ = 64;   // queries per block = threads per block
-constexpr int BK = 64;   // keys per shared-memory tile
-constexpr int CK = 16;   // keys per online-softmax step
-constexpr float NEG_INF = -1e30f;
+// Tile row i of block (x, h, b) is query n0 + i of head h, whose K/V head
+// is h (Hkv = H) or 0 (Hkv = 1), keys Hkv*64 elements apart.
+struct HeadRows {
+  // 4 bf16 blocks an SM (128 registers, with spills): faster than 3 at the
+  // decoder's training shape, where each block reads its own head's K/V
+  // (PERF.md §6)
+  static constexpr int kBf16Blocks = 4;
+  int b, h, n0, N, H, M, Hkv;
 
-template <typename T>
-__global__ void __launch_bounds__(BQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ slopes,
-                 const int* __restrict__ key_lens,
-                 const int* __restrict__ q_lens,
-                 const int* __restrict__ seed_ptr, T* __restrict__ o,
-                 float* __restrict__ lse, int N, int M, int H, int Hkv,
-                 int offset, int causal, float scale, int thresh,
-                 float inv_keep) {
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int n0 = blockIdx.x * BQ;
-  const int n = n0 + threadIdx.x;
-  const int hk = Hkv == 1 ? 0 : h;
-  const int key_len = min(key_lens[b], M);
-  const int q_len = min(q_lens[b], N);
-  const bool live_q = n < q_len;
-  const float lo = slopes[h];
-  const float hi = slopes[H + h];
-  // this row's valid keys are [0, lim)
-  const int lim = causal ? min(key_len, max(n + offset + 1, 0)) : key_len;
-  // keys the block as a whole needs (block-uniform: bounds the tile loop)
-  int kend = n0 < q_len ? key_len : 0;
-  if (causal) {
-    const int n_last = min(n0 + BQ, q_len) - 1;
-    kend = min(kend, max(n_last + offset + 1, 0));
+  __device__ explicit HeadRows(const FwdParams& p)
+      : b(blockIdx.z), h(blockIdx.y), n0(blockIdx.x * FWD_ROWS), N(p.N), H(p.H), M(p.M),
+        Hkv(p.Hkv) {}
+  __device__ int count() const { return min(FWD_ROWS, N - n0); }
+  __device__ int query(int i) const { return n0 + i; }
+  __device__ int head(int) const { return h; }
+  __device__ size_t q_offset(int i) const {
+    return ((static_cast<size_t>(b) * N + n0 + i) * H + h) * FWD_D;
   }
-  const bool drop = thresh < 256;
-  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
-  // hash index of (b, h, n, key 0); uint32 wrap as the TPU kernel's int32
-  const uint32_t idx0 =
-      ((static_cast<uint32_t>(b) * static_cast<uint32_t>(H) +
-        static_cast<uint32_t>(h)) * static_cast<uint32_t>(N) +
-       static_cast<uint32_t>(n)) * static_cast<uint32_t>(M);
-  const size_t row = (static_cast<size_t>(b) * N + n) * H + h;
-
-  float qr[D];
-  float acc[D];
-  if (live_q) {
-    const T* qp = q + row * D;
-#pragma unroll
-    for (int d = 0; d < D; d += 8) widen8(qp + d, qr + d);
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = 0.f;
+  __device__ size_t lse_index(int i) const {
+    return (static_cast<size_t>(b) * H + h) * N + n0 + i;
   }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;
-
-  // key c of this head starts at kb + c * Hkv * D
-  const T* kb = k + (static_cast<size_t>(b) * M * Hkv + hk) * D;
-  const T* vb = v + (static_cast<size_t>(b) * M * Hkv + hk) * D;
-  const size_t kstride = static_cast<size_t>(Hkv) * D;
-  for (int c0 = 0; c0 < kend; c0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int i = threadIdx.x * 8; i < BK * D; i += BQ * 8) {
-      const int j = i / D;
-      const int d = i - j * D;
-      const int c = c0 + j;
-      if (c < M) {
-        widen8(kb + c * kstride + d, &ks[j][d]);
-        widen8(vb + c * kstride + d, &vs[j][d]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          ks[j][d + e] = 0.f;
-          vs[j][d + e] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-    if (!live_q) continue;
-    for (int j0 = 0; j0 < BK && c0 + j0 < lim; j0 += CK) {
-      float s[CK];
-      float mt = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < CK; ++jj) {
-        const int c = c0 + j0 + jj;
-        const float4* kr = reinterpret_cast<const float4*>(ks[j0 + jj]);
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kv = kr[d4];
-          dot = fmaf(qr[4 * d4], kv.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kv.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kv.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kv.w, dot);
-        }
-        const float slope = (c <= n + offset) ? lo : hi;
-        const float val = dot * scale + slope * alibi_dist(c, n, offset);
-        s[jj] = (c < lim) ? val : NEG_INF;
-        mt = fmaxf(mt, s[jj]);
-      }
-      const float m_new = fmaxf(m, mt);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < CK; ++jj) {
-        const int c = c0 + j0 + jj;
-        float p = (c < lim) ? expf(s[jj] - m_new) : 0.f;
-        l += p;
-        if (drop) {
-          p = keep_bit(idx0 + static_cast<uint32_t>(c), seed,
-                       static_cast<uint32_t>(thresh)) ? p * inv_keep : 0.f;
-        }
-        const float4* vr = reinterpret_cast<const float4*>(vs[j0 + jj]);
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
+  // ((b*H + h)*N + n)*M, wrapping in uint32 as the TPU kernel's int32 does
+  __device__ uint32_t hash_base(int i) const {
+    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(H) +
+             static_cast<uint32_t>(h)) * static_cast<uint32_t>(N) +
+            static_cast<uint32_t>(n0 + i)) * static_cast<uint32_t>(M);
   }
-
-  if (n >= N) return;
-  const bool ok = live_q && l > 0.f;
-  const float inv_l = ok ? 1.f / l : 0.f;
-  T* op = o + row * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) store1(op + d, acc[d] * inv_l);
-  lse[(static_cast<size_t>(b) * H + h) * N + n] = ok ? m + logf(l) : INFINITY;
-}
-
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const void* slopes,
-            const void* key_lens, const void* q_lens, const void* seed,
-            void* o, void* lse, int B, int N, int M, int H, int Hkv,
-            int offset, int causal, float scale, int thresh, float inv_keep,
-            cudaStream_t st) {
-  const dim3 grid((N + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, BQ, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(slopes),
-      static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
-      static_cast<const int*>(seed), static_cast<T*>(o),
-      static_cast<float*>(lse), N, M, H, Hkv, offset, causal, scale, thresh,
-      inv_keep);
-}
+  __device__ size_t kv_offset() const {
+    return (static_cast<size_t>(b) * M * Hkv + (Hkv == 1 ? 0 : h)) * FWD_D;
+  }
+  __device__ size_t kv_stride() const { return static_cast<size_t>(Hkv) * FWD_D; }
+};
 
 }  // namespace
 
@@ -207,16 +82,22 @@ extern "C" int isp_flash_fwd(const void* q, const void* k, const void* v,
   if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const FwdParams p{q, k, v, static_cast<const float*>(slopes),
+                    static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
+                    static_cast<const int*>(seed), o, static_cast<float*>(lse),
+                    N, M, H, Hkv, offset, causal, scale, thresh, inv_keep};
+  const dim3 grid((N + FWD_ROWS - 1) / FWD_ROWS, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    launch<float>(q, k, v, slopes, key_lens, q_lens, seed, o, lse, B, N, M, H,
-                  Hkv, offset, causal, scale, thresh, inv_keep, st);
+    err = launch_attention_fwd<float, HeadRows>(grid, p, st);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(q, k, v, slopes, key_lens, q_lens, seed, o, lse, B,
-                          N, M, H, Hkv, offset, causal, scale, thresh,
-                          inv_keep, st);
+    err = launch_attention_fwd<__nv_bfloat16, HeadRows>(grid, p, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
+
+// Dynamic shared memory of one block of the dtype's kernel, in bytes.
+extern "C" int isp_flash_fwd_smem_bytes(int dtype) { return fwd_smem_bytes_of(dtype); }

@@ -15,160 +15,53 @@
 // folded index (b*R + r)*M + c plus the seed, all in uint32 arithmetic, so
 // the backward (mqa_bwd.cu) regenerates it bit for bit.
 //
-// What bounds it on an H100: at the serving shapes (N = M <= 2048, D = 64)
-// it does 4*D operations per (row, key) pair against 2*D*bytes of K/V per
-// key, so the fold of H heads onto one K/V head is what keeps it off the
-// memory roof; in f32 it is bound by the CUDA-core FMA rate. The design:
-// one block of BR threads per (batch, tile of BR folded rows), one thread
-// per row holding its q row and f32 accumulator in registers; each K/V tile
-// of BK keys is staged in shared memory once and read by all BR rows, i.e.
-// by every head of BR/H queries. Softmax is online, in f32, in chunks of CK
-// keys. bf16 inputs are widened to f32 as they are staged.
+// What bounds it on an H100: bytes. At the decoder's bf16 training shape
+// (B 32, N = M = 320, H 6) it moves q and o (128 bytes a row each) and one
+// K/V head shared by the H folded heads, ~19 MB: 5.6 us at 3.35 TB/s,
+// against at most 5.0 GFLOP (4*64 operations per (row, key) pair, every
+// length full), 5.1 us at the bf16 tensor-core peak; in f32 at the serving
+// shape (B 4, N = M = 1024) the work, at most 6.4 GFLOP: 39 us at the
+// 3xTF32 rate (three TF32 MMAs a product, 495 TFLOP/s over 3).
+// So the design keeps everything but q, k, v, o and lse out of device
+// memory and the arithmetic on the tensor cores: the tile core of
+// attention_fwd.cuh (mma.sync, cp.async double-buffered K/V tiles) over
+// blocks of 64 folded rows, so each K/V tile staged in shared memory serves
+// every head of ~64/H queries. In bf16 P.V takes P as p_hi + p_lo, two
+// bf16 MMAs: the TPU kernel's rounding of P to bf16 moved the bf16
+// training step further past its gate (PERF.md §6).
 //
 // Plain C interface for ctypes; the launch goes on the caller's stream and
-// the function returns cudaGetLastError().
+// the function returns the CUDA error of the launch.
 
-#include "attention_common.cuh"
+#include "attention_fwd.cuh"
 
 namespace {
 
-constexpr int D = 64;    // head dim (every recipe)
-constexpr int BR = 64;   // folded rows per block = threads per block
-constexpr int BK = 64;   // keys per shared-memory tile
-constexpr int CK = 16;   // keys per online-softmax step
-constexpr float NEG_INF = -1e30f;
+// Tile row i of block (x, b) is folded row r = x*64 + i: query r / H, head
+// r % H, on the batch's one K/V head.
+struct FoldedRows {
+  // 3 bf16 blocks an SM: 4 (at 128 registers, with spills) measured slower
+  // at the decoder's training shape (PERF.md §6)
+  static constexpr int kBf16Blocks = 3;
+  int b, r0, R, M, H;
 
-template <typename T>
-__global__ void __launch_bounds__(BR)
-mqa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ slopes,
-               const int* __restrict__ key_lens, const int* __restrict__ q_lens,
-               const int* __restrict__ seed_ptr, T* __restrict__ o,
-               float* __restrict__ lse, int N, int M, int H, int offset,
-               int causal, float scale, int thresh, float inv_keep) {
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
-
-  const int b = blockIdx.y;
-  const int R = N * H;
-  const int r0 = blockIdx.x * BR;
-  const int r = r0 + threadIdx.x;
-  const bool in_range = r < R;
-  const int n = r / H;
-  const int h = r - n * H;
-  const int key_len = min(key_lens[b], M);
-  const bool live_q = in_range && n < q_lens[b];
-  const float lo = in_range ? slopes[h] : 0.f;
-  const float hi = in_range ? slopes[H + h] : 0.f;
-  // this row's valid keys are [0, lim)
-  const int lim = causal ? min(key_len, max(n + offset + 1, 0)) : key_len;
-  const bool drop = thresh < 256;
-  const uint32_t seed = static_cast<uint32_t>(seed_ptr[0]);
-  // folded index of (b, r, key 0); uint32 wrap as on the TPU
-  const uint32_t idx0 = (static_cast<uint32_t>(b) * static_cast<uint32_t>(R) +
-                         static_cast<uint32_t>(r)) * static_cast<uint32_t>(M);
-
-  // keys the block as a whole needs (block-uniform: bounds the tile loop)
-  int kend = key_len;
-  if (causal) {
-    const int n_last = (min(r0 + BR, R) - 1) / H;
-    kend = min(kend, max(n_last + offset + 1, 0));
+  __device__ explicit FoldedRows(const FwdParams& p)
+      : b(blockIdx.y), r0(blockIdx.x * FWD_ROWS), R(p.N * p.H), M(p.M), H(p.H) {}
+  __device__ int count() const { return min(FWD_ROWS, R - r0); }
+  __device__ int query(int i) const { return (r0 + i) / H; }
+  __device__ int head(int i) const { return (r0 + i) % H; }
+  __device__ size_t q_offset(int i) const {
+    return (static_cast<size_t>(b) * R + r0 + i) * FWD_D;
   }
-
-  float qr[D];
-  float acc[D];
-  if (live_q) {
-    const T* qp = q + ((size_t)b * R + r) * D;
-#pragma unroll
-    for (int d = 0; d < D; d += 8) widen8(qp + d, qr + d);
-  } else {
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = 0.f;
+  __device__ size_t lse_index(int i) const { return static_cast<size_t>(b) * R + r0 + i; }
+  // (b*R + r)*M, wrapping in uint32 as the TPU kernel's int32 index does
+  __device__ uint32_t hash_base(int i) const {
+    return (static_cast<uint32_t>(b) * static_cast<uint32_t>(R) +
+            static_cast<uint32_t>(r0 + i)) * static_cast<uint32_t>(M);
   }
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;
-
-  const T* kb = k + (size_t)b * M * D;
-  const T* vb = v + (size_t)b * M * D;
-  for (int c0 = 0; c0 < kend; c0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int i = threadIdx.x * 8; i < BK * D; i += BR * 8) {
-      const int j = i / D;
-      const int d = i - j * D;
-      const int c = c0 + j;
-      if (c < M) {
-        widen8(kb + (size_t)c * D + d, &ks[j][d]);
-        widen8(vb + (size_t)c * D + d, &vs[j][d]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          ks[j][d + e] = 0.f;
-          vs[j][d + e] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-    if (!live_q) continue;
-    for (int j0 = 0; j0 < BK && c0 + j0 < lim; j0 += CK) {
-      float s[CK];
-      float mt = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < CK; ++jj) {
-        const int c = c0 + j0 + jj;
-        const float4* kr = reinterpret_cast<const float4*>(ks[j0 + jj]);
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kv = kr[d4];
-          dot = fmaf(qr[4 * d4], kv.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kv.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kv.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kv.w, dot);
-        }
-        const float dist = alibi_dist(c, n, offset);
-        const float slope = (c <= n + offset) ? lo : hi;
-        const float val = dot * scale + slope * dist;
-        s[jj] = (c < lim) ? val : NEG_INF;
-        mt = fmaxf(mt, s[jj]);
-      }
-      const float m_new = fmaxf(m, mt);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < CK; ++jj) {
-        const int c = c0 + j0 + jj;
-        float p = (c < lim) ? expf(s[jj] - m_new) : 0.f;
-        l += p;
-        if (drop) {
-          p = keep_bit(idx0 + static_cast<uint32_t>(c), seed,
-                       static_cast<uint32_t>(thresh)) ? p * inv_keep : 0.f;
-        }
-        const float4* vr = reinterpret_cast<const float4*>(vs[j0 + jj]);
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (!in_range) return;
-  const bool ok = live_q && l > 0.f;
-  const float inv_l = ok ? 1.f / l : 0.f;
-  T* op = o + ((size_t)b * R + r) * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) store1(op + d, acc[d] * inv_l);
-  lse[(size_t)b * R + r] = ok ? m + logf(l) : INFINITY;
-}
+  __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * FWD_D; }
+  __device__ size_t kv_stride() const { return FWD_D; }
+};
 
 }  // namespace
 
@@ -178,27 +71,23 @@ extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
                            void* lse, int B, int N, int M, int H, int offset,
                            int causal, float scale, int thresh, float inv_keep,
                            int dtype, void* stream) {
-  const dim3 grid((N * H + BR - 1) / BR, B);
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdParams p{q, k, v, static_cast<const float*>(slopes),
+                    static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
+                    static_cast<const int*>(seed), o, static_cast<float*>(lse),
+                    N, M, H, 1, offset, causal, scale, thresh, inv_keep};
+  const dim3 grid((N * H + FWD_ROWS - 1) / FWD_ROWS, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    mqa_fwd_kernel<float><<<grid, BR, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(slopes),
-        static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
-        static_cast<const int*>(seed), static_cast<float*>(o),
-        static_cast<float*>(lse), N, M, H, offset, causal, scale, thresh,
-        inv_keep);
+    err = launch_attention_fwd<float, FoldedRows>(grid, p, st);
   } else if (dtype == 1) {
-    mqa_fwd_kernel<__nv_bfloat16><<<grid, BR, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const float*>(slopes), static_cast<const int*>(key_lens),
-        static_cast<const int*>(q_lens), static_cast<const int*>(seed),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), N, M, H,
-        offset, causal, scale, thresh, inv_keep);
+    err = launch_attention_fwd<__nv_bfloat16, FoldedRows>(grid, p, st);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
+
+// Dynamic shared memory of one block of the dtype's kernel, in bytes.
+extern "C" int isp_mqa_fwd_smem_bytes(int dtype) { return fwd_smem_bytes_of(dtype); }

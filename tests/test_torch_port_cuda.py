@@ -25,13 +25,28 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,N,M,H,offset,symmetric,causal,dtype,bound", [
-    (2, 256, 256, 6, 0, True, False, torch.float32, 1e-4),
-    (2, 96, 224, 4, 128, False, False, torch.float32, 1e-4),
-    (2, 300, 300, 6, 0, False, True, torch.float32, 1e-4),
-    (2, 512, 512, 6, 0, True, False, torch.bfloat16, 2e-2),
-])
-def test_k1_matches_plain_version(card, B, N, M, H, offset, symmetric, causal, dtype,
+# The tile edges of the tensor-core forward kernels (64-row blocks, 16-row
+# warps, 64-key tiles, 8- and 16-wide fragments): lengths that are not
+# multiples of 8, 16 or 64, 6 and 4 heads (K1's folded rows straddle queries
+# inside a fragment), causal with offsets 128 and -5, M 3072, dropout 0.1;
+# with B > 2 a batch row of key length 0 and one of query length 0.
+EDGE_CASES = [  # B, N, M, H, offset, causal, rate
+    (4, 37, 45, 6, 0, False, 0.0), (4, 37, 45, 4, 0, True, 0.1),
+    (8, 48, 48, 6, 0, False, 0.1), (8, 48, 48, 4, 0, False, 0.0),
+    (4, 1024, 1024, 6, 0, False, 0.1), (4, 96, 224, 6, 128, True, 0.1),
+    (4, 300, 300, 4, -5, True, 0.1), (3, 3072, 3072, 6, 0, False, 0.1),
+]
+
+
+@pytest.mark.parametrize("B,N,M,H,offset,symmetric,causal,rate,dtype,bound", [
+    (2, 256, 256, 6, 0, True, False, 0.0, torch.float32, 1e-4),
+    (2, 96, 224, 4, 128, False, False, 0.0, torch.float32, 1e-4),
+    (2, 300, 300, 6, 0, False, True, 0.0, torch.float32, 1e-4),
+    (2, 512, 512, 6, 0, True, False, 0.0, torch.bfloat16, 2e-2),
+] + [(B, N, M, H, offset, False, causal, rate, dtype, bound)
+     for B, N, M, H, offset, causal, rate in EDGE_CASES
+     for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))])
+def test_k1_matches_plain_version(card, B, N, M, H, offset, symmetric, causal, rate, dtype,
                                   bound):
     rng = np.random.RandomState(0)
     q = torch.from_numpy(rng.randn(B, N, H, 64).astype(np.float32)).to(card, dtype)
@@ -39,14 +54,17 @@ def test_k1_matches_plain_version(card, B, N, M, H, offset, symmetric, causal, d
     v = torch.from_numpy(rng.randn(B, M, 64).astype(np.float32)).to(card, dtype)
     sl = np.asarray(alibi_slopes(H), np.float32)
     slopes = torch.from_numpy(np.stack([sl, sl if symmetric else sl * 0.5])).to(card)
-    key_lens = torch.tensor([M, M // 2 + 3], dtype=torch.int32, device=card)
-    q_lens = torch.tensor([N - 5, N // 2], dtype=torch.int32, device=card)
+    key_lens = torch.tensor(([M, M // 2 + 3, 0, M - 7] + [M // 2 + 3] * B)[:B],
+                            dtype=torch.int32, device=card)
+    q_lens = torch.tensor(([N - 5, N // 2, N - 1, 0] + [N // 2] * B)[:B], dtype=torch.int32,
+                          device=card)
+    seed = torch.tensor([23], dtype=torch.int32, device=card)
     before = mqa_fwd.launches
-    o, lse = mqa_fwd(q, k, v, slopes, key_lens, 0.125, offset, q_lens, causal)
+    o, lse = mqa_fwd(q, k, v, slopes, key_lens, 0.125, offset, q_lens, causal, rate, seed)
     torch.cuda.synchronize()
     assert mqa_fwd.launches == before + 1
     o_ref, lse_ref = mqa_attention_reference(q, k, v, slopes, key_lens, 0.125, offset,
-                                             q_lens, causal)
+                                             q_lens, causal, rate, seed)
     assert (o.float() - o_ref.float()).abs().max().item() <= bound
     live = torch.isfinite(lse_ref)
     assert torch.equal(torch.isfinite(lse), live)
@@ -222,7 +240,8 @@ def _flash(card, B, N, M, H, Hkv, dtype, seed=0):
     sl = np.asarray(alibi_slopes(H), np.float32)
     slopes = torch.from_numpy(np.stack([sl, sl * 0.5])).to(card)
     key_lens = torch.tensor([M, 0] + [M // 2 + 3] * (B - 2), dtype=torch.int32, device=card)
-    q_lens = torch.tensor([N] + [N // 2 + 1] * (B - 1), dtype=torch.int32, device=card)
+    q_lens = torch.tensor([N, N // 2 + 1, 0, N - 3][:B] + [N // 2 + 1] * (B - 4),
+                          dtype=torch.int32, device=card)
     return q, k, v, slopes, key_lens, q_lens
 
 
@@ -233,9 +252,14 @@ K5_CASES = [  # B, N, M, H, Hkv, offset, causal, rate, dtype, bound
     (3, 96, 224, 6, 6, 128, True, 0.1, torch.float32, 1e-4),
     (4, 320, 320, 6, 6, 0, False, 0.1, torch.bfloat16, 2e-2),
 ]
+# K5a alone at the tile edges, with H and with 1 key/value head
+K5A_EDGE_CASES = [(B, N, M, H, Hkv, offset, causal, rate, dtype, bound)
+                  for B, N, M, H, offset, causal, rate in EDGE_CASES for Hkv in (H, 1)
+                  for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))]
 
 
-@pytest.mark.parametrize("B,N,M,H,Hkv,offset,causal,rate,dtype,bound", K5_CASES)
+@pytest.mark.parametrize("B,N,M,H,Hkv,offset,causal,rate,dtype,bound",
+                         K5_CASES + K5A_EDGE_CASES)
 def test_k5a_matches_plain_version(card, B, N, M, H, Hkv, offset, causal, rate, dtype,
                                    bound):
     from isp_tts_tpu_torch.ops.flash_attention import flash_attention_reference, flash_fwd

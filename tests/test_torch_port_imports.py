@@ -63,8 +63,8 @@ def test_no_cpp_extension_and_plain_nvcc_build(monkeypatch):
     monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "/usr/local/cuda/bin/nvcc")
     sources = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
     assert sources == ["ctc", "flash_bwd", "flash_fwd", "mas", "mqa_bwd", "mqa_fwd"]
-    headers = [p.name for p in cuda_build.CSRC.glob("*.cuh")]
-    assert headers == ["attention_common.cuh"]
+    headers = sorted(p.name for p in cuda_build.CSRC.glob("*.cuh"))
+    assert headers == ["attention_common.cuh", "attention_fwd.cuh"]
     for name in headers + [f"{s}.cu" for s in sources]:
         text = (cuda_build.CSRC / name).read_text()
         assert "#include <torch" not in text and "Python.h" not in text, name

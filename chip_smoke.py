@@ -10,21 +10,25 @@ how far it got:
              as ``nvidia-smi`` gives them.
 2. build   - compiles every kernel of the three paths from ``csrc/`` with
              nvcc, one process per source, all started together; then, for
-             the tensor-core forward kernels K1 and K5a, ptxas's registers
-             and spills and the HMMA count of each kernel's SASS.
+             the tensor-core kernels K1, K5a, K2 and K5b, ptxas's registers
+             and spills and the HMMA count of each kernel's SASS (a bf16
+             backward kernel that spills fails the run).
 3. kernel  - holds kernel K1 (folded-MQA attention forward) against its plain
              version on the card at the serving path's shapes, f32 and bf16,
              and times it beside one PyTorch call; then K1 at the tile edges
              (EDGE_CASES).
 4. kernel  - the training path's kernels against their plain versions: K1
-             with dropout, K2 (attention backward) against autograd through
-             the plain K1 in both TPU regimes (M 320 and M 3072), K3 (MAS)
-             for exact equality, K4 (banded CTC) loss and gradient.
+             with dropout; K2 (attention backward) in both TPU regimes (M
+             320 and M 3072) against autograd through the plain K1 and
+             against the plain backward on the kernel forward's saved o and
+             lse (check_backward), graph-timed beside SDPA's backward, then
+             at the tile edges (BWD_EDGE_CASES); K3 (MAS) for exact
+             equality, K4 (banded CTC) loss and gradient.
 5. kernel  - the per-head attention kernels K5a (forward) and K5b (backward)
              against their plain versions: the decoder's training shape in
              f32 and bf16 with and without dropout, 4 heads, causal with an
-             offset, one shared key/value head, and M 3072; then K5a at the
-             tile edges with H and with 1 key/value head.
+             offset, one shared key/value head (bf16 too), and M 3072; then
+             K5a and K5b at the tile edges with H and with 1 key/value head.
 6. slice   - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
              checkpoint, three sentences one at a time and then as one batch,
              with the launch counts zeroed just before and read just after;
@@ -114,22 +118,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+def graph_ms(fn, iters: int = 20, replays: int = 5, stream=None) -> float:
     """Mean device milliseconds of ``fn`` with the host out of the way:
     ``iters`` calls captured in one CUDA graph, replayed ``replays`` times
     between two events. A short kernel called eagerly is timed at the rate
     the host issues it (the wrappers' checks and ctypes call take tens of
-    microseconds); the graph replays only the device work."""
+    microseconds); the graph replays only the device work. ``stream``: the
+    side stream to warm up and capture on (a backward runs on its forward's
+    stream)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up outside the capture
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -143,6 +149,19 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     ms = start.elapsed_time(end) / (replays * iters)
     del graph
     return ms
+
+
+def library_bwd_ms(q, k, v, slopes, key_lens, scale, offset, causal, do, iters=10) -> float:
+    """Device ms of the library backward (:func:`library_call` with ``do``):
+    its forward recorded on a side stream and the autograd call captured on
+    that stream in a CUDA graph (:func:`graph_ms`)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn = library_call(q, k, v, slopes, key_lens, scale, offset, causal, do=do)
+    return graph_ms(fn, iters=iters, stream=side)
 
 
 def mqa_inputs(B, N, M, H, dtype, symmetric, gen, kv_heads=None):
@@ -193,14 +212,14 @@ def attention_bound(q, k, key_lens, q_lens, causal=False, offset=0, backward=Fal
     backward's (K2, K5b) — each input read once, each output written once
     (k and v carry their Hkv heads: (B, M, D) or (B, M, Hkv, D)); 4*D
     operations per (live query row, valid key) pair forward (q.k, p.v),
-    10*D backward (s, dp, dv, dk, dq). The forward runs f32 as 3xTF32 on
-    the tensor cores, the backward on the CUDA cores."""
+    10*D backward (s, dp, dv, dk, dq). Both run f32 as 3xTF32 on the
+    tensor cores."""
     B, N, H, D = q.shape
     rows, keys = (4, 4) if backward else (2, 2)  # q o (dO dq) | k v (dk dv)
     nbytes = (rows * q.numel() + keys * k.numel()) * q.element_size() + 4 * B * N * H
     ops = (10 if backward else 4) * D * H * attention_pairs(key_lens, q_lens, causal, offset)
     dtype = str(q.dtype).replace("torch.", "")
-    return bound_ms(nbytes, ops, "3xtf32" if dtype == "float32" and not backward else dtype)
+    return bound_ms(nbytes, ops, "3xtf32" if dtype == "float32" else dtype)
 
 
 def library_call(q, k, v, slopes, key_lens, scale, offset=0, causal=False, do=None):
@@ -286,25 +305,51 @@ def cuobjdump_path() -> str:
     raise RuntimeError("no cuobjdump: neither the CUDA toolkit's nor Triton's")
 
 
-#: the libraries of the tensor-core forward tile core (K1 and K5a)
-TENSOR_CORE_SOURCES = ("mqa_fwd", "flash_fwd")
+#: the libraries of the tensor-core tile cores: the forwards (K1, K5a) and
+#: the backwards (K2, K5b)
+TENSOR_CORE_SOURCES = ("mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd")
+#: their kernels that run products, two instantiations (f32, bf16) each
+PRODUCT_KERNELS = ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel")
+
+
+def ptxas_usage(log: str) -> dict:
+    """Kernel (mangled name) -> (registers, spill store bytes, spill load
+    bytes), from ptxas -v's lines in an nvcc log."""
+    usage, fn, spills = {}, None, (0, 0)
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn, spills = ln.split("'")[1], (0, 0)
+        elif "spill stores" in ln and fn is not None:
+            words = ln.replace(",", "").split()
+            spills = (int(words[words.index("spill") - 2]), int(words[words.index("loads") - 3]))
+        elif "Used" in ln and "registers" in ln and fn is not None:
+            words = ln.replace(",", "").split()
+            usage[fn] = (int(words[words.index("registers") - 1]),) + spills
+    return usage
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's short name: its tile-core kernel (or the whole mangled
+    name) and its input type."""
+    names = PRODUCT_KERNELS + ("dkv_sum_kernel",)
+    kind = next((n for n in names if n in mangled), mangled)
+    return f"{kind.replace('attention_', '')} {'bf16' if 'bfloat16' in mangled else 'f32'}"
 
 
 def phase_sass(t0):
-    """For each library of the tensor-core forward tile core: ptxas's
-    registers and spills per kernel, the dynamic shared memory per dtype,
-    as the library reports the size it launches with, and the count of HMMA
-    (tensor-core) instructions in each kernel's SASS; raises if a kernel
-    has none or no cuobjdump is found."""
+    """For each library of the tensor-core tile cores: the count of HMMA
+    (tensor-core) instructions in each product kernel's SASS beside
+    ptxas's registers and spills, and the dynamic shared memory per dtype
+    as the library reports the size it launches with; raises if a product
+    kernel has no HMMA, a backward bf16 kernel spills, or no cuobjdump is
+    found."""
     import ctypes
 
     from isp_tts_tpu_torch.ops import cuda_build
 
     tool = cuobjdump_path()
     for name in TENSOR_CORE_SOURCES:
-        ptxas = [ln.split(":", 1)[-1].strip() for ln in
-                 cuda_build.BUILD_INFO[name]["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+        usage = ptxas_usage(cuda_build.BUILD_INFO[name]["log"])
         sass = subprocess.run([tool, "--dump-sass", str(cuda_build.library_path(name))],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         counts, fn = {}, None
@@ -314,15 +359,25 @@ def phase_sass(t0):
                 counts[fn] = 0
             elif fn is not None and "HMMA" in ln:
                 counts[fn] += 1
-        kernels = {k: n for k, n in counts.items() if "attention_fwd_kernel" in k}
-        if len(kernels) != 2 or min(kernels.values()) == 0:
+        kernels = {k: n for k, n in counts.items() if any(p in k for p in PRODUCT_KERNELS)}
+        if len(kernels) != (2 if name.endswith("fwd") else 4) or min(kernels.values()) == 0:
             raise AssertionError(f"{name}: HMMA instructions per kernel {counts}")
+        spilling = [k for k in kernels if name.endswith("bwd") and "bfloat16" in k
+                    and sum(usage.get(k, (0, 0, 0))[1:]) > 0]
+        if spilling:
+            raise AssertionError(f"{name}: bf16 kernels spill: "
+                                 + str({k: usage[k] for k in spilling}))
         smem = getattr(cuda_build.load(name), f"isp_{name}_smem_bytes")
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-        say("build", t0, f"{name} ({tool}): HMMA per kernel "
-            + ", ".join(f"{'bf16' if 'bfloat16' in k else 'f32'} {n}" for k, n in kernels.items())
-            + f"; dynamic shared memory f32 {smem(0)}, bf16 {smem(1)} bytes; ptxas: "
-            + " | ".join(ptxas))
+
+        def label(k):
+            regs = usage.get(k)
+            return (f"{kernel_label(k)} HMMA {kernels[k]}"
+                    + ("" if regs is None else f" registers {regs[0]} spill bytes "
+                       f"{regs[1]}/{regs[2]}"))
+
+        say("build", t0, f"{name} ({tool}): " + "; ".join(label(k) for k in sorted(kernels))
+            + f"; dynamic shared memory f32 {smem(0)}, bf16 {smem(1)} bytes")
 
 
 KERNEL_CASES = (  # B, N, M, H, dtype, symmetric, offset, causal
@@ -440,6 +495,40 @@ def phase_edges(t0, gen, kv_heads=(None,)):
                     f"{ql.tolist()}: max_err={err:.3e} lse_err={lse_err:.3e} "
                     f"bound={bound:.0e}" + ("" if kept is None else f" kept={kept:.4f}"))
                 del q, k, v
+        torch.cuda.empty_cache()
+
+
+# The backward kernels' tile edges (64-row and 64-key blocks, 16-row warps,
+# 64-row tiles): EDGE_CASES and row and key counts of 1, 63, 64 and 65.
+BWD_EDGE_CASES = EDGE_CASES + (  # B, N, M, H, offset, causal, rate
+    (4, 1, 1, 6, 0, False, 0.1), (4, 63, 65, 6, 0, False, 0.1), (4, 64, 64, 4, -5, True, 0.1),
+    (4, 65, 63, 6, 0, False, 0.0), (4, 1, 65, 4, 0, False, 0.1), (4, 65, 1, 6, 0, True, 0.1),
+)
+
+
+def phase_edges_bwd(t0, gen, kv_heads=(None,)):
+    """Every BWD_EDGE_CASES case in f32 and bf16: the kernel backward
+    against its plain version on the kernel forward's o and lse
+    (:func:`check_backward` without autograd), K2 (``kv_heads`` None) or K5b
+    with each given count of key/value heads (0 meaning H)."""
+    import torch
+
+    for B, N, M, H, offset, causal, rate in BWD_EDGE_CASES:
+        for dt in ("float32", "bfloat16"):
+            for hkv in kv_heads:
+                kvh = None if hkv is None else (hkv or H)
+                q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, getattr(torch, dt), False,
+                                                     gen, kv_heads=kvh)
+                kl[1], ql[2] = 0, 0  # a row of dead queries, a row of none
+                w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+                name, _, errs, bound, _, _ = check_backward(q, k, v, slopes, kl, ql, w, offset,
+                                                            causal, rate, seed_tensor(778),
+                                                            autograd=False)
+                say("kernel", t0, f"{name} edge B={B} N={N} M={M} H={H}"
+                    + ("" if kvh is None else f" Hkv={kvh}") + f" {dt} offset={offset} "
+                    f"causal={int(causal)} dropout={rate}: {grad_errs('vs plain backward', errs)}"
+                    f" bound={bound:.0e}")
+                del q, k, v, w
         torch.cuda.empty_cache()
 
 
@@ -794,14 +883,89 @@ def k4_pair(lp, tl, ml, g, plain=False):
     return neg, ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)
 
 
+def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False, rate=0.0,
+                   seed=None, autograd=True):
+    """K2 (k and v (B, M, 64)) or K5b (k and v (B, M, Hkv, 64)) against its
+    plain versions, gradients against ``w`` = dL/do, relative to each
+    reference's max-abs:
+    - with ``autograd``, the kernel pair's autograd function against
+      autograd through the plain forward: dq, dk and dv, and dslopes in f32.
+      In bf16 dslopes is read, not gated: it is a sum with cancellation of
+      ds * dist, and ds takes delta = rowsum(dO * O) on the o the forward
+      saved in bf16, as the TPU kernels' residual is, so it reads up to a
+      few 1e-2 against autograd through an f32 o
+      (tests/test_torch_port_attention_bwd_bf16.py);
+    - always, the kernel backward against the plain backward fed the kernel
+      forward's saved o and lse: all four, one launch.
+    Raises past the dtype's bound (K2_BOUNDS). Returns (name, autograd
+    errors or None, plain-backward errors, bound, o, lse)."""
+    import torch
+
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    mqa = k.dim() == 3
+    name = "K2" if mqa else "K5b"
+    attn, fwd, bwd, plain_fwd, plain_bwd = (
+        (fa.mqa_attention, fa.mqa_fwd, fa.mqa_bwd, fa.mqa_attention_reference,
+         fa.mqa_bwd_reference) if mqa else
+        (fa.flash_attention, fa.flash_fwd, fa.flash_bwd, fa.flash_attention_reference,
+         fa.flash_bwd_reference))
+    seed = seed_tensor(0) if seed is None else seed
+    bf16 = q.dtype == torch.bfloat16
+    bound = K2_BOUNDS["bfloat16" if bf16 else "float32"]
+    where = (f"{name} {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} rate={rate} "
+             f"offset={offset} causal={causal}")
+    auto = None
+    if autograd:
+        got = attention_grads(attn, q, k, v, slopes, key_lens, q_lens, rate, offset, causal,
+                              seed, w)
+        torch.cuda.synchronize()
+        ref = attention_grads(lambda *a: plain_fwd(*a)[0], q, k, v, slopes, key_lens, q_lens,
+                              rate, offset, causal, seed, w)
+        auto = [rel_err(a, b) for a, b in zip(got, ref)]
+        if not max(auto[:3] if bf16 else auto) <= bound:
+            raise AssertionError(f"{where}: against autograd through the plain forward, "
+                                 f"relative errors dq/dk/dv/dslopes {auto} > {bound:.0e}")
+        del got, ref
+    o, lse = fwd(q, k, v, slopes, key_lens, 64 ** -0.5, offset, q_lens, causal, rate, seed)
+    args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, w, 64 ** -0.5, offset, causal,
+            rate)
+    before = bwd.launches
+    got = bwd(*args)
+    torch.cuda.synchronize()
+    if bwd.launches != before + 1:
+        raise AssertionError(f"{where}: {bwd.launches - before} launches")
+    ref = plain_bwd(*args)
+    if k.shape[1] == 1:
+        # one key: p = 1 and ds = dp - delta = 0 in exact arithmetic, so dq,
+        # dk and dslopes are rounding noise on both sides, held to the bound
+        # on the scale of dv, the gradient that does not vanish (dslopes =
+        # sum ds * dist on that scale times the largest distance)
+        dv_max = ref[2].float().abs().max().clamp_min(1e-30)
+        scales = [dv_max, dv_max, dv_max, dv_max * (q.shape[1] + abs(offset))]
+        errs = [((a.float() - b.float()).abs().max() / (
+            b.float().abs().max().clamp_min(1e-30) if i == 2 else scales[i])).item()
+            for i, (a, b) in enumerate(zip(got, ref))]
+    else:
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    if not max(errs) <= bound:
+        raise AssertionError(f"{where}: against the plain backward on the same o and lse, "
+                             f"relative errors dq/dk/dv/dslopes {errs} > {bound:.0e}")
+    return name, auto, errs, bound, o, lse
+
+
+def grad_errs(tag: str, errs) -> str:
+    return f"{tag} " + " ".join(f"{n}={e:.2e}" for n, e in zip(("dq", "dk", "dv", "dslopes"),
+                                                                errs))
+
+
 def phase_kernel_train(t0):
     """K1 with dropout, K2, K3 and K4 against their plain versions."""
     import torch
 
     from isp_tts_tpu_torch.ops import mas
-    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh, mqa_attention,
-                                                       mqa_attention_reference, mqa_bwd,
-                                                       mqa_bwd_reference, mqa_fwd)
+    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh, mqa_bwd,
+                                                       mqa_bwd_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     scale = 64 ** -0.5
@@ -819,30 +983,24 @@ def phase_kernel_train(t0):
         q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, getattr(torch, dt), False, gen)
         w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         seed = seed_tensor(99)
-        got = attention_grads(mqa_attention, q, k, v, slopes, kl, ql, rate, offset, causal,
-                              seed, w)
-        torch.cuda.synchronize()
-        ref = attention_grads(lambda *a: mqa_attention_reference(*a)[0], q, k, v, slopes, kl,
-                              ql, rate, offset, causal, seed, w)
-        errs = [rel_err(a, b) for a, b in zip(got, ref)]
-        bound = K2_BOUNDS[dt]
-        if not max(errs) <= bound:
-            raise AssertionError(f"K2 B={B} N={N} M={M} H={H} {dt} rate={rate}: relative "
-                                 f"errors dq/dk/dv/dslopes {errs} > {bound:.0e}")
-        o, lse = mqa_fwd(q, k, v, slopes, kl, scale, offset, ql, causal, rate, seed)
-        k_ms = cuda_ms(lambda: mqa_bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale,
-                                       offset, causal, rate), iters=10)
+        _, auto, errs, bound, o, lse = check_backward(q, k, v, slopes, kl, ql, w, offset,
+                                                      causal, rate, seed)
+        k_ms = graph_ms(lambda: mqa_bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale,
+                                        offset, causal, rate), iters=10)
         p_ms = cuda_ms(lambda: mqa_bwd_reference(q, k, v, slopes, kl, ql, seed, o, lse, w,
                                                  scale, offset, causal, rate), iters=3)
-        l_ms = cuda_ms(library_call(q, k, v, slopes, kl, scale, offset, causal, do=w), iters=3)
+        l_ms = library_bwd_ms(q, k, v, slopes, kl, scale, offset, causal, w)
         b_ms, b_by = attention_bound(q, k, kl, ql, causal, offset, backward=True)
         say("kernel", t0, f"K2 B={B} N={N} M={M} H={H} {dt} dropout={rate} offset={offset} "
-            f"causal={int(causal)} rel_err dq={errs[0]:.2e} dk={errs[1]:.2e} "
-            f"dv={errs[2]:.2e} dslopes={errs[3]:.2e} bound={bound:.0e} kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-        del q, k, v, got, ref
+            f"causal={int(causal)} {grad_errs('vs autograd', auto)}"
+            + (" (dslopes not gated in bf16)" if dt == "bfloat16" else "")
+            + f"; {grad_errs('vs plain backward', errs)} bound={bound:.0e} kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        del q, k, v, o, lse
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
+    phase_edges_bwd(t0, gen, kv_heads=(None,))
 
     for B, M, T, neg_row in ((32, 320, 48, False), (64, 1024, 192, False),
                              (32, 320, 48, True)):
@@ -879,19 +1037,21 @@ K5_CASES = (  # B, N, M, H, Hkv, dtype, rate, offset, causal
     + [(32, 320, 320, 4, 4, "float32", 0.1, 0, False),  # the predictor's heads
        (4, 96, 224, 6, 6, "float32", 0.1, 128, True),  # causal, offset 128
        (32, 320, 320, 6, 1, "float32", 0.1, 0, False),  # one shared key/value head
-       (2, 3072, 3072, 6, 6, "float32", 0.1, 0, False)]  # long sequences
+       (2, 3072, 3072, 6, 6, "float32", 0.1, 0, False),  # long sequences
+       (4, 1024, 1024, 6, 1, "bfloat16", 0.1, 0, False),  # bf16, one key/value head
+       (4, 300, 300, 4, 1, "bfloat16", 0.1, -5, True)]
 )
 
 
 def phase_kernel_mha(t0):
-    """K5a and K5b against their plain versions (the backward against
-    autograd through the plain K5a), with ragged lengths and one key length
+    """K5a and K5b against their plain versions (the backward as
+    :func:`check_backward` holds it), with ragged lengths and one key length
     of 0, and the kept share under dropout; each case timed beside its
-    plain version, one PyTorch call and its bound; then K5a at the tile
-    edges (EDGE_CASES) with H and with 1 key/value head."""
+    plain version, one PyTorch call and its bound; then K5a and K5b at the
+    tile edges with H and with 1 key/value head."""
     import torch
 
-    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh, flash_attention,
+    from isp_tts_tpu_torch.ops.flash_attention import (dropout_thresh,
                                                        flash_attention_reference,
                                                        flash_bwd, flash_bwd_reference,
                                                        flash_fwd)
@@ -906,28 +1066,18 @@ def phase_kernel_mha(t0):
         seed = seed_tensor(4321)
         _, err, lse_err, bound, share = check_forward(q, k, v, slopes, kl, ql, offset, causal,
                                                       rate, seed)
-        o, lse = flash_fwd(q, k, v, slopes, kl, scale, offset, ql, causal, rate, seed)
         kept = ""
         if rate:
             thresh = dropout_thresh(rate)
             kept = f" kept={share:.4f} thresh/256={thresh / 256:.4f}"
         w = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        got = attention_grads(flash_attention, q, k, v, slopes, kl, ql, rate, offset,
-                              causal, seed, w)
-        torch.cuda.synchronize()
-        ref = attention_grads(lambda *a: flash_attention_reference(*a)[0], q, k, v, slopes,
-                              kl, ql, rate, offset, causal, seed, w)
-        errs = [rel_err(a, b) for a, b in zip(got, ref)]
-        if not max(errs) <= K2_BOUNDS[dt]:
-            raise AssertionError(f"K5b B={B} N={N} H={H} Hkv={Hkv} {dt} rate={rate}: "
-                                 f"relative errors dq/dk/dv/dslopes {errs} > "
-                                 f"{K2_BOUNDS[dt]:.0e}")
-        del got, ref
+        _, auto, errs, b_bound, o, lse = check_backward(q, k, v, slopes, kl, ql, w, offset,
+                                                        causal, rate, seed)
         big = N > 1024
         f_ms = graph_ms(lambda: flash_fwd(q, k, v, slopes, kl, scale, offset, ql, causal,
                                           rate, seed), iters=10)
-        b_ms = cuda_ms(lambda: flash_bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale,
-                                         offset, causal, rate), iters=10)
+        b_ms = graph_ms(lambda: flash_bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale,
+                                          offset, causal, rate), iters=10)
         fp_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, slopes, kl, scale, offset,
                                                           ql, causal, rate, seed),
                         iters=2 if big else 5, warmup=1)
@@ -935,21 +1085,23 @@ def phase_kernel_mha(t0):
                                                     scale, offset, causal, rate),
                         iters=2 if big else 5, warmup=1)
         fl_ms = graph_ms(library_call(q, k, v, slopes, kl, scale, offset, causal), iters=5)
-        bl_ms = cuda_ms(library_call(q, k, v, slopes, kl, scale, offset, causal, do=w),
-                        iters=3)
+        bl_ms = library_bwd_ms(q, k, v, slopes, kl, scale, offset, causal, w,
+                               iters=3 if big else 10)
         fb = attention_bound(q, k, kl, ql, causal, offset)
         bb = attention_bound(q, k, kl, ql, causal, offset, backward=True)
         say("kernel", t0, f"K5 B={B} N={N} M={M} H={H} Hkv={Hkv} {dt} dropout={rate} "
             f"offset={offset} causal={int(causal)}: K5a max_err={err:.3e} "
-            f"lse_err={lse_err:.3e} bound={bound:.0e}{kept}; K5b rel_err dq={errs[0]:.2e} "
-            f"dk={errs[1]:.2e} dv={errs[2]:.2e} dslopes={errs[3]:.2e} "
-            f"bound={K2_BOUNDS[dt]:.0e}; K5a kernel_ms={f_ms:.4f} plain_ms={fp_ms:.4f} "
-            f"library_ms={fl_ms:.4f} bound_ms={fb[0]:.4f} ({fb[1]}); K5b kernel_ms="
-            f"{b_ms:.4f} plain_ms={bp_ms:.4f} library_ms={bl_ms:.4f} bound_ms={bb[0]:.4f} "
-            f"({bb[1]})")
+            f"lse_err={lse_err:.3e} bound={bound:.0e}{kept}; K5b "
+            f"{grad_errs('vs autograd', auto)}"
+            + (" (dslopes not gated in bf16)" if dt == "bfloat16" else "")
+            + f"; {grad_errs('vs plain backward', errs)} bound={b_bound:.0e}; K5a kernel_ms="
+            f"{f_ms:.4f} plain_ms={fp_ms:.4f} library_ms={fl_ms:.4f} bound_ms={fb[0]:.4f} "
+            f"({fb[1]}); K5b kernel_ms={b_ms:.4f} plain_ms={bp_ms:.4f} library_ms="
+            f"{bl_ms:.4f} bound_ms={bb[0]:.4f} ({bb[1]})")
         del q, k, v, o, lse, w
         torch.cuda.empty_cache()
     phase_edges(t0, gen, kv_heads=(0, 1))
+    phase_edges_bwd(t0, gen, kv_heads=(0, 1))
 
 
 def training_batch(synth, gen):
@@ -1370,7 +1522,7 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
                                   False, rate)
     k1_bound = attention_bound(q, k, lens, lens)
     k2_bound = attention_bound(q, k, lens, lens, backward=True)
-    k2_lib = cuda_ms(library_call(q, k, v, slopes, lens, scale, do=do), iters=10)
+    k2_lib = library_bwd_ms(q, k, v, slopes, lens, scale, 0, False, do)
     shape = f"B={B} N=M={N} H={H} D=64 bfloat16 dropout={rate}"
     serving = serving_times(mqa_fwd, gen, kv_heads=None)
     records = [
@@ -1388,11 +1540,11 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
          **serving},
         {"name": "K2 mqa_bwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mqa_bwd.cu",
          "replaces": "isp_tts_tpu/ops/flash_attention.py:998 (K2a), :836 + :927 (K2b)",
-         "launches": launches["K2 mqa_bwd"],
+         "launches": launches["K2 mqa_bwd"], "design": BWD_DESIGN,
          "max_abs_err": max((a.float() - b.float()).abs().max().item()
                             for a, b in zip(grads, grads_ref)),
-         "ms": cuda_ms(lambda: mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale,
-                                       0, False, rate)),
+         "ms": graph_ms(lambda: mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale,
+                                        0, False, rate)),
          "plain_ms": cuda_ms(lambda: mqa_bwd_reference(q, k, v, slopes, lens, lens, seed, o,
                                                        lse, do, scale, 0, False, rate),
                              iters=5),
@@ -1469,6 +1621,7 @@ def k5_records(batch, launches, serve_launches):
     grads = flash_bwd(*bwd_args)
     grads_ref = flash_bwd_reference(*bwd_args)
     fb, bb = attention_bound(q, k, lens, lens), attention_bound(q, k, lens, lens, backward=True)
+    bl_ms = library_bwd_ms(q, k, v, slopes, lens, scale, 0, False, do)
     shape = f"B={B} N=M={N} H={H} Hkv={H} D=64 bfloat16 dropout={rate}"
 
     serving = serving_times(flash_fwd, gen, kv_heads=H)
@@ -1484,22 +1637,21 @@ def k5_records(batch, launches, serve_launches):
          **serving},
         {"name": "K5b flash_bwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "isp_tts_tpu/ops/flash_attention.py:155 + :229",
-         "launches": launches["K5b flash_bwd"],
+         "launches": launches["K5b flash_bwd"], "design": BWD_DESIGN,
          "max_abs_err": max((a.float() - b.float()).abs().max().item()
                             for a, b in zip(grads, grads_ref)),
-         "ms": cuda_ms(lambda: flash_bwd(*bwd_args)),
+         "ms": graph_ms(lambda: flash_bwd(*bwd_args)),
          "plain_ms": cuda_ms(lambda: flash_bwd_reference(*bwd_args), iters=5),
-         "bound_ms": bb[0], "bound_by": bb[1],
-         "library_ms": cuda_ms(library_call(q, k, v, slopes, lens, scale, do=do), iters=10),
-         "shape": shape},
+         "bound_ms": bb[0], "bound_by": bb[1], "library_ms": bl_ms, "shape": shape},
     ]
     del q, k, v, o, lse, do, grads, grads_ref
     torch.cuda.empty_cache()
     return records
 
 
-#: the forward kernels' design, named in their records
+#: the attention kernels' designs, named in their records
 FWD_DESIGN = "tensor cores (mma.sync tile core, csrc/attention_fwd.cuh)"
+BWD_DESIGN = "tensor cores (mma.sync tile core, csrc/attention_bwd.cuh)"
 
 
 def serving_times(fwd, gen, kv_heads) -> dict:

@@ -36,43 +36,6 @@
 
 #include "attention_fwd.cuh"
 
-namespace {
-
-// Tile row i of block (x, h, b) is query n0 + i of head h, whose K/V head
-// is h (Hkv = H) or 0 (Hkv = 1), keys Hkv*64 elements apart.
-struct HeadRows {
-  // 4 bf16 blocks an SM (128 registers, with spills): faster than 3 at the
-  // decoder's training shape, where each block reads its own head's K/V
-  // (PERF.md §6)
-  static constexpr int kBf16Blocks = 4;
-  int b, h, n0, N, H, M, Hkv;
-
-  __device__ explicit HeadRows(const FwdParams& p)
-      : b(blockIdx.z), h(blockIdx.y), n0(blockIdx.x * FWD_ROWS), N(p.N), H(p.H), M(p.M),
-        Hkv(p.Hkv) {}
-  __device__ int count() const { return min(FWD_ROWS, N - n0); }
-  __device__ int query(int i) const { return n0 + i; }
-  __device__ int head(int) const { return h; }
-  __device__ size_t q_offset(int i) const {
-    return ((static_cast<size_t>(b) * N + n0 + i) * H + h) * FWD_D;
-  }
-  __device__ size_t lse_index(int i) const {
-    return (static_cast<size_t>(b) * H + h) * N + n0 + i;
-  }
-  // ((b*H + h)*N + n)*M, wrapping in uint32 as the TPU kernel's int32 does
-  __device__ uint32_t hash_base(int i) const {
-    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(H) +
-             static_cast<uint32_t>(h)) * static_cast<uint32_t>(N) +
-            static_cast<uint32_t>(n0 + i)) * static_cast<uint32_t>(M);
-  }
-  __device__ size_t kv_offset() const {
-    return (static_cast<size_t>(b) * M * Hkv + (Hkv == 1 ? 0 : h)) * FWD_D;
-  }
-  __device__ size_t kv_stride() const { return static_cast<size_t>(Hkv) * FWD_D; }
-};
-
-}  // namespace
-
 extern "C" int isp_flash_fwd(const void* q, const void* k, const void* v,
                              const void* slopes, const void* key_lens,
                              const void* q_lens, const void* seed, void* o,
@@ -86,7 +49,7 @@ extern "C" int isp_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
                     static_cast<const int*>(seed), o, static_cast<float*>(lse),
                     N, M, H, Hkv, offset, causal, scale, thresh, inv_keep};
-  const dim3 grid((N + FWD_ROWS - 1) / FWD_ROWS, H, B);
+  const dim3 grid((N + ATT_ROWS - 1) / ATT_ROWS, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {

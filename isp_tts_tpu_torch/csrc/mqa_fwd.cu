@@ -35,36 +35,6 @@
 
 #include "attention_fwd.cuh"
 
-namespace {
-
-// Tile row i of block (x, b) is folded row r = x*64 + i: query r / H, head
-// r % H, on the batch's one K/V head.
-struct FoldedRows {
-  // 3 bf16 blocks an SM: 4 (at 128 registers, with spills) measured slower
-  // at the decoder's training shape (PERF.md §6)
-  static constexpr int kBf16Blocks = 3;
-  int b, r0, R, M, H;
-
-  __device__ explicit FoldedRows(const FwdParams& p)
-      : b(blockIdx.y), r0(blockIdx.x * FWD_ROWS), R(p.N * p.H), M(p.M), H(p.H) {}
-  __device__ int count() const { return min(FWD_ROWS, R - r0); }
-  __device__ int query(int i) const { return (r0 + i) / H; }
-  __device__ int head(int i) const { return (r0 + i) % H; }
-  __device__ size_t q_offset(int i) const {
-    return (static_cast<size_t>(b) * R + r0 + i) * FWD_D;
-  }
-  __device__ size_t lse_index(int i) const { return static_cast<size_t>(b) * R + r0 + i; }
-  // (b*R + r)*M, wrapping in uint32 as the TPU kernel's int32 index does
-  __device__ uint32_t hash_base(int i) const {
-    return (static_cast<uint32_t>(b) * static_cast<uint32_t>(R) +
-            static_cast<uint32_t>(r0 + i)) * static_cast<uint32_t>(M);
-  }
-  __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * FWD_D; }
-  __device__ size_t kv_stride() const { return FWD_D; }
-};
-
-}  // namespace
-
 extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
                            const void* slopes, const void* key_lens,
                            const void* q_lens, const void* seed, void* o,
@@ -76,7 +46,7 @@ extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
                     static_cast<const int*>(seed), o, static_cast<float*>(lse),
                     N, M, H, 1, offset, causal, scale, thresh, inv_keep};
-  const dim3 grid((N * H + FWD_ROWS - 1) / FWD_ROWS, B);
+  const dim3 grid((N * H + ATT_ROWS - 1) / ATT_ROWS, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {

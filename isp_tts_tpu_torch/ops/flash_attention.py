@@ -9,7 +9,9 @@ Counterpart of ``isp_tts_tpu/ops/flash_attention.py``:
   ``_mqa_dfused_kernel`` when the key axis fits resident,
   ``_mqa_dq_kernel`` + ``_mqa_dkv_kernel`` above it). On a CUDA tensor
   :func:`mqa_fwd` launches ``csrc/mqa_fwd.cu`` and :func:`mqa_bwd`
-  ``csrc/mqa_bwd.cu`` (one design for both TPU regimes).
+  ``csrc/mqa_bwd.cu`` (one design for both TPU regimes). The forwards share
+  one tensor-core tile core (``csrc/attention_fwd.cuh``), the backwards
+  another (``csrc/attention_bwd.cuh``).
 - ``flash_attention`` (Hkv key/value heads, Hkv = H or 1): the forward
   ``_flash_fwd`` (Pallas ``_fwd_kernel``) and the backward ``_flash_bwd``
   (``_dq_kernel`` + ``_dkv_kernel``). On a CUDA tensor :func:`flash_fwd`
@@ -369,11 +371,20 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
 mqa_fwd.launches = 0
 
 
-def _dkv_splits(B: int, M: int) -> int:
-    """Row splits of K2's dk/dv pass: enough blocks to fill the card's 132
-    SMs about four times over, each split a partial sum reduced after."""
-    blocks = B * -(-M // 64)
-    return max(1, min(16, -(-528 // blocks)))
+def _dkv_splits(tiles: int) -> int:
+    """Row-range splits of the backward's dk/dv pass (K2, K5b), given the
+    64-row tiles each of its key-stationary blocks walks: at least 7 tiles
+    a split, at most 8 splits (measured on the H100 at the decoder's bf16
+    training shape and at M 3072, PERF.md §6). The splits write f32 partial
+    sums that a third launch adds in a fixed order."""
+    return max(1, min(8, tiles // 7))
+
+
+def _dkv_work(splits: int, k: torch.Tensor):
+    """The splits' f32 partial dk and dv, or None for one split."""
+    if splits == 1:
+        return None
+    return torch.empty((splits, 2, *k.shape), dtype=torch.float32, device=k.device)
 
 
 def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
@@ -400,19 +411,20 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     dslopes = torch.zeros((2, H), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_(), dslopes
-    splits = _dkv_splits(B, M)
+    # each dk/dv block walks H * ceil(N/64) row tiles
+    splits = _dkv_splits(H * -(-N // 64))
     delta = torch.empty((B, N * H), dtype=torch.float32, device=q.device)
-    work = torch.empty((splits, 2, B, M, HEAD_DIM), dtype=torch.float32,
-                       device=q.device)
+    work = _dkv_work(splits, k)
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
     fn = _kernel("mqa_bwd", "isp_mqa_bwd",
                  [_P] * 16 + [_I] * 6 + [_F, _I, _F, _I, _I, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
              key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
              lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(), work.data_ptr(),
-             B, N, M, H, int(offset), int(bool(causal)), float(scale), thresh,
-             inv_keep, splits, _DTYPE_CODES[q.dtype], _stream(q.device))
+             dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
+             None if work is None else work.data_ptr(), B, N, M, H, int(offset),
+             int(bool(causal)), float(scale), thresh, inv_keep, splits,
+             _DTYPE_CODES[q.dtype], _stream(q.device))
     if err != 0:
         raise RuntimeError(f"K2 mqa_bwd launch failed: CUDA error {err}")
     mqa_bwd.launches += 1
@@ -491,20 +503,21 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     dslopes = torch.zeros((2, H), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_(), dslopes
+    # each dk/dv block walks ceil(N/64) row tiles of its head (Hkv = H) or
+    # of every head (Hkv = 1)
+    splits = _dkv_splits((1 if Hkv != 1 else H) * -(-N // 64))
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    # Hkv = 1: per-head f32 partial dk/dv, summed over the heads by a third launch
-    work = (torch.empty((2, B, H, M, HEAD_DIM), dtype=torch.float32, device=q.device)
-            if Hkv == 1 else None)
+    work = _dkv_work(splits, k)
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
     fn = _kernel("flash_bwd", "isp_flash_bwd",
-                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _P])
+                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _I, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
              key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
              lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
              None if work is None else work.data_ptr(), B, N, M, H, Hkv, int(offset),
-             int(bool(causal)), float(scale), thresh, inv_keep, _DTYPE_CODES[q.dtype],
-             _stream(q.device))
+             int(bool(causal)), float(scale), thresh, inv_keep, splits,
+             _DTYPE_CODES[q.dtype], _stream(q.device))
     if err != 0:
         raise RuntimeError(f"K5b flash_bwd launch failed: CUDA error {err}")
     flash_bwd.launches += 1

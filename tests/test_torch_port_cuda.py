@@ -1,4 +1,4 @@
-"""Kernels K1-K4 on the card against their plain versions, the
+"""Kernels K1-K5b on the card against their plain versions, the
 Synthesizer's kernel path against its plain-attention path, and one
 training step's kernel path against its plain path. These need an NVIDIA
 card and nvcc, and skip without them; on the card run
@@ -112,6 +112,50 @@ def _mqa(card, B, N, M, H, dtype, seed=0):
     return q, k, v, slopes, key_lens, q_lens
 
 
+GRAD_NAMES = ("dq", "dk", "dv", "dslopes")
+
+
+def _assert_within(got, ref, bound, skip=(), max_dist=1):
+    """Each gradient within ``bound`` of its reference's max-abs. With one
+    key (M = 1) p = 1 and ds = dp - delta = 0 in exact arithmetic, so dq, dk
+    and dslopes are rounding noise on both sides: they are held to the
+    bound on the scale of dv, the gradient that does not vanish, and
+    dslopes = sum ds * dist on that scale times the largest distance
+    ``max_dist``."""
+    one_key = ref[1].shape[1] == 1
+    for name, a, b in zip(GRAD_NAMES, got, ref):
+        if name in skip:
+            continue
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if one_key and name != "dv":
+            scale = ref[2].float().abs().max().item() * (max_dist if name == "dslopes" else 1)
+        assert err <= bound * scale, (name, err)
+
+
+def _kernel_vs_plain_bwd(fwd, bwd, plain, q, k, v, slopes, key_lens, q_lens, seed, w, offset,
+                         causal, rate, bound):
+    """The kernel backward against its plain version, both fed the kernel
+    forward's saved o and lse: one launch, every gradient within bound."""
+    o, lse = fwd(q, k, v, slopes, key_lens, 0.125, offset, q_lens, causal, rate, seed)
+    args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, w, 0.125, offset, causal, rate)
+    before = bwd.launches
+    got = bwd(*args)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    _assert_within(got, plain(*args), bound, max_dist=q.shape[1] + abs(offset))
+
+
+# bf16: dq, dk and dv are held to autograd through the plain forward, and
+# every gradient to the plain backward fed the kernel forward's saved o and
+# lse. dslopes is held to the plain backward alone: it is a sum with
+# cancellation of ds * dist, and ds takes delta = rowsum(dO * O) on the o
+# the forward saved in bf16, as the TPU kernels' residual is (the plain
+# backward from the bf16 o reads 5e-3 to 4e-2 against autograd through the
+# plain forward, from the f32 o under 4e-6; tests/test_torch_port_attention_bwd_bf16.py)
+BF16_AUTOGRAD_SKIP = {torch.float32: (), torch.bfloat16: ("dslopes",)}
+
+
 @pytest.mark.parametrize("B,N,M,H,offset,causal,rate,dtype,bound", [
     (4, 320, 320, 6, 0, False, 0.1, torch.float32, 1e-4),
     (4, 320, 320, 4, 0, False, 0.0, torch.float32, 1e-4),
@@ -122,7 +166,8 @@ def _mqa(card, B, N, M, H, dtype, seed=0):
 ])
 def test_k2_matches_autograd_through_plain_k1(card, B, N, M, H, offset, causal, rate, dtype,
                                               bound):
-    from isp_tts_tpu_torch.ops.flash_attention import mqa_attention, mqa_bwd
+    from isp_tts_tpu_torch.ops.flash_attention import (mqa_attention, mqa_bwd,
+                                                       mqa_bwd_reference)
 
     q, k, v, slopes, key_lens, q_lens = _mqa(card, B, N, M, H, dtype)
     seed = torch.tensor([31], dtype=torch.int32, device=card)
@@ -140,8 +185,32 @@ def test_k2_matches_autograd_through_plain_k1(card, B, N, M, H, offset, causal, 
     assert mqa_bwd.launches == before + 1
     ref = grads(lambda *a: mqa_attention_reference(*a, key_lens, 0.125, offset, q_lens, causal,
                                                    rate, seed)[0])
-    for a, b in zip(got, ref):
-        assert (a - b).abs().max().item() <= bound * b.abs().max().item()
+    _assert_within(got, ref, bound, BF16_AUTOGRAD_SKIP[dtype])
+    _kernel_vs_plain_bwd(mqa_fwd, mqa_bwd, mqa_bwd_reference, q, k, v, slopes, key_lens,
+                         q_lens, seed, w, offset, causal, rate, bound)
+
+
+# The backward kernels' tile edges (64-row and 64-key blocks, 16-row warps,
+# 64-row tiles): EDGE_CASES and row and key counts of 1, 63, 64 and 65.
+BWD_EDGE_CASES = EDGE_CASES + [  # B, N, M, H, offset, causal, rate
+    (4, 1, 1, 6, 0, False, 0.1), (4, 63, 65, 6, 0, False, 0.1), (4, 64, 64, 4, -5, True, 0.1),
+    (4, 65, 63, 6, 0, False, 0.0), (4, 1, 65, 4, 0, False, 0.1), (4, 65, 1, 6, 0, True, 0.1),
+]
+
+
+@pytest.mark.parametrize("B,N,M,H,offset,causal,rate,dtype,bound",
+                         [c + db for c in BWD_EDGE_CASES
+                          for db in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))])
+def test_k2_matches_plain_version_at_tile_edges(card, B, N, M, H, offset, causal, rate, dtype,
+                                                bound):
+    from isp_tts_tpu_torch.ops.flash_attention import mqa_bwd, mqa_bwd_reference
+
+    q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, 1, dtype, seed=2)
+    w = torch.randn(q.shape, device=card).to(dtype)
+    seed = torch.tensor([37], dtype=torch.int32, device=card)
+    _kernel_vs_plain_bwd(mqa_fwd, mqa_bwd, mqa_bwd_reference, q, k[:, :, 0].contiguous(),
+                         v[:, :, 0].contiguous(), slopes, key_lens, q_lens, seed, w, offset,
+                         causal, rate, bound)
 
 
 @pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192)])
@@ -251,6 +320,8 @@ K5_CASES = [  # B, N, M, H, Hkv, offset, causal, rate, dtype, bound
     (4, 320, 320, 6, 1, 0, False, 0.1, torch.float32, 1e-4),
     (3, 96, 224, 6, 6, 128, True, 0.1, torch.float32, 1e-4),
     (4, 320, 320, 6, 6, 0, False, 0.1, torch.bfloat16, 2e-2),
+    (4, 1024, 1024, 6, 1, 0, False, 0.1, torch.bfloat16, 2e-2),
+    (4, 300, 300, 4, 1, -5, True, 0.1, torch.bfloat16, 2e-2),
 ]
 # K5a alone at the tile edges, with H and with 1 key/value head
 K5A_EDGE_CASES = [(B, N, M, H, Hkv, offset, causal, rate, dtype, bound)
@@ -283,7 +354,8 @@ def test_k5a_matches_plain_version(card, B, N, M, H, Hkv, offset, causal, rate, 
 def test_k5b_matches_autograd_through_plain_k5a(card, B, N, M, H, Hkv, offset, causal,
                                                 rate, dtype, bound):
     from isp_tts_tpu_torch.ops.flash_attention import (flash_attention,
-                                                       flash_attention_reference, flash_bwd)
+                                                       flash_attention_reference, flash_bwd,
+                                                       flash_bwd_reference, flash_fwd)
 
     q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, Hkv, dtype, seed=1)
     seed = torch.tensor([29], dtype=torch.int32, device=card)
@@ -301,5 +373,22 @@ def test_k5b_matches_autograd_through_plain_k5a(card, B, N, M, H, Hkv, offset, c
     assert flash_bwd.launches == before + 1
     ref = grads(lambda *a: flash_attention_reference(*a, key_lens, 0.125, offset, q_lens,
                                                      causal, rate, seed)[0])
-    for a, b in zip(got, ref):
-        assert (a - b).abs().max().item() <= bound * b.abs().max().item()
+    _assert_within(got, ref, bound, BF16_AUTOGRAD_SKIP[dtype])
+    _kernel_vs_plain_bwd(flash_fwd, flash_bwd, flash_bwd_reference, q, k, v, slopes, key_lens,
+                         q_lens, seed, w, offset, causal, rate, bound)
+
+
+@pytest.mark.parametrize("B,N,M,H,Hkv,offset,causal,rate,dtype,bound",
+                         [(B, N, M, H, hkv, offset, causal, rate) + db
+                          for B, N, M, H, offset, causal, rate in BWD_EDGE_CASES
+                          for hkv in (H, 1)
+                          for db in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))])
+def test_k5b_matches_plain_version_at_tile_edges(card, B, N, M, H, Hkv, offset, causal, rate,
+                                                 dtype, bound):
+    from isp_tts_tpu_torch.ops.flash_attention import flash_bwd, flash_bwd_reference, flash_fwd
+
+    q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, Hkv, dtype, seed=2)
+    w = torch.randn(q.shape, device=card).to(dtype)
+    seed = torch.tensor([41], dtype=torch.int32, device=card)
+    _kernel_vs_plain_bwd(flash_fwd, flash_bwd, flash_bwd_reference, q, k, v, slopes, key_lens,
+                         q_lens, seed, w, offset, causal, rate, bound)

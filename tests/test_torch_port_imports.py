@@ -64,7 +64,8 @@ def test_no_cpp_extension_and_plain_nvcc_build(monkeypatch):
     sources = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
     assert sources == ["ctc", "flash_bwd", "flash_fwd", "mas", "mqa_bwd", "mqa_fwd"]
     headers = sorted(p.name for p in cuda_build.CSRC.glob("*.cuh"))
-    assert headers == ["attention_common.cuh", "attention_fwd.cuh"]
+    assert headers == ["attention_bwd.cuh", "attention_common.cuh", "attention_fwd.cuh",
+                       "attention_mma.cuh"]
     for name in headers + [f"{s}.cu" for s in sources]:
         text = (cuda_build.CSRC / name).read_text()
         assert "#include <torch" not in text and "Python.h" not in text, name

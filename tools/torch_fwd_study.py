@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Studies of the port's tensor-core attention forward (K1 ``mqa_fwd``, K5a
-``flash_fwd``) on one NVIDIA card, beside ``chip_smoke.py``'s gates.
+"""Studies of the port's tensor-core attention kernels on one NVIDIA card:
+the forwards (K1 ``mqa_fwd``, K5a ``flash_fwd``) and the backwards (K2
+``mqa_bwd``, K5b ``flash_bwd``), beside ``chip_smoke.py``'s gates.
 
     python3 tools/torch_fwd_study.py times [--variants NAME ...] [--parent DIR]
     python3 tools/torch_fwd_study.py gates [--seeds 5 6 8] [--variant NAME]
                                            [--parent DIR] [--scale-o X ...]
 
-``times``: each variant of the forward tile core (one part of its
-per-element work taken out, or the other bf16 launch bound; see VARIANTS)
-built from a copy of ``csrc/`` and timed, K1 and K5a, at the decoder's bf16
-training shape (B 32, N = M = 320, H 6, dropout 0.1 and 0; the smoke run's
-batch's frame counts and random lengths) and at the serving decoder's f32
-shape (B 4, N = M = 1024), as CUDA-graph device time beside one
-``scaled_dot_product_attention`` call. A stub variant computes
-wrong attention; it is timed, never used. ``--parent DIR`` adds the kernels
-of another checkout's ``isp_tts_tpu_torch/csrc`` (e.g. a ``git archive`` of
-the parent commit) as variant ``parent``.
+``times``: each variant of a tile core (one part of its per-element work
+taken out, the other bf16 launch bound, or a fixed count of row splits of
+the backward's dk/dv pass; see VARIANTS and SPLITS) built from a copy of
+``csrc/`` and timed as CUDA-graph device time beside the library call:
+- the forwards K1 and K5a at the decoder's bf16 training shape (B 32,
+  N = M = 320, H 6, dropout 0.1 and 0; the smoke run's batch's frame
+  counts and random lengths) and at the serving decoder's f32 shape (B 4,
+  N = M = 1024), beside one ``scaled_dot_product_attention`` call;
+- the backwards K2 and K5b (6 and 1 key/value heads) at the decoder's bf16
+  training shape with the batch's lengths and dropout 0.1, and at B 2,
+  N = M = 3072 in f32 with random lengths, from the plain forward's o and
+  lse, beside SDPA's autograd backward (``chip_smoke.library_bwd_ms``).
+A stub variant computes wrong attention; it is timed, never used. ``--parent
+DIR`` adds another checkout's kernels (e.g. a ``git archive`` of the parent
+commit) through that checkout's own wrappers, as variant ``parent``.
 
 ``gates``: the smoke run's two noise-bound training gates on training
 batches synthesized with the noise seeds given (the smoke run uses 5): the
@@ -31,6 +37,8 @@ the gates on those kernels instead.
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import shutil
 import subprocess
 import sys
@@ -43,74 +51,147 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as c  # noqa: E402
 
-# (old, new) substitutions in attention_fwd.cuh
-_ONE_TERM = [("for (int term = 1; term >= 0; --term) {",
-              "for (int term = 0; term >= 0; --term) {")]
-_NO_BIAS = [("const bool full = c0 + FWD_KEYS <= key_len && (lower || upper);",
-             "const bool full = true;"),
-            ("x = fmaf(s[j][2 * half + e], scale2, sl * dist);", "x = s[j][2 * half + e] * scale2;")]
-_NO_EXP = [("x = fast_exp2(x - m_use);", "x = x - m_use;")]
-_NO_HASH = [("if (drop) {  // the normaliser", "if (false) {  // the normaliser")]
-#: name -> substitutions; the stubs compute wrong attention
-VARIANTS = {
-    "built": [],
-    "one_term_p": _ONE_TERM,  # bf16 P.V with P rounded to bf16 (K1's TPU kernel)
-    "no_bias_mask": _NO_BIAS,  # no ALiBi bias, no per-element length / causal compare
-    "no_exp": _NO_EXP,  # the probabilities' exp2 left out
-    "no_hash": _NO_HASH,  # the dropout hash left out
-    "mma_only": _NO_BIAS + _NO_EXP + _NO_HASH,  # loads, MMAs, max and sums only
-    # the other bf16 launch bound of each row geometry (exact arithmetic)
-    "k1_4_blocks": [("kBf16Blocks = 3;", "kBf16Blocks = 4;")],
-    "k5a_3_blocks": [("kBf16Blocks = 4;", "kBf16Blocks = 3;")],
-}
 FWD = ("mqa_fwd", "flash_fwd")
+BWD = ("mqa_bwd", "flash_bwd")
+KERNELS = ("mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd")
+
+# (old, new) substitutions, each made in every listed file that holds it
+_F_NO_BIAS = [("const bool full = c0 + ATT_KEYS <= key_len && (lower || upper);",
+               "const bool full = true;"),
+              ("x = fmaf(s[j][2 * half + e], scale2, sl * dist);",
+               "x = s[j][2 * half + e] * scale2;")]
+_F_NO_EXP = [("x = fast_exp2(x - m_use);", "x = x - m_use;")]
+_F_NO_HASH = [("if (drop) {  // the normaliser", "if (false) {  // the normaliser")]
+_B_NO_BIAS = _F_NO_BIAS + [
+    ("const bool full = cw + 16 <= key_len && n0 + PART <= q_len && (lower || upper);",
+     "const bool full = true;")]
+_B_NO_EXP = [("const float pr = fast_exp2(x - r.lse2);", "const float pr = x - r.lse2;"),
+             ("const float pr = fast_exp2(x - lse2);", "const float pr = x - lse2;")]
+_B_NO_HASH = [("if (drop) {  // dropped probabilities carry no gradient",
+               "if (false) {  // dropped probabilities carry no gradient")]
+_FWD_CORE = ("attention_fwd.cuh",)
+_BWD_CORE = ("attention_bwd.cuh",)
+_ROWS = ("attention_common.cuh",)
+#: name -> (sources it changes, files, substitutions); the stubs compute
+#: wrong attention
+VARIANTS = {
+    "built": (KERNELS, (), []),
+    # forward
+    "one_term_p": (FWD, _FWD_CORE, [("FWD_P_TERMS = 2;", "FWD_P_TERMS = 1;")]),  # K1's TPU P
+    "no_bias_mask": (FWD, _FWD_CORE, _F_NO_BIAS),  # no ALiBi bias, no length/causal compare
+    "no_exp": (FWD, _FWD_CORE, _F_NO_EXP),  # the probabilities' exp2 left out
+    "no_hash": (FWD, _FWD_CORE, _F_NO_HASH),  # the dropout hash left out
+    "mma_only": (FWD, _FWD_CORE, _F_NO_BIAS + _F_NO_EXP + _F_NO_HASH),
+    "k1_4_blocks": (FWD, _ROWS, [("kBf16Blocks = 3;", "kBf16Blocks = 4;")]),
+    "k5a_3_blocks": (FWD, _ROWS, [("kBf16Blocks = 4;", "kBf16Blocks = 3;")]),
+    # backward
+    "bwd_one_term": (BWD, _BWD_CORE, [("BWD_TERMS = 2;", "BWD_TERMS = 1;")]),  # K2's TPU p, ds
+    "bwd_no_bias_mask": (BWD, _BWD_CORE, _B_NO_BIAS),
+    "bwd_no_hash": (BWD, _BWD_CORE, _B_NO_HASH),
+    "bwd_mma_only": (BWD, _BWD_CORE, _B_NO_BIAS + _B_NO_EXP + _B_NO_HASH),
+    "bwd_3_blocks": (BWD, _BWD_CORE, [("BWD_BF16_BLOCKS = 2;", "BWD_BF16_BLOCKS = 3;")]),
+}
+#: the built kernels with the dk/dv pass's row splits fixed (variant "splits_N")
+SPLITS = (1, 2, 4, 8)
 
 
-def variant_dir(name: str, work: Path, parent: Path | None) -> Path:
-    """A copy of csrc/ (or the parent's) with the variant's substitutions,
-    each made in every forward source that holds it."""
-    from isp_tts_tpu_torch.ops import cuda_build
+class Variant:
+    """A set of kernels to time: a directory with a copy of ``csrc/`` (and
+    the sources it builds), and the wrapper module that launches them."""
 
-    d = work / name
-    shutil.rmtree(d, ignore_errors=True)
-    src = parent / "isp_tts_tpu_torch/csrc" if name == "parent" else cuda_build.CSRC
-    shutil.copytree(src, d / "csrc")
-    files = [d / "csrc" / f for f in ("attention_fwd.cuh", "mqa_fwd.cu", "flash_fwd.cu")]
-    for old, new in [] if name == "parent" else VARIANTS[name]:
-        hits = [f for f in files if old in f.read_text()]
-        if not hits:
-            raise SystemExit(f"variant {name}: {old!r} not in the forward sources")
-        for f in hits:
-            f.write_text(f.read_text().replace(old, new))
-    return d
+    def __init__(self, name: str, work: Path, parent: Path | None):
+        from isp_tts_tpu_torch.ops import cuda_build
+        from isp_tts_tpu_torch.ops import flash_attention as fa
+
+        self.name, self.splits = name, None
+        if name.startswith("splits_"):
+            self.splits, name = int(name.split("_")[1]), "built"
+        self.dir = work / name
+        self.ops, self.build_mod = fa, cuda_build
+        if name == "parent":
+            self.ops, self.build_mod = parent_modules(parent)
+            self.sources = KERNELS
+            if not self.dir.exists():
+                shutil.copytree(parent / "isp_tts_tpu_torch/csrc", self.dir / "csrc")
+            self.build_mod.CSRC, self.build_mod.BUILD_DIR = self.dir / "csrc", self.dir / "_build"
+            return
+        self.sources, files, subs = VARIANTS[name]
+        if self.dir.exists():  # a splits variant shares the built kernels
+            return
+        shutil.copytree(cuda_build.CSRC, self.dir / "csrc")
+        for old, new in subs:
+            hits = [self.dir / "csrc" / f for f in files if old in (self.dir / "csrc" / f).read_text()]
+            if not hits:
+                raise SystemExit(f"variant {name}: {old!r} not in {files}")
+            for f in hits:
+                f.write_text(f.read_text().replace(old, new))
+
+    def use(self):
+        """Point the wrapper module's loader at this variant's kernels."""
+        if self.name != "parent":
+            self.build_mod.CSRC, self.build_mod.BUILD_DIR = self.dir / "csrc", self.dir / "_build"
+            self.build_mod._LOADED.clear()
+            self.build_mod.BUILD_INFO.clear()
+
+    def fn(self, kernel: str):
+        """The wrapper of ``kernel``, with this variant's split count."""
+        self.use()
+        f = getattr(self.ops, kernel)
+        if self.splits is None:
+            return f
+        n = self.splits
+
+        def call(*a):
+            saved = self.ops._dkv_splits
+            self.ops._dkv_splits = lambda tiles: min(n, tiles)
+            try:
+                return f(*a)
+            finally:
+                self.ops._dkv_splits = saved
+        return call
 
 
-def use(d: Path) -> None:
-    """Point the kernel loader at variant directory ``d``."""
-    from isp_tts_tpu_torch.ops import cuda_build
+def parent_modules(parent: Path):
+    """Another checkout's ``isp_tts_tpu_torch.ops.flash_attention`` and
+    ``cuda_build``, imported as package ``parent_port``."""
+    name = "parent_port"
+    if name not in sys.modules:
+        pkg = parent / "isp_tts_tpu_torch"
+        spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                      submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return (importlib.import_module(name + ".ops.flash_attention"),
+            importlib.import_module(name + ".ops.cuda_build"))
 
-    cuda_build.CSRC, cuda_build.BUILD_DIR = d / "csrc", d / "_build"
-    cuda_build._LOADED.clear()
-    cuda_build.BUILD_INFO.clear()
 
-
-def build(dirs: list[Path], sources) -> None:
-    """Every source of every directory, one nvcc each, all started together."""
-    from isp_tts_tpu_torch.ops import cuda_build
-
-    jobs = []
-    for d in dirs:
-        use(d)
-        (d / "_build").mkdir(exist_ok=True)
-        for name in sources:
-            out = cuda_build.library_path(name)
-            cmd = cuda_build.nvcc_command(cuda_build.CSRC / f"{name}.cu", out)
-            jobs.append((d.name, name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+def build(variants: list[Variant], wanted) -> None:
+    """Every wanted source of every variant, one nvcc each, all started
+    together (a splits variant shares the built kernels)."""
+    jobs, seen = [], set()
+    for v in variants:
+        if v.dir in seen:
+            continue
+        seen.add(v.dir)
+        v.use()
+        v.build_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for name in v.sources:
+            if name not in wanted:
+                continue
+            out = v.build_mod.library_path(name)
+            cmd = v.build_mod.nvcc_command(v.build_mod.CSRC / f"{name}.cu", out)
+            jobs.append((v.name, name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                         stderr=subprocess.STDOUT, text=True)))
     for variant, name, proc in jobs:
         log = proc.communicate(timeout=900)[0]
         if proc.returncode:
             raise SystemExit(f"nvcc failed, {variant} {name}.cu:\n{log}")
+        if variant in ("built", "parent") or "blocks" in variant:
+            usage = c.ptxas_usage(log)
+            print(f"[times] {variant} {name}.cu ptxas registers / spill store / spill load "
+                  "bytes: " + "; ".join(f"{c.kernel_label(k)} {u[0]}/{u[1]}/{u[2]}"
+                                        for k, u in sorted(usage.items())), flush=True)
 
 
 def times(args, work: Path) -> None:
@@ -119,40 +200,73 @@ def times(args, work: Path) -> None:
     from isp_tts_tpu_torch.ops import flash_attention as fa
     from isp_tts_tpu_torch.serving import Synthesizer
 
+    c.phase_env(time.perf_counter())
     # the smoke run's training batch (noise seed 5): its frame counts
     synth = Synthesizer.from_pretrained(c.CKPT)
     frames = c.training_batch(synth, torch.Generator(device="cuda").manual_seed(5))[0]["mel_len"]
+    frames = frames.contiguous()
     del synth
     names = list(args.variants) + (["parent"] if args.parent else [])
-    dirs = [variant_dir(n, work, args.parent) for n in names]
+    variants = [Variant(n, work, args.parent) for n in names]
     t0 = time.perf_counter()
-    build(dirs, FWD)
-    print(f"[times] built {len(dirs)} variants in {time.perf_counter() - t0:.1f}s", flush=True)
-
+    build(variants, set(KERNELS))
+    print(f"[times] built {len(variants)} variants in {time.perf_counter() - t0:.1f}s", flush=True)
     scale = 64 ** -0.5
+
+    fwd = [v for v in variants if v.splits is None and set(FWD) & set(v.sources)]
     shapes = [("bf16 B=32 N=M=320 H=6, the batch's lengths", 32, 320, torch.bfloat16, (0.1,)),
               ("bf16 B=32 N=M=320 H=6, random lengths", 32, 320, torch.bfloat16, (0.1, 0.0)),
               ("f32 B=4 N=M=1024 H=6, random lengths", 4, 1024, torch.float32, (0.0,))]
-    for label, B, N, dtype, rates in shapes:
-        for kv_heads, fwd in ((None, "mqa_fwd"), (6, "flash_fwd")):
+    for label, B, N, dtype, rates in shapes if fwd else ():
+        for kv_heads, kernel in ((None, "mqa_fwd"), (6, "flash_fwd")):
             gen = torch.Generator(device="cuda").manual_seed(11)
             q, k, v, sl, kl, ql = c.mqa_inputs(B, N, N, 6, dtype, True, gen, kv_heads=kv_heads)
             if "batch" in label:
-                kl = ql = frames.contiguous()
+                kl = ql = frames
             seed = c.seed_tensor(2024)
             lib = c.graph_ms(c.library_call(q, k, v, sl, kl, scale))
             row = []
-            for d in dirs:
-                use(d)
-                fn = getattr(fa, fwd)
+            for var in fwd:
+                f = var.fn(kernel)
                 for rate in rates:
-                    ms = c.graph_ms(lambda: fn(q, k, v, sl, kl, scale, 0, ql, False, rate, seed))
-                    row.append(f"{d.name}{'' if rate else ' rate 0'} {ms:.4f}")
+                    ms = c.graph_ms(lambda: f(q, k, v, sl, kl, scale, 0, ql, False, rate, seed))
+                    row.append(f"{var.name}{'' if rate else ' rate 0'} {ms:.4f}")
             bound = c.attention_bound(q, k, kl, ql)
-            kernel = "K1" if kv_heads is None else "K5a"
-            print(f"[times] {kernel} {label}: " + ", ".join(row) + f"; SDPA {lib:.4f}; bound "
+            name = "K1" if kv_heads is None else "K5a"
+            print(f"[times] {name} {label}: " + ", ".join(row) + f"; SDPA {lib:.4f}; bound "
                   f"{bound[0]:.4f} ({bound[1]}) ms", flush=True)
             del q, k, v
+            torch.cuda.empty_cache()
+
+    bwd = [v for v in variants if set(BWD) & set(v.sources)]
+    shapes = [("bf16 B=32 N=M=320 H=6 dropout 0.1, the batch's lengths", 32, 320,
+               torch.bfloat16, (None, 6, 1)),
+              ("f32 B=2 N=M=3072 H=6 dropout 0.1, random lengths", 2, 3072, torch.float32,
+               (None, 6))]
+    for label, B, N, dtype, kv in shapes if bwd else ():
+        for kv_heads in kv:
+            kernel, plain = (("mqa_bwd", fa.mqa_attention_reference) if kv_heads is None
+                             else ("flash_bwd", fa.flash_attention_reference))
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            q, k, v, sl, kl, ql = c.mqa_inputs(B, N, N, 6, dtype, True, gen, kv_heads=kv_heads)
+            if "batch" in label:
+                kl = ql = frames
+            seed, rate = c.seed_tensor(2025), 0.1
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            o, lse = plain(q, k, v, sl, kl, scale, 0, ql, False, rate, seed)
+            lib = c.library_bwd_ms(q, k, v, sl, kl, scale, 0, False, do,
+                                   iters=10 if N <= 1024 else 3)
+            row = []
+            for var in bwd:
+                f = var.fn(kernel)
+                ms = c.graph_ms(lambda: f(q, k, v, sl, kl, ql, seed, o, lse, do, scale, 0,
+                                          False, rate), iters=10 if N <= 1024 else 3)
+                row.append(f"{var.name} {ms:.4f}")
+            bound = c.attention_bound(q, k, kl, ql, backward=True)
+            name = "K2" if kv_heads is None else f"K5b Hkv={kv_heads}"
+            print(f"[times] {name} {label}: " + ", ".join(row) + f"; SDPA backward {lib:.4f}; "
+                  f"bound {bound[0]:.4f} ({bound[1]}) ms", flush=True)
+            del q, k, v, o, lse, do
             torch.cuda.empty_cache()
 
 
@@ -176,10 +290,14 @@ def gates(args, work: Path) -> None:
     t0 = time.perf_counter()
     c.phase_env(t0)
     if args.variant != "built" or args.parent:
-        d = variant_dir("parent" if args.parent else args.variant, work, args.parent)
-        build([d], c.SOURCES)
-        use(d)
-        print(f"[gates] kernels of {d.name}", flush=True)
+        var = Variant("parent" if args.parent else args.variant, work, args.parent)
+        build([var], set(c.SOURCES) & set(var.sources))
+        if var.name == "parent":  # its own wrappers: the C signatures may differ
+            for name in KERNELS:
+                setattr(fa, name, getattr(var.ops, name))
+        else:
+            var.use()
+        print(f"[gates] kernels of {var.name}", flush=True)
     else:
         c.phase_build(t0)
     synth = Synthesizer.from_pretrained(c.CKPT)
@@ -232,8 +350,9 @@ def gates(args, work: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
+    names = list(VARIANTS) + [f"splits_{n}" for n in SPLITS]
     t = sub.add_parser("times")
-    t.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    t.add_argument("--variants", nargs="+", default=names, choices=names)
     t.add_argument("--parent", type=Path)
     g = sub.add_parser("gates")
     g.add_argument("--seeds", nargs="+", type=int, default=[5, 6, 8])
@@ -249,7 +368,7 @@ def main() -> int:
         raise SystemExit("torch_fwd_study: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with tempfile.TemporaryDirectory(prefix="fwd_study_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="attention_study_") as tmp:
         (times if args.cmd == "times" else gates)(args, Path(tmp))
     return 0
 

@@ -23,7 +23,9 @@ how far it got:
              against the plain backward on the kernel forward's saved o and
              lse (check_backward), graph-timed beside SDPA's backward, then
              at the tile edges (BWD_EDGE_CASES); K3 (MAS) for exact
-             equality, K4 (banded CTC) loss and gradient.
+             equality and K4 (banded CTC) loss and gradient, at the training
+             shape, the widest shapes the wrappers take and the switch
+             points of their paths (K3_CASES, K4_CASES).
 5. kernel  - the per-head attention kernels K5a (forward) and K5b (backward)
              against their plain versions: the decoder's training shape in
              f32 and bf16 with and without dropout, 4 heads, causal with an
@@ -91,11 +93,11 @@ BF16_BOUND = 2e-2
 # f32, same noise and durations: 25 attention calls whose outputs differ by
 # ~1e-6 pass through 16 residual layers and to_mel
 MEL_BOUND = 1e-3
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
-# bf16 dense tensor operations/s, and f32 products done as 3xTF32 on the
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 and f64 (non-tensor)
+# and bf16 dense tensor operations/s, and f32 products done as 3xTF32 on the
 # tensor cores (three TF32 MMAs each, 495 TFLOP/s dense TF32 over 3)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
+PEAK_OPS_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12, "3xtf32": 495e12 / 3}
 
 
 def say(phase: str, t0: float, text: str = "") -> None:
@@ -188,10 +190,13 @@ def mqa_inputs(B, N, M, H, dtype, symmetric, gen, kv_heads=None):
     return q, k, v, slopes, key_lens, q_lens
 
 
-def bound_ms(nbytes: float, ops: float, dtype: str = "float32"):
+def bound_ms(nbytes: float, ops, dtype: str = "float32"):
     """(ms, 'bytes' | 'operations'): the larger of bytes over the HBM rate
-    and operations over the peak rate of ``dtype``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[dtype]
+    and operations over the peak rate of ``dtype`` (``ops`` a dict: the sum
+    of each type's operations over its peak)."""
+    ops = ops if isinstance(ops, dict) else {dtype: ops}
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[d] for d, n in ops.items())
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -852,7 +857,8 @@ def mas_inputs(B, M, T, gen):
     i = torch.arange(M, device="cuda")[:, None] / M
     j = torch.arange(T, device="cuda")[None, :] / T
     logits = torch.randn((B, M, T), generator=gen, device="cuda") - 8.0 * (i - j) ** 2
-    tl = torch.randint(T // 2, T + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    tl = torch.randint(max(T // 2, 1), T + 1, (B,), generator=gen, device="cuda",
+                       dtype=torch.int32)
     ml = torch.randint(M // 2, M + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
     tl[0], ml[0] = T, M
     return logits.log_softmax(-1).contiguous(), tl, torch.maximum(ml, tl)
@@ -865,6 +871,38 @@ def ctc_inputs(B, M, T, gen):
 
     logits, tl, ml = mas_inputs(B, M, T, gen)
     return F.pad(logits, (1, 0), value=-1.0).log_softmax(-1).contiguous(), tl, ml
+
+
+def mas_bound(la, tl, ml):
+    """K3's bound: the valid map entries read once, the one-hot written once;
+    a max, an add and a compare an entry."""
+    B, M, T = la.shape
+    valid = int((tl.long().clamp(0, T) * ml.long().clamp(0, M)).sum())
+    return bound_ms(4 * valid + 4 * la.numel() + 8 * B, 3 * valid)
+
+
+def ctc_frames(lp, ml) -> int:
+    return int(ml.long().clamp(0, lp.shape[1]).sum())
+
+
+def ctc_fwd_bound(lp, tl, ml):
+    """K4 forward's bound: the map's valid frames read once, the f64 alphas
+    written once; a (frame, state) takes a 2-way and a 3-way lse and two
+    adds: 12 f64 operations (max, min, subtract, add) and 9 f32 (exp, log,
+    add)."""
+    B, _, W = lp.shape
+    cells = ctc_frames(lp, ml) * W
+    return bound_ms(20 * cells + 20 * B, {"float64": 12 * cells, "float32": 9 * cells})
+
+
+def ctc_bwd_bound(lp, tl, ml):
+    """K4 backward's bound: the map's valid frames and the alphas read once,
+    the gradient written once; a (frame, state) takes the two occupancies,
+    a 2-way and a 3-way lse and two adds: 18 f64 operations and 14 f32."""
+    B, M, W = lp.shape
+    cells = ctc_frames(lp, ml) * W
+    return bound_ms(20 * cells + 4 * B * M * W + 24 * B,
+                    {"float64": 18 * cells, "float32": 14 * cells})
 
 
 def k4_pair(lp, tl, ml, g, plain=False):
@@ -959,6 +997,22 @@ def grad_errs(tag: str, errs) -> str:
                                                                 errs))
 
 
+# K3 (B, M, T, a row of NEG_INF logits): the training shape and B 64, M 1024,
+# T 192; T = 1, 32, 33 (one and two column blocks a lane), 256 and 257 (one
+# warp, two), 6144 (24 warps, the widest the wrapper takes; choice bits in
+# global memory), M 12000 (the bits past shared memory at a narrow T)
+K3_CASES = [(32, 320, 48, False), (64, 1024, 192, False), (32, 320, 48, True),
+            (8, 320, 1, False), (8, 320, 32, False), (8, 320, 33, False),
+            (8, 320, 256, False), (8, 320, 257, False), (2, 1024, 6144, False),
+            (2, 12000, 33, False)]
+# K4 (B, M, T), W = T + 1 states, a warp per 32: the training shape and B 64,
+# M 1024, T 192; W = 2, 33 (one warp, two), 256 and 257 (8 and 9 warps: the
+# staging ring of 16 frames and of 8), 1024 (32 warps, the ring of 4; the
+# widest the wrapper takes)
+K4_CASES = [(32, 320, 48), (64, 1024, 192), (8, 320, 1), (8, 320, 32), (8, 320, 255),
+            (8, 320, 256), (4, 1024, 1023)]
+
+
 def phase_kernel_train(t0):
     """K1 with dropout, K2, K3 and K4 against their plain versions."""
     import torch
@@ -1002,21 +1056,23 @@ def phase_kernel_train(t0):
     torch.cuda.empty_cache()
     phase_edges_bwd(t0, gen, kv_heads=(None,))
 
-    for B, M, T, neg_row in ((32, 320, 48, False), (64, 1024, 192, False),
-                             (32, 320, 48, True)):
+    for B, M, T, neg_row in K3_CASES:
         la, tl, ml = mas_inputs(B, M, T, gen)
         if neg_row:
             la[1, 10] = -1e9  # a frame whose logits all sit at the DP's NEG_INF
         got = mas.monotonic_alignment_search(la, tl, ml)
         torch.cuda.synchronize()
         ref = mas.monotonic_alignment_search_reference(la, tl, ml)
-        if not (torch.equal(got, ref) and torch.equal(got.sum(dim=(1, 2)), ml.float())):
+        rows = ml.clamp(max=M).float()
+        if not (torch.equal(got, ref) and torch.equal(got.sum(dim=(1, 2)), rows)):
             raise AssertionError(f"K3 B={B} M={M} T={T}: {(got != ref).sum().item()} "
                                  "elements differ from the plain version")
         say("kernel", t0, f"K3 B={B} M={M} T={T}{' NEG_INF row' if neg_row else ''}: "
             "equal to the plain version, durations sum to mel_len")
+        del la, got, ref
+    torch.cuda.empty_cache()
 
-    for B, M, T in ((32, 320, 48), (64, 1024, 192)):
+    for B, M, T in K4_CASES:
         lp, tl, ml = ctc_inputs(B, M, T, gen)
         g = torch.rand((B,), generator=gen, device="cuda")
         neg, dlp = k4_pair(lp, tl, ml, g)
@@ -1503,9 +1559,7 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
     ``launches`` are the one-KV-head training run's counts (K1-K4),
     ``mha_launches`` the multi-KV-head run's (K5a, K5b)."""
     import torch
-    import torch.nn.functional as F
 
-    from isp_tts_tpu_torch.ops import mas
     from isp_tts_tpu_torch.ops.flash_attention import (mqa_attention_reference, mqa_bwd,
                                                        mqa_bwd_reference, mqa_fwd)
 
@@ -1553,52 +1607,96 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
     ]
     torch.cuda.empty_cache()
     records += k5_records(batch, mha_launches, mha_serve_launches)
+    records += dp_records(batch, launches, gen)
+    return records
 
-    T = TEXT_LEN
-    la, _, _ = mas_inputs(B, MEL_LEN, T, gen)
+
+def dp_records(batch, launches, gen):
+    """K3's, K4 forward's and K4 backward's records at the training path's
+    shape (B 32, M 320, T 48, the batch's lengths): graph-timed device time,
+    the plain versions and ``F.ctc_loss`` eager; ptxas's registers and spill
+    bytes of the instantiation this shape runs (K4 with its 16-frame ring, K3
+    with two column blocks on one warp)."""
+    import torch
+    import torch.nn.functional as F
+
+    from isp_tts_tpu_torch.ops import ctc, cuda_build, mas
+
+    def ptxas(source, kernel):
+        """Registers and spill bytes of the instantiation whose mangled name
+        holds ``kernel`` (none when this run found the library built)."""
+        usage = ptxas_usage(cuda_build.BUILD_INFO[source]["log"])
+        regs = next((u for k, u in usage.items() if kernel in k), None)
+        return {} if regs is None else {"registers": regs[0], "spill_bytes": regs[1] + regs[2]}
+
+    B, M, T = BATCH, MEL_LEN, TEXT_LEN
+    la, _, _ = mas_inputs(B, M, T, gen)
     tl, ml = batch["text_vector_len"].contiguous(), batch["mel_len"].contiguous()
     got = mas.monotonic_alignment_search(la, tl, ml)
     ref = mas.monotonic_alignment_search_reference(la, tl, ml)
-    valid = int((tl.long() * ml.long()).sum())
-    k3_bound = bound_ms(4 * valid + 4 * la.numel() + 8 * B, 3 * valid)
-    records.append(
+    k3_bound = mas_bound(la, tl, ml)
+    records = [
         {"name": "K3 mas", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mas.cu",
          "replaces": "isp_tts_tpu/ops/mas_pallas.py:44 + :66", "launches": launches["K3 mas"],
-         "max_abs_err": (got - ref).abs().max().item(),
-         "ms": cuda_ms(lambda: mas.monotonic_alignment_search(la, tl, ml)),
+         "design": DP_DESIGN, "max_abs_err": (got - ref).abs().max().item(),
+         "ms": graph_ms(lambda: mas.monotonic_alignment_search(la, tl, ml)),
          "plain_ms": cuda_ms(lambda: mas.monotonic_alignment_search_reference(la, tl, ml),
                              iters=3, warmup=1),
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
-         "shape": f"B={B} M={MEL_LEN} T={T} float32"})
+         "shape": f"B={B} M={M} T={T} float32", **ptxas("mas", "mas_kernelILi2ELi1E")}]
 
-    lp, _, _ = ctc_inputs(B, MEL_LEN, T, gen)
+    lp, _, _ = ctc_inputs(B, M, T, gen)
     g = torch.rand((B,), generator=gen, device="cuda")
-    neg, dlp = k4_pair(lp, tl, ml, g)
-    neg_r, dlp_r = k4_pair(lp, tl, ml, g, plain=True)
-    W = T + 1
-    frames = int(ml.long().sum())
-    # lp read once, the gradient written once; ~34 operations per (valid
-    # frame, state): two logaddexps forward, two and the occupancies back
-    k4_bound = bound_ms(4 * frames * W + 4 * lp.numel() + 12 * B, 34 * frames * W)
-    x = lp.detach().requires_grad_()
+    neg, ab, al, logz = ctc.ctc_fwd(lp, tl, ml)
+    dlp = ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)
+    x = lp.detach().double().requires_grad_()
+    neg_r = ctc.ordered_ctc_neg_logp_reference(x, tl, ml)
+    (dlp_r,) = torch.autograd.grad((neg_r * g.double()).sum(), x, retain_graph=True)
+    fb, bb = ctc_fwd_bound(lp, tl, ml), ctc_bwd_bound(lp, tl, ml)
     labels = torch.arange(1, T + 1, device="cuda").repeat(B, 1)
+    xl = lp.detach().requires_grad_()
 
-    def library():
-        loss = F.ctc_loss(x.transpose(0, 1), labels, ml.long(), tl.long(), blank=0,
-                          reduction="sum", zero_infinity=True)
-        torch.autograd.grad(loss, x)
+    def library(backward):
+        """F.ctc_loss (and its backward), timed eagerly: it copies the
+        lengths to the host, which a CUDA graph cannot capture."""
+        def call():
+            loss = F.ctc_loss(xl.transpose(0, 1), labels, ml.long(), tl.long(), blank=0,
+                              reduction="sum", zero_infinity=True)
+            if backward:
+                torch.autograd.grad(loss, xl)
+        return cuda_ms(call)
 
-    records.append(
-        {"name": "K4 ctc (fwd + bwd)", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/ctc.cu",
-         "replaces": "isp_tts_tpu/ops/ctc_pallas.py:77 + :114",
-         "launches": launches["K4 ctc_fwd"] + launches["K4 ctc_bwd"],
-         "launches_fwd": launches["K4 ctc_fwd"], "launches_bwd": launches["K4 ctc_bwd"],
-         "max_abs_err": max((neg - neg_r).abs().max().item(), (dlp - dlp_r).abs().max().item()),
-         "ms": cuda_ms(lambda: k4_pair(lp, tl, ml, g)),
-         "plain_ms": cuda_ms(lambda: k4_pair(lp, tl, ml, g, plain=True), iters=3, warmup=1),
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": cuda_ms(library),
-         "shape": f"B={B} M={MEL_LEN} T+1={W} float32"})
+    shape = f"B={B} M={M} T+1={T + 1} float32"
+    library_label = "F.ctc_loss, eager"
+    records += [
+        {"name": "K4 ctc_fwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/ctc.cu",
+         "replaces": "isp_tts_tpu/ops/ctc_pallas.py:77", "launches": launches["K4 ctc_fwd"],
+         "design": DP_DESIGN, "max_abs_err": (neg - neg_r.detach().float()).abs().max().item(),
+         "ms": graph_ms(lambda: ctc.ctc_fwd(lp, tl, ml)),
+         "plain_ms": cuda_ms(lambda: ctc.ordered_ctc_neg_logp_reference(lp.double(), tl, ml),
+                             iters=3, warmup=1),
+         "bound_ms": fb[0], "bound_by": fb[1], "library_ms": library(False),
+         "library": library_label, "shape": shape, **ptxas("ctc", "ctc_fwd_kernelILi16E")},
+        {"name": "K4 ctc_bwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/ctc.cu",
+         "replaces": "isp_tts_tpu/ops/ctc_pallas.py:114", "launches": launches["K4 ctc_bwd"],
+         "design": DP_DESIGN, "max_abs_err": (dlp - dlp_r.float()).abs().max().item(),
+         "ms": graph_ms(lambda: ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)),
+         # the plain backward: autograd through the f64 recursion, its
+         # forward already taken
+         "plain_ms": cuda_ms(lambda: torch.autograd.grad((neg_r * g.double()).sum(), x,
+                                                         retain_graph=True),
+                             iters=3, warmup=1),
+         "bound_ms": bb[0], "bound_by": bb[1], "library_ms": library(True),
+         "library": library_label + ", forward + backward (no call computes the backward "
+                                    "alone)", "shape": shape,
+         **ptxas("ctc", "ctc_bwd_kernelILi16E")},
+    ]
     return records
+
+
+#: the DP kernels' design, named in their records
+DP_DESIGN = ("warp-resident rows (K4 one column a lane, K3 up to 8), neighbours by shuffle, "
+             "map staged by cp.async (csrc/dp_common.cuh)")
 
 
 def k5_records(batch, launches, serve_launches):

@@ -78,7 +78,8 @@ def _check(logprobs, *others):
         raise TypeError("K4 takes (B, M, T+1) float32 log-probabilities")
     B, _, W = logprobs.shape
     if not 2 <= W <= 1024:
-        raise ValueError(f"K4 holds one state column per thread: T+1 = {W} not in [2, 1024]")
+        raise ValueError(f"K4 holds a row in at most 32 warps, a column a lane: T+1 = {W} "
+                         "not in [2, 1024]")
     for t in others:
         if t.device != logprobs.device or not t.is_contiguous():
             raise ValueError(f"K4 arguments must be contiguous on {logprobs.device}")

@@ -68,7 +68,7 @@ def monotonic_alignment_search(log_attn: torch.Tensor, text_lens: torch.Tensor,
         raise TypeError("K3 takes a (B, M, T) float32 map")
     B, M, T = log_attn.shape
     if T > 6144:
-        raise ValueError(f"K3 keeps two DP rows in shared memory: T {T} > 6144")
+        raise ValueError(f"K3 holds a DP row in at most 24 warps' registers: T {T} > 6144")
     for name, t in (("log_attn", log_attn), ("text_lens", text_lens),
                     ("mel_lens", mel_lens)):
         if t.device != log_attn.device or not t.is_contiguous():
@@ -79,22 +79,30 @@ def monotonic_alignment_search(log_attn: torch.Tensor, text_lens: torch.Tensor,
     out = torch.empty_like(log_attn)
     if out.numel() == 0:
         return out
-    diag = torch.empty((B, M, T), dtype=torch.uint8, device=log_attn.device)
-    path = torch.empty((B, M), dtype=torch.int32, device=log_attn.device)
-    from .cuda_build import load
-
-    fn = load("mas").isp_mas
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib = _library()
+    # the choice bits go to global scratch where they do not fit in shared memory
+    bits = torch.empty((B * lib.isp_mas_scratch_bytes(M, T),), dtype=torch.uint8,
+                       device=log_attn.device)
     with torch.cuda.device(log_attn.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = fn(log_attn.data_ptr(), text_lens.data_ptr(), mel_lens.data_ptr(),
-             diag.data_ptr(), path.data_ptr(), out.data_ptr(), B, M, T, stream)
+    err = lib.isp_mas(log_attn.data_ptr(), text_lens.data_ptr(), mel_lens.data_ptr(),
+                      bits.data_ptr(), out.data_ptr(), B, M, T, stream)
     if err != 0:
         raise RuntimeError(f"K3 mas launch failed: CUDA error {err}")
     monotonic_alignment_search.launches += 1
     return out
+
+
+def _library():
+    from .cuda_build import load
+
+    lib = load("mas")
+    if lib.isp_mas.argtypes is None:
+        lib.isp_mas.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.isp_mas.restype = ctypes.c_int
+        lib.isp_mas_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.isp_mas_scratch_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)

@@ -213,7 +213,13 @@ def test_k2_matches_plain_version_at_tile_edges(card, B, N, M, H, offset, causal
                          causal, rate, bound)
 
 
-@pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192)])
+# the training shape and M 1024, T 192; T = 1, 32, 33 (one and two column
+# blocks a lane), 256 and 257 (one warp, two), 6144 (24 warps, the widest the
+# wrapper takes; choice bits in global memory); M 12000 (the bits past shared
+# memory at a narrow T)
+@pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192), (4, 64, 1), (4, 64, 32),
+                                   (4, 64, 33), (4, 300, 256), (4, 300, 257),
+                                   (2, 1024, 6144), (2, 12000, 33)])
 def test_k3_equals_plain_mas(card, B, M, T):
     from isp_tts_tpu_torch.ops.mas import (monotonic_alignment_search,
                                            monotonic_alignment_search_reference)
@@ -222,15 +228,19 @@ def test_k3_equals_plain_mas(card, B, M, T):
     i, j = np.arange(M)[:, None] / M, np.arange(T)[None, :] / T
     la = torch.from_numpy((rng.randn(B, M, T) - 8 * (i - j) ** 2).astype(np.float32))
     la = la.log_softmax(-1).to(card)
-    tl = torch.from_numpy(rng.randint(T // 2, T + 1, size=B).astype(np.int32)).to(card)
-    ml = torch.from_numpy(rng.randint(T, M + 1, size=B).astype(np.int32)).to(card)
+    tl = torch.from_numpy(rng.randint(max(T // 2, 1), T + 1, size=B).astype(np.int32)).to(card)
+    ml = torch.from_numpy(rng.randint(min(T, M), M + 1, size=B).astype(np.int32)).to(card)
     got = monotonic_alignment_search(la, tl, ml)
     torch.cuda.synchronize()
     assert torch.equal(got, monotonic_alignment_search_reference(la, tl, ml))
     assert torch.equal(got.sum(dim=(1, 2)), ml.float())
 
 
-@pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192)])
+# the training shape and M 1024, T 192; W = T + 1 = 2, 33 (one warp, two),
+# 256 and 257 (8 and 9 warps: the staging ring of 16 frames and of 8), 1024
+# (32 warps, the ring of 4; the widest the wrapper takes)
+@pytest.mark.parametrize("B,M,T", [(32, 320, 48), (8, 1024, 192), (4, 64, 1), (4, 64, 32),
+                                   (4, 300, 255), (4, 300, 256), (2, 1024, 1023)])
 def test_k4_matches_plain_version(card, B, M, T):
     from isp_tts_tpu_torch.ops import ctc
 

@@ -1,10 +1,16 @@
-"""The CUDA attention kernels (K1, K5a forwards; K2, K5b backwards) built
-with g++ for the CPU emulation of ``tools/cuda_emu`` and held against their
-plain versions, on the CPU: their fragment layouts, tile indexing, masks,
-dropout hashes and row splits, which otherwise run only on the card. The
-emulation sums each MMA in double and rounds once, so the bounds are the
-card's (f32 1e-4, bf16 2e-2 of the plain version's max-abs); it says
-nothing of speed, registers or races between warps.
+"""The port's CUDA kernels built with g++ for the CPU emulation of
+``tools/cuda_emu`` and held against their plain versions, on the CPU, at
+the bounds the card is held to:
+- the attention kernels (K1, K5a forwards; K2, K5b backwards): fragment
+  layouts, tile indexing, masks, dropout hashes and row splits. The
+  emulation sums each MMA in double and rounds once (f32 1e-4, bf16 2e-2 of
+  the plain version's max-abs);
+- the aligner's DP kernels, K3 (MAS, equal to its plain version) and K4
+  (banded CTC forward and backward, loss 1e-5 and gradient 1e-4 of the f64
+  plain version): the lane layout, the staging ring, the row split over
+  warps and the backtrack's windows, at every path boundary
+  (``check_dp.MAS_CASES``, ``check_dp.CTC_CASES``).
+The emulation says nothing of speed, registers or races between warps.
 """
 
 import shutil
@@ -18,6 +24,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools" / "cuda_emu"))
 
 import check_attention as emu  # noqa: E402
+import check_dp  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -25,7 +32,7 @@ def libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulated kernels")
     return emu.emubuild.build(ROOT / "isp_tts_tpu_torch/csrc",
-                              ["mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd"],
+                              ["mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd", "mas", "ctc"],
                               tmp_path_factory.mktemp("cuda_emu"))
 
 
@@ -48,3 +55,15 @@ def test_forward_kernel_matches_plain_version(libs, case):
 def test_backward_kernel_matches_plain_version(libs, case):
     errs = emu.backward(libs, *case)
     assert max(errs) <= _bound(case[5]), errs
+
+
+@pytest.mark.parametrize("case", check_dp.MAS_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k3_equals_plain_mas(libs, case):
+    equal, sums = check_dp.check_mas(libs, *case)
+    assert equal and sums
+
+
+@pytest.mark.parametrize("case", check_dp.CTC_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_k4_matches_plain_version(libs, case):
+    loss, grad = check_dp.check_ctc(libs, *case)
+    assert loss <= check_dp.K4_LOSS_BOUND and grad <= check_dp.K4_GRAD_BOUND, (loss, grad)

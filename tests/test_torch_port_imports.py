@@ -65,7 +65,7 @@ def test_no_cpp_extension_and_plain_nvcc_build(monkeypatch):
     assert sources == ["ctc", "flash_bwd", "flash_fwd", "mas", "mqa_bwd", "mqa_fwd"]
     headers = sorted(p.name for p in cuda_build.CSRC.glob("*.cuh"))
     assert headers == ["attention_bwd.cuh", "attention_common.cuh", "attention_fwd.cuh",
-                       "attention_mma.cuh"]
+                       "attention_mma.cuh", "dp_common.cuh"]
     for name in headers + [f"{s}.cu" for s in sources]:
         text = (cuda_build.CSRC / name).read_text()
         assert "#include <torch" not in text and "Python.h" not in text, name

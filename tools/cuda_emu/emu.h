@@ -1,6 +1,6 @@
 // CPU emulation of the CUDA the port's tile cores use (see emubuild.py):
 // one block at a time, one ucontext fiber per thread, cooperative
-// scheduling; warp collectives (ldmatrix, mma.sync, shuffles) deposit each
+// scheduling; warp collectives (ldmatrix, mma.sync, shuffles, ballots) deposit each
 // lane's operands, meet at a warp barrier, compute each lane's result from
 // all 32 lanes' operands as the PTX ISA lays the fragments out, and meet
 // again. Products are summed in double and rounded once. Shared memory
@@ -141,6 +141,31 @@ T shfl_xor(T v, int mask) {
   return r;
 }
 
+// lane `src` (mod 32)'s value of v
+template <class T>
+T shfl_from(T v, int src) {
+  static_assert(sizeof(T) <= 8, "");
+  uint64_t u = 0;
+  std::memcpy(&u, &v, sizeof(T));
+  myslot().a[0] = u;
+  syncwarp();
+  uint64_t o = slot(src & 31).a[0];
+  syncwarp();
+  T r;
+  std::memcpy(&r, &o, sizeof(T));
+  return r;
+}
+
+// bit l: lane l's predicate
+inline unsigned ballot(bool pred) {
+  myslot().a[0] = pred ? 1 : 0;
+  syncwarp();
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= unsigned(slot(l).a[0] & 1) << l;
+  syncwarp();
+  return r;
+}
+
 inline void ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
   myslot().ptr = p;
   syncwarp();
@@ -218,5 +243,8 @@ inline uint32_t to_tf32(float x) {
 #define blockDim (emu::block_dim())
 inline void __syncthreads() { emu::syncthreads(); }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) { return emu::shfl_xor(v, m); }
+template <class T> inline T __shfl_sync(unsigned, T v, int src) { return emu::shfl_from(v, src); }
+inline unsigned __ballot_sync(unsigned, bool pred) { return emu::ballot(pred); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::syncwarp(); }
 inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v; return o; }
 inline uintptr_t __cvta_generic_to_shared(const void* p) { return (uintptr_t)p; }

@@ -1,14 +1,15 @@
 """Build the port's CUDA sources for the CPU emulation in this directory.
 
 The sources are copied, and in the copy the PTX helpers of
-``attention_mma.cuh`` (cp.async, ldmatrix, mma.sync, cvt.rna.tf32,
-ex2.approx) become calls into ``emu.h``, each ``<<<...>>>`` launch becomes
-``emu::launch`` and the dynamic shared memory the block's buffer; then g++
-builds each source into a shared library with the same C entry points,
-which take pointers to CPU memory. ``emu.h`` runs one block at a time, one
-fiber per thread, with warp collectives (ldmatrix, mma.sync, shuffles)
-computed from all 32 lanes' operands: it checks fragment layouts, indexing
-and masks, not timing, register use or races between warps.
+``attention_mma.cuh`` and ``dp_common.cuh`` (cp.async, ldmatrix, mma.sync,
+cvt.rna.tf32, ex2/lg2.approx) become calls into ``emu.h``, each ``<<<...>>>``
+launch becomes ``emu::launch`` and the dynamic shared memory the block's
+buffer; then g++ builds each source into a shared library with the same C
+entry points, which take pointers to CPU memory. ``emu.h`` runs one block
+at a time, one fiber per thread, with warp collectives (ldmatrix,
+mma.sync, shuffles, ballots) computed from all 32 lanes' operands: it
+checks fragment layouts, lane layouts, indexing and masks, not timing,
+register use or races between warps.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ HERE = Path(__file__).resolve().parent
 REPLACE = {
     "cp_async16": "{ if (pred) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16); }",
     "cp_async4": "{ if (pred) std::memcpy(dst, src, 4); else std::memset(dst, 0, 4); }",
+    "cp_async8": "{ if (pred) std::memcpy(dst, src, 8); else std::memset(dst, 0, 8); }",
     "cp_async_commit": "{}",
     "cp_async_wait": "{}",
     "ldmatrix_x4": "{ emu::ldmatrix(r, p, false); }",
@@ -32,6 +34,7 @@ REPLACE = {
     "mma_tf32": "{ emu::mma(d, a, b0, b1, true); }",
     "to_tf32": "{ return emu::to_tf32(x); }",
     "fast_exp2": "{ float y = exp2f(x); return std::fabs(y) < 1.17549435e-38f ? 0.f : y; }",
+    "fast_log2": "{ return log2f(x); }",
 }
 
 

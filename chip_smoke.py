@@ -38,13 +38,31 @@ how far it got:
              and durations, held against the kernel path's mel.
 7. profile - one sentence and the batch under torch.profiler: device busy
              time against wall time, and the kernels that take it.
-8. slice   - the multi-KV-head model: the same checkpoint with every
+8. vocoder - the committed Vocos vocoder (13.5M parameters) on the card
+             against the same vocoder on the CPU, on phase 6's padded batch
+             mel, f32; the matmul Griffin-Lim on the card against the CPU,
+             same start phases, 32 iterations; each waveform's re-analysed
+             mel against its input mel; the vocoder's and Griffin-Lim's
+             times at batch 1, 256 frames.
+9. serve   - ``Synthesizer.from_pretrained(ckpt, vocoder_path=...)`` after
+   audio     ``warmup(audio=True)``: the three sentences one at a time, as one
+             batch and through ``synthesize_long``, K1's launches zeroed just
+             before and read just after; every waveform finite, in [-1, 1],
+             dec_len x 256 samples; then one warm audio request under the
+             profiler and the vocoder's share of its device time.
+10. cli    - ``python -m isp_tts_tpu_torch.synthesize`` as a subprocess, with
+             the vocoder and with Griffin-Lim: 22.05 kHz 16-bit mono WAVs of
+             frames x 256 samples.
+11. daemon - ``TTSServer`` on 127.0.0.1 over the warmed audio Synthesizer:
+             8 concurrent wav requests, a mel, a pcm and a streamed
+             long-form request, /healthz; all 200, the requests coalesce.
+12. slice  - the multi-KV-head model: the same checkpoint with every
              attention layer's one key/value head replicated to all heads
              (it computes what the checkpoint computes), served the same way
              through ``Synthesizer(model)`` on K5a; its mel against its own
              plain path and against the one-KV-head model's mel on K1.
-9. profile - one warm multi-KV-head request.
-10. train  - fine-tunes the same checkpoint at full width with its own
+13. profile - one warm multi-KV-head request.
+14. train  - fine-tunes the same checkpoint at full width with its own
              training setup (batch 32, text 48 x mel 320, bf16, dropout,
              AdamW): the batch is 32 sentences synthesized by the
              Synthesizer. (a) one step on the kernel path against the same
@@ -55,12 +73,12 @@ how far it got:
              (b) 30 bf16 steps, counts zeroed just before and read just
              after, finite metrics and a falling mel loss; (c) the
              aligner's durations sum to the mel lengths.
-11. profile - one warm training step under torch.profiler.
-12. train  - the same for the multi-KV-head model on K5a/K5b, and, in f32
+15. profile - one warm training step under torch.profiler.
+16. train  - the same for the multi-KV-head model on K5a/K5b, and, in f32
              with dropout off, its ``to_kv`` gradient summed over the heads
              against the one-KV-head model's, both models on the same K and
              V (K5a/K5b against K1/K2 on the model).
-13. profile - one warm multi-KV-head training step.
+17. profile - one warm multi-KV-head training step.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -722,24 +740,315 @@ def phase_profile(t0, run, label):
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    # device-side events only (kernels, copies): a host op's own device
-    # total repeats the time of the kernels it launched, and so does a
-    # user-annotated range on the device timeline (the optimizer's step)
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     rows.sort(reverse=True)
     if busy_ms == 0:
         say("profile", t0, f"{label}: {wall_ms:.1f} ms under the profiler; device time "
             "not measured (the profiler saw no CUDA activity)")
-        return
+        return 0.0
     top = "; ".join(f"{name[:60]} x{n} {us / 1e3:.3f} ms" for us, n, name in rows[:8])
     say("profile", t0, f"{label}: wall {wall_ms:.1f} ms under the profiler, device "
         f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%) in "
         f"{sum(r[1] for r in rows)} device calls; top: {top}")
+    return busy_ms
 
 
+def device_rows(prof) -> list[tuple]:
+    """(device microseconds, calls, name) of a profile's device-side events
+    (kernels, copies): a host op's own device total repeats the time of the
+    kernels it launched, and so does a user-annotated range on the device
+    timeline (the optimizer's step)."""
+    return [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+
+
+# ---------------------------------------------------------------- audio
+VOCODER = ROOT / "docs/assets/scale_r5/vocoder_joint10k_r5.f16.ckpt"
+# the committed vocoder on the card against the same vocoder on the CPU,
+# f32, TF32 off: the waveform absolutely, the head output against its max-abs
+VOCODER_WAVE_BOUND = 1e-3
+VOCODER_HEAD_BOUND = 1e-4
+# Griffin-Lim on the card against the CPU, same start phases, 32 iterations:
+# the JAX package's bound between its two Griffin-Lim variants
+GRIFFIN_LIM_BOUND = 2e-3
+# mean |log-mel of the waveform - the mel it was made from| over a sentence's
+# frames; the JAX package reads 0.29-0.38 (neural) and 0.44-0.48 (Griffin-Lim
+# on the sentence's own frames) for this model on the CPU, and 0.226 for the
+# vocoder on its own fine-tuning data
+MEL_L1_BOUND = {"neural": 0.5, "griffin-lim": 0.6}
+
+
+def mel_l1(audio, mel) -> float:
+    from isp_tts_tpu_torch.ops.vocoder import log_mel_matmul
+
+    return (log_mel_matmul(audio) - mel).abs().mean().item()
+
+
+def phase_vocoder(t0, synth, reference):
+    """The committed vocoder and the matmul Griffin-Lim on the card against
+    the same on the CPU, on phase 6's padded batch mel; each waveform's
+    re-analysed mel against the mel it was made from."""
+    import torch
+
+    from isp_tts_tpu_torch.models.vocoder import VocoderModel
+    from isp_tts_tpu_torch.ops.vocoder import griffin_lim_matmul, mel_to_audio_tpu, mel_to_linear
+
+    tok, ln, fb, B, noise, durations, _ = reference
+    mel, ad = synth.model.infer(tok, ln, max_dec_len=fb, noise=noise, duration_target=durations)
+    dec = ad.dec_lengths[:B].tolist()
+    vocoder = VocoderModel.from_pretrained(VOCODER)
+    cpu = VocoderModel.from_pretrained(VOCODER, device="cpu")
+    say("vocoder", t0, f"loaded {VOCODER.name} on {next(vocoder.parameters()).device}: "
+        f"{sum(p.numel() for p in vocoder.parameters())} parameters; mel {tuple(mel.shape)}")
+    with torch.no_grad():
+        head = vocoder.generator.spectrum(mel)
+        head_cpu = cpu.generator.spectrum(mel.cpu())
+    wave = vocoder.infer(mel)
+    wave_cpu = cpu.infer(mel.cpu())
+    head_err = (head.cpu() - head_cpu).abs().max().item() / head_cpu.abs().max().item()
+    wave_err = (wave.cpu() - wave_cpu).abs().max().item()
+    if not (torch.isfinite(wave).all() and wave.shape == (mel.shape[0], fb * 256)
+            and wave_err <= VOCODER_WAVE_BOUND and head_err <= VOCODER_HEAD_BOUND):
+        raise AssertionError(f"vocoder on the card vs the CPU: waveform {wave_err:.3e}, head "
+                             f"{head_err:.3e} of max-abs, shape {tuple(wave.shape)}")
+    say("vocoder", t0, f"card vs CPU: waveform max_err={wave_err:.3e} bound="
+        f"{VOCODER_WAVE_BOUND:.0e}, head max_err={head_err:.3e} of max-abs bound="
+        f"{VOCODER_HEAD_BOUND:.0e}")
+
+    gen = torch.Generator().manual_seed(0)
+    angles = torch.rand((B, 513, fb), generator=gen) * (2 * np.pi) - np.pi
+    mag = mel_to_linear(mel[:B], 22050) ** 1.2
+    gl = griffin_lim_matmul(mag, n_iter=32, angles=angles.cuda())
+    gl_cpu = griffin_lim_matmul(mag.cpu(), n_iter=32, angles=angles)
+    gl_err = (gl.cpu() - gl_cpu).abs().max().item()
+    if not (torch.isfinite(gl).all() and gl_err <= GRIFFIN_LIM_BOUND):
+        raise AssertionError(f"Griffin-Lim on the card vs the CPU: {gl_err:.3e}")
+    say("vocoder", t0, f"griffin_lim_matmul card vs CPU, 32 iterations: max_err={gl_err:.3e} "
+        f"bound={GRIFFIN_LIM_BOUND:.0e}")
+
+    # the neural vocoder on the padded batch mel, as the Synthesizer runs
+    # it; Griffin-Lim on each sentence's own frames, as the CLI runs it (the
+    # padding's zero log-mel is loud, and 32 iterations spread it into the
+    # tail: the JAX package reads 0.54-0.67 there on the padded mel)
+    neural = torch.clamp(wave, -1, 1)
+    waves = {"neural": [neural[i, : n * 256] for i, n in enumerate(dec)],
+             "griffin-lim": [torch.clamp(mel_to_audio_tpu(mel[i:i + 1, :n]), -1, 1)[0]
+                             for i, n in enumerate(dec)]}
+    readings = {k: [mel_l1(w, mel[i, :n]) for i, (w, n) in enumerate(zip(ws, dec))]
+                for k, ws in waves.items()}
+    peaks = {k: [w.abs().max().item() for w in ws] for k, ws in waves.items()}
+    for kind, l1 in readings.items():
+        if not max(l1) <= MEL_L1_BOUND[kind]:
+            raise AssertionError(f"{kind} waveforms re-analyse to mel L1 {l1}")
+    say("vocoder", t0, "re-analysed mel L1 per sentence (frames "
+        f"{dec}): neural {[round(x, 4) for x in readings['neural']]} bound "
+        f"{MEL_L1_BOUND['neural']}, Griffin-Lim {[round(x, 4) for x in readings['griffin-lim']]} "
+        f"bound {MEL_L1_BOUND['griffin-lim']}; peak |x| neural "
+        f"{[round(x, 3) for x in peaks['neural']]}, Griffin-Lim "
+        f"{[round(x, 3) for x in peaks['griffin-lim']]}")
+
+    one = mel[:1, :256].contiguous()
+    voc_ms = cuda_ms(lambda: vocoder.infer(one), iters=20)
+    gl_ms = cuda_ms(lambda: mel_to_audio_tpu(one), iters=3, warmup=1)
+    say("vocoder", t0, f"batch 1, 256 frames, f32: vocoder {voc_ms:.3f} ms, matmul "
+        f"Griffin-Lim (32 iterations) {gl_ms:.3f} ms (CUDA events, eager)")
+
+
+def phase_serve_audio(t0):
+    """``Synthesizer.from_pretrained(CKPT, vocoder_path=VOCODER)`` after
+    ``warmup(audio=True)``: the
+    three sentences one at a time, as one batch and as one long-form text,
+    each twice, K1's launches zeroed just before and read just after; every
+    waveform finite, in [-1, 1], dec_len x 256 samples long. Returns the
+    Synthesizer and K1's launches."""
+    import torch
+
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    synth = Synthesizer.from_pretrained(CKPT, vocoder_path=VOCODER)
+    t = time.perf_counter()
+    synth.warmup(batch_sizes=(1, len(SENTENCES)), audio=True)
+    say("serve audio", t0, f"warmup(audio=True) over {len(synth.config.text_buckets)} text "
+        f"buckets x {len(synth.config.frame_budgets)} frame budgets x batch buckets 1 and 4: "
+        f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    request_ms, outputs = [], []
+    calls = [(synth.synthesize_audio, s) for s in SENTENCES]
+    calls += [(synth.synthesize_audio, SENTENCES), (synth.synthesize_long, " ".join(SENTENCES))]
+    for fn, text in calls:
+        pair = []
+        for _ in range(2):
+            t = time.perf_counter()
+            out = fn(text)  # numpy on return: the device is done
+            pair.append(1e3 * (time.perf_counter() - t))
+        outputs.append(out)
+        request_ms.append(pair)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if set(launches) != {"K1 mqa_fwd"}:
+        raise AssertionError(f"the audio path should launch K1 alone: {launches}")
+
+    # the mel path with the same draws (a batch shape has its own noise)
+    frames = [synth(s)[0].shape[0] for s in SENTENCES]
+    batch_frames = [m.shape[0] for m in synth(SENTENCES)]
+    singles, batch, long = outputs[:3], outputs[3], outputs[4]
+    pause = int(0.25 * synth.sample_rate)
+    for got, n in [(w[0], f) for w, f in zip(singles, frames)] + list(zip(batch, batch_frames)):
+        if not (got.shape == (n * 256,) and np.isfinite(got).all() and np.abs(got).max() <= 1.0):
+            raise AssertionError(f"bad waveform: {got.shape} for {n} frames")
+    if long.shape != (sum(w.size for w in batch) + 2 * pause,):
+        raise AssertionError(f"long-form waveform of {long.size} samples")
+    say("serve audio", t0, "ms per request, first/second call (3 singles, the batch of 3, "
+        "synthesize_long of 3): " + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in request_ms)
+        + f"; frames {frames} alone, {batch_frames} in the batch; samples "
+        f"{[w.size for w in batch]}, long-form {long.size}; "
+        f"launches {launches} ({launches['K1 mqa_fwd'] / (2 * len(calls)):.1f} per call); "
+        f"peak memory {peak_mib:.1f} MiB")
+    return synth, launches["K1 mqa_fwd"]
+
+
+def phase_profile_audio(t0, synth):
+    """One warm audio request under the profiler, then the vocoder alone on
+    that request's padded mel: the vocoder's share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    busy_ms = phase_profile(t0, lambda: synth.synthesize_audio(SENTENCES[0]),
+                            "one sentence, audio")
+    mel, _, _ = synth._synthesize_mel(SENTENCES[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        synth.vocoder.infer(mel)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    vocoder_ms = sum(r[0] for r in rows) / 1e3
+    share = (f"{100 * vocoder_ms / busy_ms:.1f}% of the request's device time" if busy_ms
+             else "share not measured")
+    say("profile", t0, f"the vocoder alone on the request's padded mel {tuple(mel.shape)}: "
+        f"device busy {vocoder_ms:.3f} ms in {sum(r[1] for r in rows)} device calls, {share}")
+
+
+def phase_cli(t0):
+    """``python -m isp_tts_tpu_torch.synthesize`` as a subprocess, with the
+    vocoder and with Griffin-Lim: each writes a 22.05 kHz 16-bit mono WAV of
+    frames x 256 samples, read back with ``wave``."""
+    import re
+    import tempfile
+    import wave
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_cli_") as tmp:
+        for label, extra in (("vocoder", ["--vocoder", str(VOCODER)]), ("griffin-lim", [])):
+            out = Path(tmp) / f"{label}.wav"
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "isp_tts_tpu_torch.synthesize", "--checkpoint",
+                 str(CKPT), "--text", SENTENCES[0], "--output", str(out)] + extra,
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            seconds = time.perf_counter() - t
+            if proc.returncode != 0:
+                raise AssertionError(f"synthesize ({label}) exited {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            found = re.search(r"acoustic: (\d+) frames", proc.stderr)
+            if found is None:
+                raise AssertionError(f"synthesize ({label}) logged no frame count")
+            frames = int(found.group(1))
+            with wave.open(str(out), "rb") as w:
+                params = (w.getframerate(), w.getsampwidth(), w.getnchannels(), w.getnframes())
+                pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+            if params != (22050, 2, 1, frames * 256) or not np.abs(pcm).max() > 0:
+                raise AssertionError(f"synthesize ({label}) wrote {params} for {frames} frames")
+            say("cli", t0, f"{label}: {frames} frames -> {params[3]} samples at {params[0]} Hz, "
+                f"16-bit mono, peak {np.abs(pcm).max() / 32767:.3f}; process {seconds:.1f} s")
+
+
+DAEMON_WAV_REQUESTS = 8
+
+
+def phase_daemon(t0, synth):
+    """``TTSServer`` on 127.0.0.1, port 0, over the warmed audio Synthesizer:
+    8 concurrent wav requests, one mel, one pcm, one streamed long-form
+    request and /healthz; every answer 200, every WAV parses, and the
+    concurrent requests coalesce (max_coalesced > 1)."""
+    import io
+    import threading
+    import urllib.request
+    import wave
+
+    from isp_tts_tpu_torch.serving_server import ServerConfig, TTSServer
+
+    synth.warmup(batch_sizes=(1, DAEMON_WAV_REQUESTS), audio=True)
+    server = TTSServer(synth, host="127.0.0.1", port=0,
+                       config=ServerConfig(max_batch=DAEMON_WAV_REQUESTS, max_wait_ms=20.0,
+                                           request_timeout_s=120.0))
+    port = server.start()
+
+    def post(payload, path="/synthesize"):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read()
+            return resp.status, resp.headers.get("Content-Type"), body, \
+                1e3 * (time.perf_counter() - t)
+
+    try:
+        # two lone requests first: the batcher thread's first device call
+        lone_ms = [post({"text": SENTENCES[0], "format": "wav"})[3] for _ in range(2)]
+        results: dict[int, tuple] = {}
+        errors: list[BaseException] = []
+
+        def call(i):
+            try:
+                results[i] = post({"text": SENTENCES[i % len(SENTENCES)], "format": "wav",
+                                   "seed": 0})
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(DAEMON_WAV_REQUESTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        if errors or len(results) != DAEMON_WAV_REQUESTS:
+            raise AssertionError(f"concurrent wav requests failed: {errors!r}")
+        for i, (status, ctype, body, _) in sorted(results.items()):
+            with wave.open(io.BytesIO(body)) as w:
+                params = (w.getframerate(), w.getsampwidth(), w.getnchannels())
+                n = w.getnframes()
+            if status != 200 or ctype != "audio/wav" or params != (22050, 2, 1) or n % 256:
+                raise AssertionError(f"wav request {i}: {status} {ctype} {params} {n}")
+        singles = {"mel": post({"text": SENTENCES[0], "format": "mel"}),
+                   "pcm": post({"text": SENTENCES[1], "format": "pcm"}),
+                   "long": post({"text": " ".join(SENTENCES)}, path="/synthesize_long")}
+        mel = np.load(io.BytesIO(singles["mel"][2]))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
+            health = (resp.status, json.loads(resp.read()))
+        stats = dict(server.stats)
+    finally:
+        server.stop()
+    bad = {k: v[:2] for k, v in singles.items() if v[0] != 200}
+    if bad or health[0] != 200 or not health[1]["ok"]:
+        raise AssertionError(f"daemon answers: {bad}, healthz {health}")
+    if not (mel.ndim == 2 and mel.shape[1] == 80 and np.isfinite(mel).all()):
+        raise AssertionError(f"mel request gave {mel.shape}")
+    if not (len(singles["pcm"][2]) % 512 == 0 and singles["long"][1].startswith("audio/L16")
+            and len(singles["long"][2]) > 2 * 2 * int(0.25 * 22050)):
+        raise AssertionError("pcm or long-form answers have the wrong size or type")
+    if not stats["max_coalesced"] > 1 or stats["errors"]:
+        raise AssertionError(f"daemon stats {stats}")
+    say("daemon", t0, f"two lone wav requests after start, ms: {lone_ms[0]:.1f}, "
+        f"{lone_ms[1]:.1f}; {DAEMON_WAV_REQUESTS} concurrent wav requests, ms: "
+        + ", ".join(f"{results[i][3]:.1f}" for i in sorted(results))
+        + "; mel {:.1f}, pcm {:.1f}, streamed long-form {:.1f} ({} bytes); ".format(
+            singles["mel"][3], singles["pcm"][3], singles["long"][3], len(singles["long"][2]))
+        + f"stats {stats}")
 
 
 # ---------------------------------------------------------------- training
@@ -1550,14 +1859,16 @@ def phase_kv_grad(t0, experiment, batch):
 
 
 # ---------------------------------------------------------------- records
-def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_launches):
+def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_launches,
+                   audio_launches):
     """Every kernel's numbers at the training path's shapes: the decoder's
     attention (B 32, N = M = 320, H 6, bf16, dropout 0.1, the batch's frame
     counts; K5a/K5b with 6 key/value heads), the aligner's MAS and the
     attention loss's CTC (B 32, M 320, T 48, the batch's lengths); K5a also
     at the serving decoder's shape (B 4, N = M = 1024, H 6, f32, ragged).
     ``launches`` are the one-KV-head training run's counts (K1-K4),
-    ``mha_launches`` the multi-KV-head run's (K5a, K5b)."""
+    ``mha_launches`` the multi-KV-head run's (K5a, K5b); K1 also carries
+    the mel and the audio serving runs' counts."""
     import torch
 
     from isp_tts_tpu_torch.ops.flash_attention import (mqa_attention_reference, mqa_bwd,
@@ -1582,7 +1893,8 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
     records = [
         {"name": "K1 mqa_fwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mqa_fwd.cu",
          "replaces": "isp_tts_tpu/ops/flash_attention.py:736", "launches": launches["K1 mqa_fwd"],
-         "launches_serving": serve_launches, "design": FWD_DESIGN,
+         "launches_serving": serve_launches, "launches_serving_audio": audio_launches,
+         "design": FWD_DESIGN,
          "max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
          "ms": graph_ms(lambda: mqa_fwd(q, k, v, slopes, lens, scale, 0, lens, False, rate,
                                         seed)),
@@ -1793,6 +2105,12 @@ def main() -> int:
     synth, serve_launches, reference = phase_slice(t0)
     phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
     phase_profile(t0, lambda: synth(SENTENCES), "batch of 3")
+    phase_vocoder(t0, synth, reference)
+    audio_synth, audio_launches = phase_serve_audio(t0)
+    phase_profile_audio(t0, audio_synth)
+    phase_cli(t0)
+    phase_daemon(t0, audio_synth)
+    del audio_synth
     mha_synth, mha_serve_launches = phase_slice_mha(t0, reference)
     phase_profile(t0, lambda: mha_synth(SENTENCES[0]), "one sentence, multi-KV-head")
     del mha_synth, reference
@@ -1807,7 +2125,7 @@ def main() -> int:
     del mha_trainer
     phase_kv_grad(t0, experiment, batch)
     records = kernel_records(batch, train_launches, serve_launches, mha_launches,
-                             mha_serve_launches)
+                             mha_serve_launches, audio_launches)
     say("done", t0)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

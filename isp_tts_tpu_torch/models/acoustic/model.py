@@ -11,7 +11,7 @@ channel-last, (B, frames, mel_dim), as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import ClassVar, NamedTuple
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -32,10 +32,6 @@ class AcousticModelOutput(NamedTuple):
 
 @dataclass
 class AcousticModelConfig:
-    #: the audio front end's geometry, which serving's vocoder reads; the
-    #: model does not
-    IGNORED_KEYS: ClassVar[frozenset] = frozenset({"audio_config"})
-
     encoding_map: dict = None  # type: ignore  # the checkpoint's symbol -> id table
     mel_dim: int = 80
     text_dim: int = 384
@@ -47,6 +43,10 @@ class AcousticModelConfig:
     num_speakers: int | None = 0
     pitch_mean: float | None = None
     pitch_std: float | None = None
+    #: the mel contract the model was trained under (sample_rate, n_fft,
+    #: hop_length, win_length, f_min, f_max); serving's Griffin-Lim and
+    #: vocoder check read it, the model does not
+    audio_config: dict | None = None
 
 
 class AcousticModel(Model):

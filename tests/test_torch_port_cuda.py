@@ -402,3 +402,65 @@ def test_k5b_matches_plain_version_at_tile_edges(card, B, N, M, H, Hkv, offset, 
     seed = torch.tensor([41], dtype=torch.int32, device=card)
     _kernel_vs_plain_bwd(flash_fwd, flash_bwd, flash_bwd_reference, q, k, v, slopes, key_lens,
                          q_lens, seed, w, offset, causal, rate, bound)
+
+
+VOCODER = "docs/assets/scale_r5/vocoder_joint10k_r5.f16.ckpt"
+AUDIO_TEXTS = ["The birch canoe slid away.", "Glue the sheet to the dark blue background."]
+
+
+def _audio_synth(card):
+    """The committed acoustic model and vocoder on the card, a padded batch
+    mel of AUDIO_TEXTS and its frame counts."""
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    synth = Synthesizer.from_pretrained(CKPT, vocoder_path=VOCODER)
+    mel, dec_lens, B = synth._synthesize_mel(AUDIO_TEXTS, seed=0)
+    return synth, mel, dec_lens[:B].tolist()
+
+
+def test_vocoder_on_the_card_matches_the_cpu(card):
+    from isp_tts_tpu_torch.models.vocoder import VocoderModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    synth, mel, dec = _audio_synth(card)
+    cpu = VocoderModel.from_pretrained(VOCODER, device="cpu")
+    wave = synth.vocoder.infer(mel)
+    assert (wave.cpu() - cpu.infer(mel.cpu())).abs().max().item() <= 1e-3
+    with torch.no_grad():
+        head = synth.vocoder.generator.spectrum(mel).cpu()
+        ref = cpu.generator.spectrum(mel.cpu())
+    assert (head - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    from isp_tts_tpu_torch.ops.vocoder import log_mel_matmul
+
+    for i, n in enumerate(dec):
+        audio = torch.clamp(wave[i, : n * 256], -1, 1)
+        assert (log_mel_matmul(audio) - mel[i, :n]).abs().mean().item() <= 0.5
+
+
+def test_griffin_lim_on_the_card_matches_the_cpu(card):
+    from isp_tts_tpu_torch.ops.vocoder import griffin_lim_matmul, log_mel_matmul, mel_to_linear
+
+    _, mel, dec = _audio_synth(card)
+    mag = mel_to_linear(mel[:, : max(dec)], 22050) ** 1.2
+    angles = torch.rand(mag.shape, generator=torch.Generator().manual_seed(0)) * 6.283 - 3.1415
+    got = griffin_lim_matmul(mag, n_iter=32, angles=angles.to(card))
+    ref = griffin_lim_matmul(mag.cpu(), n_iter=32, angles=angles)
+    assert (got.cpu() - ref).abs().max().item() <= 2e-3
+    for i, n in enumerate(dec):  # each sentence on its own frames, as the CLI runs it
+        audio = torch.clamp(griffin_lim_matmul(mel_to_linear(mel[i:i + 1, :n], 22050) ** 1.2,
+                                               n_iter=32), -1, 1)[0]
+        assert (log_mel_matmul(audio) - mel[i, :n]).abs().mean().item() <= 0.6
+
+
+def test_synthesize_audio_on_the_card(card):
+    from isp_tts_tpu_torch.ops.flash_attention import mqa_fwd
+
+    synth, _, _ = _audio_synth(card)
+    frames = [m.shape[0] for m in synth(AUDIO_TEXTS, seed=4)]
+    before = mqa_fwd.launches
+    wavs = synth.synthesize_audio(AUDIO_TEXTS, seed=4)
+    assert mqa_fwd.launches - before == 25
+    for w, n in zip(wavs, frames):
+        assert w.shape == (n * 256,) and np.isfinite(w).all() and np.abs(w).max() <= 1.0
+    long = synth.synthesize_long(" ".join(AUDIO_TEXTS), seed=4)
+    assert long.shape == (sum(w.size for w in wavs) + int(0.25 * 22050),)

@@ -51,7 +51,9 @@ def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
                  "ops.mas", "ops.ctc", "models.acoustic.model", "nn.attention",
                  "training.trainer_config", "config",
                  "models.acoustic.aligner", "models.acoustic.loss",
-                 "training.optimizers", "training.trainer", "data.text.table"):
+                 "training.optimizers", "training.trainer", "data.text.table",
+                 "serving_server", "synthesize", "models.vocoder", "models.vocoder.model",
+                 "ops.vocoder", "ops.audio", "data.audio"):
         assert f"isp_tts_tpu_torch.{name}" in out["modules"]
 
 

@@ -43,7 +43,9 @@ how far it got:
              mel, f32; the matmul Griffin-Lim on the card against the CPU,
              same start phases, 32 iterations; each waveform's re-analysed
              mel against its input mel; the vocoder's and Griffin-Lim's
-             times at batch 1, 256 frames.
+             times at batch 1, 256 frames. Then ``weights_dtype="bf16"``:
+             the acoustic weights stored in bf16 (their bytes halve),
+             finite mels of about the f32 weights' lengths.
 9. serve   - ``Synthesizer.from_pretrained(ckpt, vocoder_path=...)`` after
    audio     ``warmup(audio=True)``: the three sentences one at a time, as one
              batch and through ``synthesize_long``, K1's launches zeroed just
@@ -53,9 +55,14 @@ how far it got:
 10. cli    - ``python -m isp_tts_tpu_torch.synthesize`` as a subprocess, with
              the vocoder and with Griffin-Lim: 22.05 kHz 16-bit mono WAVs of
              frames x 256 samples.
-11. daemon - ``TTSServer`` on 127.0.0.1 over the warmed audio Synthesizer:
-             8 concurrent wav requests, a mel, a pcm and a streamed
-             long-form request, /healthz; all 200, the requests coalesce.
+11. daemon - ``TTSServer`` on 127.0.0.1, warmed on its serving (batcher)
+             thread before it serves, over the audio Synthesizer: two lone
+             wav requests (the first within DAEMON_FIRST_REQUEST_FACTOR of
+             the second), 8 concurrent wav requests, a mel, a pcm and a
+             streamed long-form request, /healthz; all 200, the requests
+             coalesce. Then ``dataset``: 512 + 64 seeded sentences turned
+             into 22.05 kHz WAVs by the same Synthesizer and vocoder, with
+             meta_train.csv and meta_valid.csv, in a temporary directory.
 12. slice  - the multi-KV-head model: the same checkpoint with every
              attention layer's one key/value head replicated to all heads
              (it computes what the checkpoint computes), served the same way
@@ -79,6 +86,25 @@ how far it got:
              against the one-KV-head model's, both models on the same K and
              V (K5a/K5b against K1/K2 on the model).
 17. profile - one warm multi-KV-head training step.
+18. stats  - ``python -m isp_tts_tpu_torch.train --compute-stats`` on that
+             dataset (YIN and the front end on the card): finite statistics,
+             pitch mean 40-800 Hz.
+19. recipe - ``acoustic/core_fast`` at its widths (bf16, batch 32, fixed
+             192 x 896, 8 steps a chunk), warm-started from the committed
+             checkpoint, 16 steps, evaluating and saving every 8: once
+             through the CLI (exit 0), once in process with the launch
+             counts zeroed just before ``train()`` and read just after;
+             finite losses, the mel loss of steps 9-16 below that of 1-8,
+             finite MCD, durations summing to the mel lengths, the written
+             checkpoint bit-equal to the model; per-step host time, front
+             end per batch, checkpoint save and load, peak memory.
+20. resume - a second uninterrupted run (the control) and a run resumed
+             from the first's step-8 checkpoint: steps 9-16 and the final
+             parameters within twice the control (bit-equal if it is).
+21. profile - one warm recipe training step under torch.profiler.
+22. recipe-kernels - K1, K2, K3 and K4 graph-timed at the recipe's shape
+             (B 32, text 192 x mel 896) beside their bounds, plain versions
+             and library calls.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -89,8 +115,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -912,6 +940,39 @@ def phase_serve_audio(t0):
     return synth, launches["K1 mqa_fwd"]
 
 
+def phase_serve_bf16(t0, reference: list[np.ndarray]):
+    """``weights_dtype="bf16"``: the acoustic model's weights stored in bf16
+    on the card (their bytes halve) and computed in f32 as flax does; the
+    three sentences' mels finite, their frame counts near the f32 model's
+    (``reference``), K1 launched."""
+    import torch
+
+    from isp_tts_tpu_torch.serving import Synthesizer, SynthesizerConfig
+
+    full = Synthesizer.from_pretrained(CKPT)
+    f32_bytes = sum(p.numel() * p.element_size() for p in full.model.parameters())
+    del full
+    synth = Synthesizer.from_pretrained(CKPT, SynthesizerConfig(weights_dtype="bf16"))
+    params = list(synth.model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    launch_counts(reset=True)
+    mels = synth(SENTENCES)
+    launches = launch_counts()["K1 mqa_fwd"]
+    if not (all(p.dtype == torch.bfloat16 for p in params) and 2 * nbytes == f32_bytes):
+        raise AssertionError(f"bf16 weights take {nbytes} bytes against {f32_bytes} in f32")
+    frames = [m.shape[0] for m in mels]
+    ref = [m.shape[0] for m in reference]
+    if not (all(np.isfinite(m).all() for m in mels) and launches
+            and all(abs(a - b) <= 0.05 * b for a, b in zip(frames, ref))):
+        raise AssertionError(f"bf16 weights: frames {frames} against {ref}, K1 {launches}")
+    gap = max(float(np.abs(a[:min(len(a), len(b))] - b[:min(len(a), len(b))]).max())
+              for a, b in zip(mels, reference))
+    say("serve bf16", t0, f"acoustic weights {nbytes / 2**20:.1f} MiB in bf16 against "
+        f"{f32_bytes / 2**20:.1f} MiB in f32; frames {frames} (f32 weights {ref}); mel max "
+        f"|bf16 weights - f32 weights| {gap:.3f} over the common frames (not a gate: bf16 "
+        f"rounding of the weights); K1 launches {launches}")
+
+
 def phase_profile_audio(t0, synth):
     """One warm audio request under the profiler, then the vocoder alone on
     that request's padded mel: the vocoder's share of the device time."""
@@ -967,6 +1028,8 @@ def phase_cli(t0):
 
 
 DAEMON_WAV_REQUESTS = 8
+#: the first request after a warm start against the second: at most this factor
+DAEMON_FIRST_REQUEST_FACTOR = 2.0
 
 
 def phase_daemon(t0, synth):
@@ -981,11 +1044,12 @@ def phase_daemon(t0, synth):
 
     from isp_tts_tpu_torch.serving_server import ServerConfig, TTSServer
 
-    synth.warmup(batch_sizes=(1, DAEMON_WAV_REQUESTS), audio=True)
     server = TTSServer(synth, host="127.0.0.1", port=0,
                        config=ServerConfig(max_batch=DAEMON_WAV_REQUESTS, max_wait_ms=20.0,
                                            request_timeout_s=120.0))
-    port = server.start()
+    # --warmup's path: the serving (batcher) thread warms before the socket serves
+    port = server.start(warmup=lambda: synth.warmup(batch_sizes=(1, DAEMON_WAV_REQUESTS),
+                                                     audio=True))
 
     def post(payload, path="/synthesize"):
         req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
@@ -998,7 +1062,11 @@ def phase_daemon(t0, synth):
                 1e3 * (time.perf_counter() - t)
 
     try:
-        # two lone requests first: the batcher thread's first device call
+        # /healthz first: the client's own first urlopen and the HTTP
+        # server's first handler, no device work
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
+            resp.read()
+        # two lone requests: the batcher thread's first device calls
         lone_ms = [post({"text": SENTENCES[0], "format": "wav"})[3] for _ in range(2)]
         results: dict[int, tuple] = {}
         errors: list[BaseException] = []
@@ -1043,8 +1111,11 @@ def phase_daemon(t0, synth):
         raise AssertionError("pcm or long-form answers have the wrong size or type")
     if not stats["max_coalesced"] > 1 or stats["errors"]:
         raise AssertionError(f"daemon stats {stats}")
-    say("daemon", t0, f"two lone wav requests after start, ms: {lone_ms[0]:.1f}, "
-        f"{lone_ms[1]:.1f}; {DAEMON_WAV_REQUESTS} concurrent wav requests, ms: "
+    if not lone_ms[0] <= DAEMON_FIRST_REQUEST_FACTOR * lone_ms[1]:
+        raise AssertionError(f"the first request after warmup took {lone_ms[0]:.1f} ms, the "
+                             f"second {lone_ms[1]:.1f} ms (bound {DAEMON_FIRST_REQUEST_FACTOR}x)")
+    say("daemon", t0, f"two lone wav requests after start (warmed on the batcher thread), "
+        f"ms: {lone_ms[0]:.1f}, {lone_ms[1]:.1f} (bound {DAEMON_FIRST_REQUEST_FACTOR}x); {DAEMON_WAV_REQUESTS} concurrent wav requests, ms: "
         + ", ".join(f"{results[i][3]:.1f}" for i in sorted(results))
         + "; mel {:.1f}, pcm {:.1f}, streamed long-form {:.1f} ({} bytes); ".format(
             singles["mel"][3], singles["pcm"][3], singles["long"][3], len(singles["long"][2]))
@@ -2091,6 +2162,462 @@ def serving_times(fwd, gen, kv_heads) -> dict:
     return out
 
 
+# ------------------------------------------------------- training from a recipe
+RECIPE = "acoustic/core_fast"
+RECIPE_STEPS, RECIPE_CHUNK = 16, 8  # two chunks of core_fast's steps_per_call
+RECIPE_BATCH, RECIPE_TEXT, RECIPE_MEL = 32, 192, 896  # core_fast's fixed collation
+RECIPE_DIM, RECIPE_LAYERS = 384, 6  # core's width and encoder/decoder depth
+DATASET_TRAIN, DATASET_VALID = 512, 64  # one epoch = two chunks of 8 steps at batch 32
+DATASET_WORDS = sorted({w.strip(".,").lower() for s in TRAIN_SENTENCES for w in s.split()})
+#: the smoke's recipe run, at the recipe's own widths: warm-started from the
+#: committed checkpoint, 16 steps, evaluating and saving every 8
+RECIPE_SETTINGS = {
+    "trainer.max_steps": RECIPE_STEPS, "trainer.batch_size": RECIPE_BATCH,
+    "trainer.eval_batch_size": RECIPE_BATCH, "trainer.eval_steps": RECIPE_CHUNK,
+    "trainer.save_steps": RECIPE_CHUNK, "trainer.eval_batches": 2,
+    "trainer.logging_steps": 1, "trainer.log_with": [], "trainer.label": "smoke",
+    "trainer.resume_from_checkpoint": str(CKPT), "trainer.warm_start": True,
+    "trainer.metric_for_best_model": None,  # no checkpoint_best: disk
+}
+
+
+def dataset_sentences(n: int, seed: int) -> list[str]:
+    """``n`` seeded sentences of 3 to 16 words from the training pool's
+    vocabulary, a capital first and a full stop, comma or question mark."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        words = list(rng.choice(DATASET_WORDS, size=rng.randint(3, 17)))
+        if len(words) > 6 and rng.rand() < 0.4:
+            words[len(words) // 2] += ","
+        out.append(" ".join(words).capitalize() + rng.choice([".", ".", "?", "!"]))
+    return out
+
+
+def phase_dataset(t0, synth, root: Path) -> dict:
+    """A dataset written by the Synthesizer and the vocoder from the two
+    committed checkpoints: 22.05 kHz 16-bit WAVs of seeded sentences, at
+    most RECIPE_TEXT symbols and RECIPE_MEL frames each, split into
+    meta_train.csv and meta_valid.csv (``audio_path|text``)."""
+    from isp_tts_tpu_torch.data.audio import write_wav
+
+    (root / "wavs").mkdir(parents=True)
+    want = DATASET_TRAIN + DATASET_VALID
+    kept, frames, t = [], [], time.perf_counter()
+    pool = dataset_sentences(2 * want, seed=2026)
+    for start in range(0, len(pool), RECIPE_BATCH):
+        texts = pool[start:start + RECIPE_BATCH]
+        waves = synth.synthesize_audio(texts, seed=start)
+        for text, wav in zip(texts, waves):
+            n_frames = len(wav) // 256
+            if len(synth.text_provider(text)) > RECIPE_TEXT - 2 or not 16 <= n_frames <= RECIPE_MEL - 16:
+                continue
+            name = f"wavs/s{len(kept):04d}.wav"
+            write_wav(root / name, wav, 22050)
+            kept.append(f"{name}|{text}")
+            frames.append(n_frames)
+        if len(kept) >= want:
+            break
+    if len(kept) < want:
+        raise AssertionError(f"only {len(kept)} of {want} sentences fit {RECIPE_TEXT} symbols "
+                             f"and {RECIPE_MEL} frames")
+    kept, frames = kept[:want], frames[:want]
+    (root / "meta_train.csv").write_text("\n".join(kept[:DATASET_TRAIN]) + "\n")
+    (root / "meta_valid.csv").write_text("\n".join(kept[DATASET_TRAIN:]) + "\n")
+    say("dataset", t0, f"{DATASET_TRAIN} train + {DATASET_VALID} valid utterances written in "
+        f"{time.perf_counter() - t:.1f} s: frames min {min(frames)} mean {np.mean(frames):.0f} "
+        f"max {max(frames)}, {sum(frames) * 256 / 22050 / 60:.1f} min of audio")
+    return {"dataset.root": str(root), "dataset._train_": {"meta_name": "meta_train.csv"},
+            "dataset._eval_": {"meta_name": "meta_valid.csv"}}
+
+
+def set_args(settings: dict) -> list[str]:
+    """``--set key=value`` arguments (values written as YAML flow)."""
+    from isp_tts_tpu_torch.config.yamlio import _flow
+
+    args = []
+    for key, value in settings.items():
+        args += ["--set", f"{key}={_flow(value) if not isinstance(value, str) else value}"]
+    return args
+
+
+def train_cli(args: list[str], timeout: int = 600) -> subprocess.CompletedProcess:
+    proc = subprocess.run([sys.executable, "-m", "isp_tts_tpu_torch.train", "--config-name",
+                           RECIPE] + args, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"train {' '.join(args[:6])} ... exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def phase_stats(t0, data: dict) -> dict:
+    """``--compute-stats`` as a subprocess: YIN and the front end on the
+    card over the training split; finite statistics, pitch mean 40-800 Hz."""
+    t = time.perf_counter()
+    proc = train_cli(["--compute-stats"] + set_args(data))
+    path = Path(data["dataset.root"]) / "stats.json"
+    stats = json.loads(path.read_text())
+    values = [v for feat in stats.values() for v in feat.values()]
+    if not (all(np.isfinite(values)) and 40.0 < stats["pitch"]["mean"] < 800.0):
+        raise AssertionError(f"dataset statistics {stats}: {proc.stdout[-500:]}")
+    say("stats", t0, f"python -m isp_tts_tpu_torch.train --compute-stats: {stats} in "
+        f"{time.perf_counter() - t:.1f} s (process)")
+    return {**data, "dataset.stats": str(path)}
+
+
+def recipe_overrides(settings: dict) -> dict:
+    from isp_tts_tpu_torch.config import parse_overrides
+
+    return parse_overrides(set_args(settings)[1::2])
+
+
+class _ChunkClock:
+    """A trainer callback: the wall time between chunk starts (each chunk
+    is one ``on_step_begin``), with the card synced, and the seconds each
+    chunk spent in evaluations and checkpoint writes."""
+
+    def __init__(self):
+        self.starts, self.trainer = [], None
+        self.eval_s: dict[int, float] = {}
+        self.save_s: dict[int, float] = {}
+        self.eval_launches: dict[str, int] = {}
+
+    def add(self, table: dict, seconds: float) -> None:
+        chunk = len(self.starts) - 1
+        table[chunk] = table.get(chunk, 0.0) + seconds
+
+    def on_save(self, config, state, control, **kw):
+        self.add(self.save_s, self.trainer.save_seconds[-1])
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(name)
+
+    def on_step_begin(self, config, state, control, **kw):
+        import torch
+
+        if control.is_train:  # evaluation batches raise the event too
+            torch.cuda.synchronize()
+            self.starts.append(time.perf_counter())
+
+
+def recipe_trainer(settings: dict, out: Path, **trainer):
+    from isp_tts_tpu_torch.training.experiment import ExperimentModules
+
+    over = recipe_overrides({**settings, **RECIPE_SETTINGS, "trainer.output_dir": str(out),
+                             **{f"trainer.{k}": v for k, v in trainer.items()}})
+    modules = ExperimentModules(RECIPE, str(ROOT / "recipes"), overrides=over).init_modules()
+    clock = _ChunkClock()
+    tr = modules.build_trainer(callbacks=[clock])
+    clock.trainer = tr
+    evaluate = tr.evaluate
+
+    def timed_evaluate(*a, **k):
+        import torch
+
+        torch.cuda.synchronize()
+        t, before = time.perf_counter(), launch_counts()
+        out_ = evaluate(*a, **k)
+        torch.cuda.synchronize()
+        clock.add(clock.eval_s, time.perf_counter() - t)
+        for name, n in launch_counts().items():
+            clock.eval_launches[name] = clock.eval_launches.get(name, 0) + n - before[name]
+        return out_
+
+    tr.evaluate = timed_evaluate
+    return tr, clock
+
+
+def step_losses(trainer, key="train_step/loss") -> dict[int, float]:
+    return {h["step"]: h[key] for h in trainer.state.log_history if key in h}
+
+
+def phase_recipe(t0, settings: dict, out: Path):
+    """``acoustic/core_fast`` at its own widths (dim 384, 6 + 6 layers, one
+    KV head, bf16, batch 32, 192 x 896, 8 steps a chunk), warm-started from
+    the committed checkpoint: once through the CLI, once in process with
+    the launch counts zeroed just before ``train()`` and read just after."""
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.training.optimizers import keystr
+
+    t = time.perf_counter()
+    train_cli(set_args({**settings, **RECIPE_SETTINGS, "trainer.output_dir": str(out / "cli")}))
+    cli_s = time.perf_counter() - t
+    cli_ckpt = out / "cli" / "AcousticModel" / "smoke" / "checkpoint_last.ckpt"
+    if load_checkpoint(cli_ckpt)["experiment"]["state"]["global_step"] != RECIPE_STEPS:
+        raise AssertionError("the CLI run did not take its steps")
+    say("recipe", t0, f"python -m isp_tts_tpu_torch.train --config-name {RECIPE} "
+        f"({RECIPE_STEPS} steps, eval and save every {RECIPE_CHUNK}): exit 0 in {cli_s:.1f} s")
+
+    trainer, clock = recipe_trainer(settings, out / "run")
+    cfg, model = trainer.config, trainer.model
+    enc = model.encoder.layers[0].attention
+    shape = (cfg.precision, cfg.batch_size, trainer.collator.config.max_text_len,
+             trainer.collator.config.max_mel_len, cfg.steps_per_call)
+    if (shape != ("bf16", RECIPE_BATCH, RECIPE_TEXT, RECIPE_MEL, RECIPE_CHUNK)
+            or model.config.text_dim != RECIPE_DIM
+            or len(model.encoder.layers) != RECIPE_LAYERS
+            or len(model.decoder.layers) != RECIPE_LAYERS or not enc.one_kv_head):
+        raise AssertionError(f"the recipe run is not core_fast at its widths: {shape}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    evals_made = {k: clock.eval_launches.get(k, 0) for k in launches}
+    per_step = {k: (v - evals_made[k]) / RECIPE_STEPS for k, v in launches.items()}
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    loss = step_losses(trainer)
+    mel = step_losses(trainer, "train_step/model/mel_loss")
+    evals = [h for h in trainer.state.log_history if "eval/loss" in h]
+    bad = [k for h in trainer.state.log_history for k, v in h.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad or sorted(loss) != list(range(1, RECIPE_STEPS + 1)):
+        raise AssertionError(f"non-finite or missing step metrics: {bad}, steps {sorted(loss)}")
+    first = np.mean([mel[s] for s in range(1, RECIPE_CHUNK + 1)])
+    last = np.mean([mel[s] for s in range(RECIPE_CHUNK + 1, RECIPE_STEPS + 1)])
+    if not last < first:
+        raise AssertionError(f"mel loss did not fall: {mel}")
+    mcd = [h.get("eval/metrics/mcd_13") for h in evals]
+    if len(evals) != RECIPE_STEPS // RECIPE_CHUNK or not all(np.isfinite(m) for m in mcd):
+        raise AssertionError(f"evaluations {evals}")
+    path = ("K1 mqa_fwd", "K2 mqa_bwd", "K3 mas", "K4 ctc_fwd", "K4 ctc_bwd")
+    if min(launches[k] for k in path) == 0 or launches["K5a flash_fwd"] or launches[
+            "K5b flash_bwd"]:
+        raise AssertionError(f"the recipe run should launch {path} and no other: {launches}")
+    # (c) the aligner's durations on a validation batch
+    batch = next(iter(trainer.eval_loader))
+    outputs, _ = trainer.eval_step(batch)
+    hard = outputs.aligner_output.attn_hard_duration
+    if not torch.equal(hard.sum(dim=1).cpu(), torch.from_numpy(batch["mel_len"]).float()):
+        raise AssertionError("MAS durations do not sum to the mel lengths")
+    # host time per step: chunks after the first, without their eval and save
+    chunk_ms = np.diff(clock.starts + [t + wall]) * 1e3
+    step_ms = [round(float(c - 1e3 * (clock.eval_s.get(i, 0.0) + clock.save_s.get(i, 0.0)))
+                     / RECIPE_CHUNK, 2) for i, c in enumerate(chunk_ms) if i > 0]
+    ds = trainer.train_loader.dataset
+    say("recipe", t0, f"in process: {RECIPE_STEPS} steps in {wall:.2f} s; loss per step "
+        + ", ".join(f"{loss[s]:.4f}" for s in sorted(loss)) + f"; mel_loss first {RECIPE_CHUNK} "
+        f"mean {first:.4f}, last {RECIPE_CHUNK} mean {last:.4f}; eval MCD-13 {mcd}; durations "
+        f"sum to mel_len on a validation batch")
+    say("recipe", t0, f"host ms per step (chunk 2 on, eval and save left out, synced at chunk "
+        f"starts) {step_ms}; front end {1e3 * ds.frontend_seconds / max(ds.frontend_calls, 1):.1f}"
+        f" ms per batch of {RECIPE_BATCH} ({ds.frontend_calls} passes on {ds.frontend_device}); "
+        f"checkpoint save s {[round(x, 3) for x in trainer.save_seconds]}; eval s per chunk "
+        f"{clock.eval_s}; peak memory {peak_mib:.0f} MiB; launches {launches}, of them in "
+        f"the evaluations {evals_made}; the training step's per step {per_step}")
+
+    # the written file, read back with the port's reader
+    ckpt = load_checkpoint(trainer.run_dir / "checkpoint_last.ckpt")
+    state = model.jax_state()
+    if ckpt["format"] != "isp_tts_tpu.v1" or set(ckpt["model"]["state"]) != set(state):
+        raise AssertionError("checkpoint_last.ckpt: wrong format or tensor names")
+    for name, arr in state.items():
+        if not np.array_equal(ckpt["model"]["state"][name], arr):
+            raise AssertionError(f"checkpoint_last.ckpt: {name} is not bit-equal")
+    keyed = ckpt["optimizer"]["keyed"]
+    missing = [n for n, (jname, _) in model.jax_names().items()
+               if n in dict(model.named_parameters())
+               and not any(k.endswith(keystr(jname)) and ".mu" in k for k in keyed)]
+    if missing:
+        raise AssertionError(f"optimizer moments missing for {missing[:5]}")
+    return trainer, launches, evals_made
+
+
+def phase_resume(t0, settings: dict, out: Path, first):
+    """A second uninterrupted run (the control) and a run resumed from the
+    first's step-8 checkpoint in a fresh Trainer: the resumed run's steps
+    9-16 losses and final parameters within twice the two uninterrupted
+    runs' difference (bit-identical if they are)."""
+    import torch
+
+    second, _ = recipe_trainer(settings, out / "control")
+    second.train()
+    ckpt = first.run_dir / f"checkpoint_s{RECIPE_CHUNK}.ckpt"
+    t = time.perf_counter()
+    resumed, _ = recipe_trainer(settings, out / "resumed", resume_from_checkpoint=str(ckpt),
+                                warm_start=False)
+    build_s = time.perf_counter() - t
+    if resumed.state.global_step != RECIPE_CHUNK:
+        raise AssertionError(f"resumed at step {resumed.state.global_step}")
+    resumed.train()
+    torch.cuda.synchronize()
+    steps = range(RECIPE_CHUNK + 1, RECIPE_STEPS + 1)
+    la, lb, lc = (step_losses(x) for x in (first, second, resumed))
+    loss_ctl = max(abs(lb[s] - la[s]) for s in steps)
+    loss_err = max(abs(lc[s] - la[s]) for s in steps)
+    pa, pb, pc = (x.model.jax_state() for x in (first, second, resumed))
+    param_ctl = max(float(np.abs(pb[k] - pa[k]).max()) for k in pa)
+    param_err = max(float(np.abs(pc[k] - pa[k]).max()) for k in pa)
+    exact = loss_ctl == 0.0 and param_ctl == 0.0
+    ok = (loss_err == 0.0 and param_err == 0.0) if exact else (
+        loss_err <= 2 * loss_ctl and param_err <= 2 * param_ctl)
+    say("resume", t0, f"steps {steps.start}-{steps.stop - 1}: loss max |resumed - first| "
+        f"{loss_err:.3e}, control |second - first| {loss_ctl:.3e}; final parameters "
+        f"{param_err:.3e}, control {param_ctl:.3e} (bound 2x control"
+        f"{', bit-identical' if exact else ''}); checkpoint load {resumed.load_seconds:.3f} s, "
+        f"fresh trainer with the load {build_s:.2f} s")
+    if not ok:
+        raise AssertionError("the resumed run left the uninterrupted one")
+    return resumed.load_seconds
+
+
+def recipe_records(t0, trainer, launches, eval_launches) -> list[dict]:
+    """K1, K2 (K2a), K3 and K4 at the recipe's shape, B 32 x text 192 x
+    mel 896, on a validation batch's lengths: the decoder's attention
+    (N = M = 896) and the encoder's (N = M = 192), H 6, bf16, dropout 0.1;
+    MAS and CTC on (M 896, T 192). Each is held against its plain version
+    as the kernel phases hold it (raises past the bound), then timed.
+    ``launches`` are the recipe run's, ``eval_launches`` the part of them
+    its evaluations made."""
+    import torch
+    import torch.nn.functional as F
+
+    from isp_tts_tpu_torch.ops import ctc, mas
+    from isp_tts_tpu_torch.ops.flash_attention import (mqa_attention_reference, mqa_bwd,
+                                                       mqa_bwd_reference, mqa_fwd)
+
+    batch = next(iter(trainer.eval_loader))
+    ml = torch.from_numpy(batch["mel_len"]).cuda().contiguous()
+    tl = torch.from_numpy(batch["text_vector_len"]).cuda().contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, H, rate, scale = RECIPE_BATCH, 6, 0.1, 64 ** -0.5
+    records = []
+
+    def counts(name):
+        """The run's launches, and the training step's apart from the
+        evaluations' (``launches_per_step`` counts the step's alone)."""
+        return {"launches": launches[name], "eval_launches": eval_launches[name],
+                "launches_per_step": (launches[name] - eval_launches[name]) / RECIPE_STEPS}
+
+    for label, N, lens in (("decoder", RECIPE_MEL, ml), ("encoder", RECIPE_TEXT, tl)):
+        q, k, v, slopes, _, _ = mqa_inputs(B, N, N, H, torch.bfloat16, True, gen)
+        seed = seed_tensor(77)
+        # K1 within the bf16 bound of its plain version, K2 within K2_BOUNDS
+        # of autograd through the plain forward (dq, dk, dv) and of the
+        # plain backward on the kernel's own o and lse (all four, dslopes too)
+        _, fwd_err, lse_err, fwd_bound, kept = check_forward(q, k, v, slopes, lens, lens, 0,
+                                                             False, rate, seed)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        _, auto, errs, bwd_bound, o, lse = check_backward(q, k, v, slopes, lens, lens, do, 0,
+                                                          False, rate, seed)
+        grads = mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate)
+        grads_ref = mqa_bwd_reference(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0,
+                                      False, rate)
+        fb, bb = attention_bound(q, k, lens, lens), attention_bound(q, k, lens, lens, True)
+        shape = f"recipe {label}: B={B} N=M={N} H={H} D=64 bfloat16 dropout={rate}"
+        say("recipe-kernels", t0, f"{shape}: K1 o err {fwd_err:.3e} lse err {lse_err:.3e} "
+            f"(bound {fwd_bound:.0e}), kept {kept:.4f}; K2 {grad_errs('vs autograd', auto)} "
+            f"(dslopes not gated in bf16); {grad_errs('vs plain backward', errs)} (bound "
+            f"{bwd_bound:.0e})")
+        records += [
+            {"name": f"K1 mqa_fwd, recipe {label}", "route": "cuda",
+             "source": "isp_tts_tpu_torch/csrc/mqa_fwd.cu",
+             "replaces": "isp_tts_tpu/ops/flash_attention.py:736", **counts("K1 mqa_fwd"),
+             "max_abs_err": fwd_err,
+             "ms": graph_ms(lambda: mqa_fwd(q, k, v, slopes, lens, scale, 0, lens, False, rate,
+                                            seed)),
+             "plain_ms": cuda_ms(lambda: mqa_attention_reference(
+                 q, k, v, slopes, lens, scale, 0, lens, False, rate, seed), iters=3),
+             "bound_ms": fb[0], "bound_by": fb[1],
+             "library_ms": graph_ms(library_call(q, k, v, slopes, lens, scale)),
+             "shape": shape},
+            {"name": f"K2 mqa_bwd, recipe {label}", "route": "cuda",
+             "source": "isp_tts_tpu_torch/csrc/mqa_bwd.cu",
+             "replaces": "isp_tts_tpu/ops/flash_attention.py:998 (K2a)", **counts("K2 mqa_bwd"),
+             "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                for a, b in zip(grads, grads_ref)),
+             "ms": graph_ms(lambda: mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do,
+                                            scale, 0, False, rate)),
+             "plain_ms": cuda_ms(lambda: mqa_bwd_reference(
+                 q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate), iters=3),
+             "bound_ms": bb[0], "bound_by": bb[1],
+             "library_ms": library_bwd_ms(q, k, v, slopes, lens, scale, 0, False, do),
+             "shape": shape},
+        ]
+        del q, k, v, o, lse, do, grads, grads_ref
+        torch.cuda.empty_cache()
+
+    M, T = RECIPE_MEL, RECIPE_TEXT
+    la, _, _ = mas_inputs(B, M, T, gen)
+    got = mas.monotonic_alignment_search(la, tl, ml)
+    torch.cuda.synchronize()
+    ref = mas.monotonic_alignment_search_reference(la, tl, ml)
+    if not (torch.equal(got, ref) and torch.equal(got.sum(dim=(1, 2)), ml.float())):
+        raise AssertionError(f"K3 at the recipe's shape: {(got != ref).sum().item()} elements "
+                             "differ from the plain version, or durations do not sum to mel_len")
+    k3b = mas_bound(la, tl, ml)
+    shape = f"recipe: B={B} M={M} T={T} float32, a validation batch's lengths"
+    records.append(
+        {"name": "K3 mas, recipe", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mas.cu",
+         "replaces": "isp_tts_tpu/ops/mas_pallas.py:44 + :66", **counts("K3 mas"),
+         "max_abs_err": (got - ref).abs().max().item(),
+         "ms": graph_ms(lambda: mas.monotonic_alignment_search(la, tl, ml)),
+         "plain_ms": cuda_ms(lambda: mas.monotonic_alignment_search_reference(la, tl, ml),
+                             iters=1, warmup=1),
+         "bound_ms": k3b[0], "bound_by": k3b[1], "library_ms": None, "shape": shape})
+    lp, _, _ = ctc_inputs(B, M, T, gen)
+    g = torch.rand((B,), generator=gen, device="cuda")
+    neg, ab, al, logz = ctc.ctc_fwd(lp, tl, ml)
+    dlp = ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)
+    x = lp.detach().double().requires_grad_()
+    neg_r = ctc.ordered_ctc_neg_logp_reference(x, tl, ml)
+    (dlp_r,) = torch.autograd.grad((neg_r * g.double()).sum(), x, retain_graph=True)
+    loss_err, grad_err = rel_err(neg, neg_r.detach()), rel_err(dlp, dlp_r)
+    if not (loss_err <= K4_LOSS_BOUND and grad_err <= K4_GRAD_BOUND):
+        raise AssertionError(f"K4 at the recipe's shape: loss {loss_err:.3e} (bound "
+                             f"{K4_LOSS_BOUND:.0e}), gradient {grad_err:.3e} (bound "
+                             f"{K4_GRAD_BOUND:.0e})")
+    say("recipe-kernels", t0, f"K3 B={B} M={M} T={T}: equal to the plain version, durations "
+        f"sum to mel_len; K4 loss rel_err={loss_err:.2e} bound={K4_LOSS_BOUND:.0e} grad "
+        f"rel_err={grad_err:.2e} bound={K4_GRAD_BOUND:.0e}")
+    fb, bb = ctc_fwd_bound(lp, tl, ml), ctc_bwd_bound(lp, tl, ml)
+    labels = torch.arange(1, T + 1, device="cuda").repeat(B, 1)
+    xl = lp.detach().requires_grad_()
+
+    def library(backward):
+        def call():
+            loss = F.ctc_loss(xl.transpose(0, 1), labels, ml.long(), tl.long(), blank=0,
+                              reduction="sum", zero_infinity=True)
+            if backward:
+                torch.autograd.grad(loss, xl)
+        return cuda_ms(call, iters=5)
+
+    shape = f"recipe: B={B} M={M} T+1={T + 1} float32, a validation batch's lengths"
+    records += [
+        {"name": "K4 ctc_fwd, recipe", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/ctc.cu",
+         "replaces": "isp_tts_tpu/ops/ctc_pallas.py:77", **counts("K4 ctc_fwd"),
+         "max_abs_err": (neg - neg_r.detach().float()).abs().max().item(),
+         "ms": graph_ms(lambda: ctc.ctc_fwd(lp, tl, ml)),
+         "plain_ms": cuda_ms(lambda: ctc.ordered_ctc_neg_logp_reference(lp.double(), tl, ml),
+                             iters=1, warmup=1),
+         "bound_ms": fb[0], "bound_by": fb[1], "library_ms": library(False),
+         "library": "F.ctc_loss, eager", "shape": shape},
+        {"name": "K4 ctc_bwd, recipe", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/ctc.cu",
+         "replaces": "isp_tts_tpu/ops/ctc_pallas.py:114", **counts("K4 ctc_bwd"),
+         "max_abs_err": (dlp - dlp_r.float()).abs().max().item(),
+         "ms": graph_ms(lambda: ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)),
+         "plain_ms": cuda_ms(lambda: torch.autograd.grad((neg_r * g.double()).sum(), x,
+                                                         retain_graph=True), iters=1, warmup=1),
+         "bound_ms": bb[0], "bound_by": bb[1], "library_ms": library(True),
+         "library": "F.ctc_loss, eager, forward + backward", "shape": shape},
+    ]
+    for r in records:
+        say("recipe-kernels", t0, f"{r['name']}: {r['shape']}; ms {r['ms']:.4f} plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) library_ms "
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} "
+            f"max_abs_err {r['max_abs_err']:.3e} launches {r['launches']} (training "
+            f"{r['launches_per_step']} a step, evaluations {r['eval_launches']})")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2106,10 +2633,13 @@ def main() -> int:
     phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
     phase_profile(t0, lambda: synth(SENTENCES), "batch of 3")
     phase_vocoder(t0, synth, reference)
+    phase_serve_bf16(t0, synth(SENTENCES))
     audio_synth, audio_launches = phase_serve_audio(t0)
     phase_profile_audio(t0, audio_synth)
     phase_cli(t0)
     phase_daemon(t0, audio_synth)
+    work = Path(tempfile.mkdtemp(dir=ROOT, prefix="_smoke_recipe_"))
+    data = phase_dataset(t0, audio_synth, work / "data")
     del audio_synth
     mha_synth, mha_serve_launches = phase_slice_mha(t0, reference)
     phase_profile(t0, lambda: mha_synth(SENTENCES[0]), "one sentence, multi-KV-head")
@@ -2126,6 +2656,18 @@ def main() -> int:
     phase_kv_grad(t0, experiment, batch)
     records = kernel_records(batch, train_launches, serve_launches, mha_launches,
                              mha_serve_launches, audio_launches)
+    try:
+        torch.cuda.empty_cache()
+        data = phase_stats(t0, data)
+        recipe, recipe_launches, recipe_eval_launches = phase_recipe(t0, data, work / "runs")
+        phase_resume(t0, data, work / "runs", recipe)
+        recipe_batch = next(iter(recipe.train_loader))
+        phase_profile(t0, lambda: recipe.train([recipe_batch], 1),
+                      f"one recipe training step ({RECIPE_TEXT} x {RECIPE_MEL}, bf16)")
+        records += recipe_records(t0, recipe, recipe_launches, recipe_eval_launches)
+        del recipe
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     say("done", t0)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
-"""Read the JAX package's ``.ckpt`` files with the standard library and numpy.
+"""Read and write the JAX package's ``.ckpt`` files with the standard
+library and numpy.
 
-Counterpart of ``isp_tts_tpu/training/checkpoint.py:load_checkpoint``. A
-checkpoint is one msgpack document written by ``flax.serialization``:
-nested maps of config values and arrays, where each array is a msgpack
-extension of type 1 holding the msgpack triple (shape, dtype name, C-order
-bytes). This module decodes that subset of msgpack itself, so the port
-reads checkpoints without ``msgpack`` or ``flax`` installed.
+Counterpart of ``isp_tts_tpu/training/checkpoint.py``. A checkpoint is one
+msgpack document as ``flax.serialization`` writes it: nested maps of config
+values and arrays, where each array is a msgpack extension of type 1
+holding the msgpack triple (shape, dtype name, C-order bytes) and a numpy
+scalar one of type 3. This module encodes and decodes that subset of
+msgpack itself, so the port reads and writes checkpoints without
+``msgpack`` or ``flax`` installed.
 
 :func:`load_checkpoint` returns the document as flax does, except that the
-model's nested ``state`` is flattened to ``{"a.b.c": np.ndarray}``, the
-form :func:`isp_tts_tpu_torch.models.base.load_jax_state` takes.
+model's ``state`` is flattened to ``{"a.b.c": np.ndarray}`` (the JAX
+trainer writes it flat; nested maps are flattened too), the form
+:func:`isp_tts_tpu_torch.models.base.load_jax_state` takes.
+:func:`save_checkpoint` writes a payload atomically (through ``.tmp``).
 """
 
 from __future__ import annotations
@@ -161,3 +165,94 @@ def load_checkpoint(path: str | Path) -> dict:
         raise ValueError(f"{path} holds no model config and state")
     model["state"] = flatten_state(model["state"])
     return ckpt
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n <= 0x7F:
+        return bytes([n])
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2**64 - 1)):
+            if n <= top:
+                return bytes([code]) + struct.pack(fmt, n)
+    else:
+        for code, fmt, low in ((0xD0, ">b", -2**7), (0xD1, ">h", -2**15),
+                               (0xD2, ">i", -2**31), (0xD3, ">q", -2**63)):
+            if n >= low:
+                return bytes([code]) + struct.pack(fmt, n)
+    raise OverflowError(f"{n} does not fit msgpack's 64-bit integers")
+
+
+def _pack_len(n: int, fix: int | None, fix_max: int, codes: tuple) -> bytes:
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise OverflowError("msgpack object too large")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    n = len(payload)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixed:
+        head = bytes([fixed[n]])
+    else:
+        head = _pack_len(n, None, 0, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code) + payload
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject:
+        raise ValueError("object arrays cannot be written")
+    return _pack([list(arr.shape), arr.dtype.name, np.ascontiguousarray(arr).tobytes("C")])
+
+
+def _pack(obj: Any) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if obj is True:
+        return b"\xc3"
+    if obj is False:
+        return b"\xc2"
+    if isinstance(obj, np.ndarray):
+        return _pack_ext(_EXT_NDARRAY, _ndarray_to_bytes(obj))
+    if isinstance(obj, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    if isinstance(obj, int):
+        return _pack_int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, complex):
+        return _pack_ext(_EXT_COMPLEX, _pack([obj.real, obj.imag]))
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _pack_len(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + raw
+    if isinstance(obj, (bytes, bytearray)):
+        return _pack_len(len(obj), None, 0, (0xC4, 0xC5, 0xC6)) + bytes(obj)
+    if isinstance(obj, (list, tuple)):
+        return _pack_len(len(obj), 0x90, 15, (None, 0xDC, 0xDD)) + b"".join(
+            _pack(v) for v in obj)
+    if isinstance(obj, dict):
+        return _pack_len(len(obj), 0x80, 15, (None, 0xDE, 0xDF)) + b"".join(
+            _pack(k) + _pack(obj[k]) for k in sorted(obj, key=str))
+    raise TypeError(f"cannot write {type(obj).__name__} to a checkpoint")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode a tree of dicts, lists, scalars and numpy arrays as
+    ``flax.serialization.msgpack_serialize`` does (map keys sorted)."""
+    return _pack(tree)
+
+
+def save_checkpoint(path: str | Path, payload: dict) -> None:
+    """Write ``payload`` to ``path`` through ``path.tmp`` and a rename. The
+    model's ``state`` is written as given: flat, ``{"a.b.c": array}``, as
+    the JAX trainer writes it."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    tmp.write_bytes(msgpack_serialize(payload))
+    tmp.replace(path)

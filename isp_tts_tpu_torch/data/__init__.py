@@ -1,1 +1,12 @@
-"""Text front end of the port."""
+"""The data pipeline: registries of datasets and collators by recipe name."""
+
+from ..config.registry import Registry
+
+DATASETS = Registry("datasets")
+COLLATORS = Registry("collators")
+
+from .collator import AcousticCollator  # noqa: E402
+from .dataset import AcousticDataset  # noqa: E402
+
+DATASETS.add("AcousticDataset", AcousticDataset)
+COLLATORS.add("AcousticCollator", AcousticCollator)

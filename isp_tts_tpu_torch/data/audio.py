@@ -1,7 +1,11 @@
 """WAV read and write with the standard library's ``wave`` module.
 
-Counterpart of ``read_wav`` and ``write_wav`` in ``isp_tts_tpu/data/audio.py``:
-8-, 16-, 24- and 32-bit PCM in, 16-bit PCM out.
+Counterpart of ``isp_tts_tpu/data/audio.py``: 8-, 16-, 24- and 32-bit PCM
+in, 16-bit PCM out; mono downmix and resampling on load. The JAX package
+decodes through its native C++ library when it is built and falls back to
+this same stdlib reader, with the same result; the port reads with the
+stdlib alone. Resampling (only on a rate mismatch) is scipy's
+``resample_poly``, imported when it is needed.
 """
 
 from __future__ import annotations
@@ -45,3 +49,35 @@ def write_wav(path: str | Path, audio: np.ndarray, sample_rate: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+def wav_duration(path: str | Path) -> float:
+    """Duration in seconds from the WAV header (no sample decode)."""
+    with wave.open(str(path), "rb") as w:
+        return w.getnframes() / float(w.getframerate())
+
+
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling (scipy's ``resample_poly``, as in the JAX package)."""
+    if orig_sr == target_sr:
+        return audio
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(orig_sr, target_sr)
+    return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
+
+
+def load_audio(path: str | Path, sample_rate: int | None = None) -> np.ndarray:
+    """A WAV file -> mono float32 (N,), resampled to ``sample_rate`` if given."""
+    x, sr = read_wav(path)
+    mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
+    if sample_rate is not None and sr != sample_rate:
+        mono = resample(mono, sr, sample_rate)
+    return np.ascontiguousarray(mono, dtype=np.float32)
+
+
+def load_audio_batch(paths, sample_rate: int | None = None) -> list[np.ndarray]:
+    """:func:`load_audio` of each path."""
+    return [load_audio(p, sample_rate) for p in paths]

@@ -106,6 +106,28 @@ class AcousticModel(Model):
                                    aligner_output=aligner_output)
 
     @staticmethod
+    def inject_data_config(config: dict, dataset) -> dict:
+        """The dataset's symbol table, pitch statistics and mel contract
+        into the model config."""
+        config["encoding_map"] = dict(dataset.text_provider.coding_table.encoding_map)
+        if getattr(dataset, "stats", None) is not None:
+            config["pitch_mean"] = float(dataset.stats.pitch.mean)
+            config["pitch_std"] = float(dataset.stats.pitch.std)
+        spec = getattr(dataset, "spec_provider", None)
+        mel = getattr(dataset, "mel_scale_provider", None)
+        audio = getattr(dataset, "audio_provider", None)
+        if spec is not None and mel is not None and audio is not None:
+            config["audio_config"] = {
+                "sample_rate": int(audio.config.sample_rate),
+                "n_fft": int(spec.config.n_fft),
+                "hop_length": int(spec.config.hop_length),
+                "win_length": int(spec.config.win_length),
+                "f_min": float(mel.config.f_min),
+                "f_max": None if mel.config.f_max is None else float(mel.config.f_max),
+            }
+        return config
+
+    @staticmethod
     def prepare_inputs(batch: dict) -> dict:
         """A collated batch (the JAX collator's key names) -> forward kwargs."""
         return {"text": batch["text_vector"], "text_len": batch["text_vector_len"],

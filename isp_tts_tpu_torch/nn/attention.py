@@ -5,7 +5,8 @@ acoustic model builds: self-attention with a padding mask, either with one
 key/value head (``one_kv_head``, multi-query) or with one per query head
 (the default). Cross-attention (``context_dim``), explicit attention
 masks, KV caches and ring attention are not ported yet; a config that sets
-``context_dim`` raises.
+``context_dim`` raises, and so does a head dim other than the kernels' 64
+unless ``flash`` is "off".
 
 The core follows the JAX dispatch: a one-KV-head layer runs the folded-MQA
 family, a multi-KV-head layer the per-head family. ``flash`` picks the
@@ -15,7 +16,8 @@ version: "off" runs the family's plain einsum version
 differentiated by autograd; any other value ("auto", "on", and "ring",
 which the JAX package runs locally on one device) runs the family's
 autograd function — kernels K1/K2 or K5a/K5b on CUDA tensors, their plain
-versions on CPU tensors. In train mode a nonzero ``dropout`` drops
+versions on CPU tensors. Under fp16 autocast the kernels run on the fp16
+values widened to f32 (exactly), their output narrowed back. In train mode a nonzero ``dropout`` drops
 attention probabilities on both versions with the same hashed keep mask,
 from a seed drawn per call from the layer's dropout generator.
 """
@@ -27,7 +29,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..ops.flash_attention import (drop_params, flash_attention,
+from ..ops.flash_attention import (HEAD_DIM, drop_params, flash_attention,
                                    flash_attention_reference, mqa_attention,
                                    mqa_attention_reference)
 from .embeddings import LearnedALiBiBias
@@ -53,6 +55,11 @@ class AttentionConfig:
     def __post_init__(self):
         if self.context_dim is not None:
             raise NotImplementedError("cross-attention (context_dim) is not ported")
+        head_dim = self.head_dim or self.dim // self.heads
+        if self.flash != "off" and head_dim != HEAD_DIM:
+            raise NotImplementedError(
+                f"head_dim {head_dim}: the port's attention kernels take head dim "
+                f"{HEAD_DIM}; set flash: off for the plain version")
 
 
 class Attention(nn.Module):
@@ -98,6 +105,9 @@ class Attention(nn.Module):
         seed = self.dropout.draw_seed(x.device) if rate else None
         lens = (mask.sum(dim=-1, dtype=torch.int32) if mask is not None
                 else torch.full((b,), n, dtype=torch.int32, device=x.device))
+        half = q.dtype == torch.float16 and q.device.type == "cuda" and self.flash != "off"
+        if half:  # the kernels take f32 and bf16: fp16 values are exact in f32
+            q, k, v = q.float(), k.float(), v.float()
         args = (q.contiguous(), k.contiguous(), v.contiguous(), self._slopes2(x.device),
                 lens, self.scale, 0)
         kwargs = dict(q_lens=lens, causal=self.causal, dropout_rate=rate, seed=seed)
@@ -105,6 +115,8 @@ class Attention(nn.Module):
             out, _ = plain(*args, **kwargs)
         else:
             out = core(*args, **kwargs)
+        if half:
+            out = out.half()
         out = self.to_out(out.reshape(b, n, self.heads * self.head_dim))
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)

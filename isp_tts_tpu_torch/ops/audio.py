@@ -2,8 +2,8 @@
 
 Counterpart of ``isp_tts_tpu/ops/audio.py``: magnitude STFT with an
 explicit ``(n_fft - hop) / 2`` zero pad and no centering, a periodic Hann
-window centred in the FFT frame, the slaney-scale slaney-norm filterbank and
-``log(clamp(x, 1e-5))``. The filterbank is built in numpy in float64 and cast
+window centred in the FFT frame, the slaney-scale slaney-norm filterbank,
+``log(clamp(x, 1e-5))`` and the per-frame ``log1p`` L2 energy. The filterbank is built in numpy in float64 and cast
 to float32, exactly as the JAX package builds it; :func:`device_constant`
 copies such host constants to a device once per (geometry, device).
 """
@@ -26,6 +26,14 @@ def device_constant(fn, *args, device: torch.device | str) -> torch.Tensor:
     """``fn(*args)`` (a numpy array from a cached host function) as a tensor
     on ``device``, copied there once per (function, arguments, device)."""
     return _device_constant(fn, args, torch.device(device))
+
+
+def num_frames(n_samples: int, n_fft: int = 1024, hop_length: int = 256,
+               pad: int | None = None) -> int:
+    """Frame count :func:`stft_magnitude` gives ``n_samples`` samples."""
+    if pad is None:
+        pad = (n_fft - hop_length) // 2
+    return (n_samples + 2 * pad - n_fft) // hop_length + 1
 
 
 def hann_window(win_length: int, dtype=torch.float32,
@@ -116,3 +124,9 @@ def log_mel_spectrogram(audio: torch.Tensor, sample_rate: int, n_fft: int = 1024
     fb = device_constant(mel_filterbank, sample_rate, n_fft, n_mels, f_min, f_max,
                          device=audio.device)
     return dynamic_range_compression(torch.einsum("mf,...ft->...mt", fb, spec))
+
+
+def frame_energy(spec: torch.Tensor) -> torch.Tensor:
+    """Per-frame log1p L2 norm of a magnitude spectrogram,
+    (..., n_freqs, n_frames) -> (..., n_frames)."""
+    return torch.log1p(torch.linalg.vector_norm(spec, dim=-2))

@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .data.providers import TextProvider
 from .data.text.table import CodingTable
@@ -42,16 +43,51 @@ def split_sentences(text: str) -> list[str]:
     return [p.strip() for p in re.split(r"(?<=[.!?…])\s+", text.strip()) if p.strip()]
 
 
+def _promoting_forward(mod: torch.nn.Module):
+    """A forward for ``mod`` that computes as flax does on weights stored
+    in a narrower dtype: the activation and the weight promote to their
+    common dtype (a float32 activation against a bf16 kernel computes in
+    float32); LayerNorm normalises in float32 and returns the promoted
+    dtype; an embedding lookup returns float32, as flax's ``Embed`` does."""
+    if isinstance(mod, torch.nn.Linear):
+        def forward(x):
+            dt = torch.promote_types(x.dtype, mod.weight.dtype)
+            return F.linear(x.to(dt), mod.weight.to(dt),
+                            None if mod.bias is None else mod.bias.to(dt))
+    elif isinstance(mod, torch.nn.Conv1d):
+        def forward(x):
+            dt = torch.promote_types(x.dtype, mod.weight.dtype)
+            return mod._conv_forward(x.to(dt), mod.weight.to(dt),
+                                     None if mod.bias is None else mod.bias.to(dt))
+    elif isinstance(mod, torch.nn.LayerNorm):
+        def forward(x):
+            dt = torch.promote_types(x.dtype, mod.weight.dtype)
+            return F.layer_norm(x.float(), mod.normalized_shape, mod.weight.float(),
+                                mod.bias.float(), mod.eps).to(dt)
+    elif isinstance(mod, torch.nn.Embedding):
+        def forward(x):
+            return F.embedding(x, mod.weight).float()
+    else:
+        return None
+    return forward
+
+
 @torch.no_grad()
-def cast_float_state(module: torch.nn.Module, dtype: str | torch.dtype) -> None:
-    """Round every float parameter and buffer of ``module`` to ``dtype`` in
-    place. The storage keeps its dtype: the JAX package serves such weights
-    with its float32 arithmetic (flax promotes a bf16 kernel against float32
-    activations), and so does the port."""
+def store_float_state(module: torch.nn.Module, dtype: str | torch.dtype) -> None:
+    """Store every float parameter and buffer of ``module`` in ``dtype``
+    (bf16: half the bytes) and compute as the JAX package's served models
+    do with such weights: flax promotes each bf16 weight against the
+    float32 activations (the acoustic model's text embedding already
+    returns float32, the vocoder takes a float32 mel), so every product
+    and norm runs in float32 on the stored values. Modules other than
+    Linear, Conv1d, LayerNorm and Embedding (the vocoder's flax-style
+    LayerNorm, its layer scales) promote by torch's own rules."""
     target = _DTYPES[dtype] if isinstance(dtype, str) else dtype
-    for tensor in list(module.parameters()) + list(module.buffers()):
-        if tensor.is_floating_point():
-            tensor.copy_(tensor.to(target))
+    module.to(target)
+    for mod in module.modules():
+        forward = _promoting_forward(mod)
+        if forward is not None:
+            mod.forward = forward
 
 
 @dataclass
@@ -67,7 +103,9 @@ class SynthesizerConfig:
     phonemizer: bool = False
     language: str = "en-us"  # the phonemizer's language
     extra_controls: dict = field(default_factory=dict)
-    #: round float weights to this dtype for serving (e.g. "bf16")
+    #: serve with float weights in this dtype (e.g. "bf16"): the acoustic
+    #: model and the vocoder store them so (half the bytes) and compute as
+    #: flax does, promoting against float32 activations
     weights_dtype: str | None = None
 
 
@@ -100,7 +138,7 @@ class Synthesizer:
             raise ValueError(f"{sorted(clash)} are per-request controls: pass "
                              "them at call time, not in extra_controls")
         if self.config.weights_dtype is not None:
-            cast_float_state(model, self.config.weights_dtype)
+            store_float_state(model, self.config.weights_dtype)
         self.device = next(model.parameters()).device
         self._has_speaker = model.speaker_embedding is not None
         if self.config.charset is not None:
@@ -125,7 +163,7 @@ class Synthesizer:
             raise ValueError(f"the vocoder is on {dev}, the acoustic model on {self.device}")
         self.vocoder = vocoder.eval()
         if self.config.weights_dtype is not None:
-            cast_float_state(vocoder, self.config.weights_dtype)
+            store_float_state(vocoder, self.config.weights_dtype)
         self._check_vocoder_contract(vocoder)
 
     @classmethod

@@ -136,13 +136,21 @@ class TTSServer:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def start(self) -> int:
-        """Bind, spawn the batcher + HTTP threads, return the bound port."""
+    def start(self, warmup=None) -> int:
+        """Bind, spawn the batcher + HTTP threads, return the bound port.
+
+        ``warmup`` (a callable, e.g. the Synthesizer's ``warmup``) runs first
+        on the batcher thread, the thread that serves every request, so the
+        first request pays none of that thread's first-call costs; the HTTP
+        thread starts accepting only after it returned. If it raises, the
+        server stops and the error propagates."""
         handler = _make_handler(self)
         self._httpd = ThreadingHTTPServer((self._host, self._port), handler)
         self._port = self._httpd.server_address[1]
         self._stopping = False
-        batcher = threading.Thread(target=self._batch_loop,
+        ready = threading.Event()
+        failure: list[BaseException] = []
+        batcher = threading.Thread(target=self._batch_loop, args=(warmup, ready, failure),
                                    name="tts-batcher", daemon=True)
         encoder = threading.Thread(target=self._encode_loop,
                                    name="tts-encoder", daemon=True)
@@ -151,6 +159,13 @@ class TTSServer:
         self._threads = [batcher, encoder, serving]
         batcher.start()
         encoder.start()
+        ready.wait()
+        if failure:
+            self._threads = [batcher, encoder]
+            self._httpd.server_close()  # never served: shutdown() would wait on it
+            self._httpd = None
+            self.stop()
+            raise failure[0]
         serving.start()
         logger.info("TTS server on %s:%d (max_batch=%d, window=%.1fms)",
                     self._host, self._port, self.config.max_batch,
@@ -243,9 +258,19 @@ class TTSServer:
 
     # -- the batcher -----------------------------------------------------------
 
-    def _batch_loop(self) -> None:
+    def _batch_loop(self, warmup=None, ready: threading.Event | None = None,
+                    failure: list | None = None) -> None:
         import time
 
+        if warmup is not None:
+            try:
+                warmup()
+            except BaseException as e:  # noqa: BLE001 - re-raised by start()
+                failure.append(e)
+        if ready is not None:
+            ready.set()
+        if failure:
+            return
         last_window = 0
         while not self._stopping:
             try:
@@ -554,12 +579,11 @@ def main(argv=None) -> None:
                                   "item (ROADMAP Queue 1 item 7); pass --checkpoint")
     synth = Synthesizer.from_pretrained(args.checkpoint, SynthesizerConfig(steps=args.steps),
                                         vocoder_path=args.vocoder, device=args.device)
-    if args.warmup:
-        synth.warmup(batch_sizes=(1, args.max_batch))
     server = TTSServer(synth, host=args.host, port=args.port,
                        config=ServerConfig(max_batch=args.max_batch,
                                            max_wait_ms=args.max_wait_ms))
-    port = server.start()
+    port = server.start(warmup=(lambda: synth.warmup(batch_sizes=(1, args.max_batch)))
+                        if args.warmup else None)
     logger.info("serving on http://%s:%d: POST /synthesize", args.host, port)
     try:
         threading.Event().wait()  # serve until interrupted

@@ -2,9 +2,9 @@
 and the bf16 residual stream, on the CPU.
 
 - ``build_config`` raises on a key its dataclass does not declare, and a
-  declared option the port does not compute (``finetune_layers``,
-  ``precision: fp16``, ``context_dim``) raises at any value but the JAX
-  default. Keys that cannot change what the port computes are listed per
+  declared option the port does not compute (mesh axes above 1,
+  ``context_dim``, a head dim other than 64 with ``flash`` on) raises at
+  any value but the JAX default. Keys that cannot change what the port computes are listed per
   dataclass (``IGNORED_KEYS``); the committed checkpoint's embedded config
   has no other undeclared key.
 - ``sigma`` and ``detach_inputs`` of the adaptor's temporal modules give
@@ -42,11 +42,11 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
 
 
 @pytest.mark.parametrize("cls,cfg,error", [
-    (TrainerConfig, {"finetune_layers": ["decoder"]}, NotImplementedError),
-    (TrainerConfig, {"precision": "fp16"}, NotImplementedError),
-    (TrainerConfig, {"precision": "float16"}, NotImplementedError),
+    (TrainerConfig, {"mesh_model_axis": 2}, NotImplementedError),
+    (TrainerConfig, {"mesh_seq_axis": 2}, NotImplementedError),
+    (TrainerConfig, {"mesh_pipeline_axis": 4}, NotImplementedError),
     (TrainerConfig, {"precision": "int8"}, ValueError),
-    (TrainerConfig, {"resume_from_checkpoint": "run/last.ckpt"}, ValueError),
+    (TrainerConfig, {"deepspeed": True}, ValueError),
     (AttentionConfig, {"context_dim": 128}, NotImplementedError),
     (AttentionConfig, {"kv_cache": True}, ValueError),
     (AcousticModelConfig, dict(SMALL, encoder=dict(SMALL["encoder"], transformer_layer=dict(
@@ -54,19 +54,32 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
             SMALL["encoder"]["transformer_layer"]["attention"], context_dim=64)))),
      NotImplementedError),
     (AcousticModelConfig, dict(SMALL, vocoder="vocos"), ValueError),
+    (AttentionConfig, {"heads": 2, "head_dim": 32}, NotImplementedError),
+    (AttentionConfig, {"dim": 256, "heads": 2, "head_dim": None}, NotImplementedError),
 ])
 def test_options_the_port_does_not_compute_raise(cls, cfg, error):
     with pytest.raises(error):
         build_config(cls, cfg)
 
 
+def test_head_dims_other_than_64_build_with_flash_off():
+    """The refusal is of the kernels: the plain version takes any head dim."""
+    cfg = build_config(AttentionConfig, {"heads": 2, "head_dim": 32, "flash": "off"})
+    assert cfg.head_dim == 32
+    assert build_config(AttentionConfig, {"dim": 256, "heads": 4, "head_dim": None}).dim == 256
+
+
 def test_defaults_ignored_and_meta_keys_build():
     """JAX's defaults of the refused options, the ignore set and the
-    loader's ``_``-prefixed meta keys build without complaint."""
+    loader's ``_``-prefixed meta keys build without complaint; the options
+    ported since (the freeze mask, fp16) build at any value."""
     cfg = build_config(TrainerConfig, {"_name_": "Trainer", "finetune_layers": [],
                                        "precision": "fp32", "logging_steps": 5,
                                        "steps_per_call": 8})
     assert (cfg.precision, cfg.finetune_layers) == ("fp32", [])
+    cfg = build_config(TrainerConfig, {"finetune_layers": ["decoder"], "precision": "fp16",
+                                       "resume_from_checkpoint": "run/last.ckpt"})
+    assert (cfg.precision, cfg.finetune_layers) == ("fp16", ["decoder"])
     assert build_config(AttentionConfig, {"context_dim": None}).context_dim is None
     assert build_config(AcousticModelConfig, dict(SMALL, audio_config={"n_fft": 1024}))
 

@@ -115,6 +115,13 @@ def _mqa(card, B, N, M, H, dtype, seed=0):
 GRAD_NAMES = ("dq", "dk", "dv", "dslopes")
 
 
+def _do(card, q, seed):
+    """dL/do of q's shape and dtype from a generator of its own, so that a
+    test's draw does not depend on what ran before it."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(q.shape, generator=gen, device=card).to(q.dtype)
+
+
 def _assert_within(got, ref, bound, skip=(), max_dist=1):
     """Each gradient within ``bound`` of its reference's max-abs. With one
     key (M = 1) p = 1 and ds = dp - delta = 0 in exact arithmetic, so dq, dk
@@ -171,7 +178,7 @@ def test_k2_matches_autograd_through_plain_k1(card, B, N, M, H, offset, causal, 
 
     q, k, v, slopes, key_lens, q_lens = _mqa(card, B, N, M, H, dtype)
     seed = torch.tensor([31], dtype=torch.int32, device=card)
-    w = torch.randn(q.shape, device=card).to(dtype)
+    w = _do(card, q, 1)
 
     def grads(fn):
         args = [x.clone().requires_grad_() for x in (q, k, v, slopes)]
@@ -206,7 +213,7 @@ def test_k2_matches_plain_version_at_tile_edges(card, B, N, M, H, offset, causal
     from isp_tts_tpu_torch.ops.flash_attention import mqa_bwd, mqa_bwd_reference
 
     q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, 1, dtype, seed=2)
-    w = torch.randn(q.shape, device=card).to(dtype)
+    w = _do(card, q, 2)
     seed = torch.tensor([37], dtype=torch.int32, device=card)
     _kernel_vs_plain_bwd(mqa_fwd, mqa_bwd, mqa_bwd_reference, q, k[:, :, 0].contiguous(),
                          v[:, :, 0].contiguous(), slopes, key_lens, q_lens, seed, w, offset,
@@ -248,7 +255,7 @@ def test_k4_matches_plain_version(card, B, M, T):
     lp = torch.from_numpy(rng.randn(B, M, T + 1).astype(np.float32)).log_softmax(-1).to(card)
     tl = torch.from_numpy(rng.randint(1, T + 1, size=B).astype(np.int32)).to(card)
     ml = torch.from_numpy(rng.randint(T, M + 1, size=B).astype(np.int32)).to(card)
-    g = torch.rand((B,), device=card)
+    g = torch.from_numpy(rng.rand(B).astype(np.float32)).to(card)
     neg, ab, al, logz = ctc.ctc_fwd(lp, tl, ml)
     dlp = ctc.ctc_bwd(lp, ab, al, logz, g, tl, ml)
     torch.cuda.synchronize()
@@ -369,7 +376,7 @@ def test_k5b_matches_autograd_through_plain_k5a(card, B, N, M, H, Hkv, offset, c
 
     q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, Hkv, dtype, seed=1)
     seed = torch.tensor([29], dtype=torch.int32, device=card)
-    w = torch.randn(q.shape, device=card).to(dtype)
+    w = _do(card, q, 3)
 
     def grads(fn):
         args = [x.clone().requires_grad_() for x in (q, k, v, slopes)]
@@ -398,7 +405,7 @@ def test_k5b_matches_plain_version_at_tile_edges(card, B, N, M, H, Hkv, offset, 
     from isp_tts_tpu_torch.ops.flash_attention import flash_bwd, flash_bwd_reference, flash_fwd
 
     q, k, v, slopes, key_lens, q_lens = _flash(card, B, N, M, H, Hkv, dtype, seed=2)
-    w = torch.randn(q.shape, device=card).to(dtype)
+    w = _do(card, q, 4)
     seed = torch.tensor([41], dtype=torch.int32, device=card)
     _kernel_vs_plain_bwd(flash_fwd, flash_bwd, flash_bwd_reference, q, k, v, slopes, key_lens,
                          q_lens, seed, w, offset, causal, rate, bound)
@@ -464,3 +471,81 @@ def test_synthesize_audio_on_the_card(card):
         assert w.shape == (n * 256,) and np.isfinite(w).all() and np.abs(w).max() <= 1.0
     long = synth.synthesize_long(" ".join(AUDIO_TEXTS), seed=4)
     assert long.shape == (sum(w.size for w in wavs) + int(0.25 * 22050),)
+
+
+def test_fp16_training_step_runs_the_kernels(card):
+    """``precision: fp16`` on the card: the attention kernels take the fp16
+    values widened to f32; the kernel path's loss terms within 1e-2 of the
+    plain path's (fp16 rounds the products on both), every gradient finite."""
+    import copy
+
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticLossConfig, AcousticModelLoss
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
+    from isp_tts_tpu_torch.nn.attention import Attention
+    from isp_tts_tpu_torch.ops.flash_attention import mqa_fwd
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    layer = {"attention": {"heads": 4, "head_dim": 64, "one_kv_head": True,
+                           "alibi_pos_bias": True}, "feed_forward": {"inner_dim": 256}}
+    stack = {"dim": 128, "depth": 2, "transformer_layer": layer}
+    cfg = {"encoding_map": {c: i for i, c in enumerate(["<pad>", "</s>", *"abcdefgh "])},
+           "mel_dim": 16, "text_dim": 128, "encoder": stack, "decoder": stack,
+           "temporal_adaptor": {"predictor": {"transformer": stack, "time_embedding_dim": 16},
+                                "embedding": {"transformer": stack}, "soft_duration": True},
+           "aligner": {"attention_dim": 16}}
+    torch.manual_seed(0)
+    model = AcousticModel(build_config(AcousticModelConfig, cfg))
+    plain = copy.deepcopy(model)
+    for m in plain.modules():
+        if isinstance(m, Attention):
+            m.flash = "off"
+    rng = np.random.RandomState(5)
+    B, T, M = 4, 24, 96
+    batch = {"text_vector": torch.from_numpy(rng.randint(2, 11, size=(B, T))),
+             "text_vector_len": torch.tensor([24, 20, 13, 9]),
+             "mel": torch.from_numpy(rng.randn(B, M, 16).astype(np.float32)),
+             "mel_len": torch.tensor([96, 80, 60, 40]),
+             "pitch": torch.from_numpy(rng.randn(B, M).astype(np.float32)),
+             "energy": torch.from_numpy(rng.randn(B, M).astype(np.float32))}
+    out = []
+    mqa_fwd.launches = 0
+    for mod in (model, plain):
+        trainer = Trainer(mod, AcousticModelLoss(build_config(AcousticLossConfig, {})),
+                          TrainerConfig(precision="fp16"),
+                          generator=torch.Generator(device=card).manual_seed(4))
+        out.append(trainer.compute_gradients(batch))
+        assert all(torch.isfinite(p.grad).all() for p in mod.parameters())
+    assert mqa_fwd.launches > 0
+    (_, lk, _), (_, lp, _) = out
+    for key in lp:
+        assert abs(lk[key].item() - lp[key].item()) <= 1e-2 * abs(lp[key].item()), key
+
+
+def test_front_end_on_the_card_matches_the_cpu(card):
+    """The batched front end (STFT, log-mel, energy, YIN) on the card
+    against the same on the CPU: mel and energy within 1e-3, pitch voiced
+    on the same frames (at least 99%) and within 1e-3 relative there."""
+    from isp_tts_tpu_torch.ops.frontend import FrontendConfig, extract_features
+
+    rng = np.random.RandomState(6)
+    n = 22050 * 3
+    t = np.arange(n) / 22050
+    f0 = 140 + 40 * np.sin(2 * np.pi * 0.7 * t)
+    audio = np.stack([0.5 * np.sin(2 * np.pi * np.cumsum(f0 * s) / 22050) + 0.01 * rng.randn(n)
+                      for s in (1.0, 1.3, 0.8, 1.7)]).astype(np.float32)
+    lens = np.array([n, n - 5000, n // 2, n - 123], np.int32)
+    cfg = FrontendConfig()
+    cpu = extract_features(torch.from_numpy(audio), torch.from_numpy(lens), cfg, 150.0, 40.0)
+    gpu = extract_features(torch.from_numpy(audio).to(card), torch.from_numpy(lens).to(card),
+                           cfg, 150.0, 40.0)
+    assert torch.equal(cpu.mel_lens, gpu.mel_lens.cpu())
+    assert (cpu.mel - gpu.mel.cpu()).abs().max() <= 1e-3
+    assert (cpu.energy - gpu.energy.cpu()).abs().max() <= 1e-3 * cpu.energy.abs().max()
+    fc, fg = cpu.pitch * 40 + 150, gpu.pitch.cpu() * 40 + 150
+    mask = torch.arange(cpu.mel.shape[1])[None] < cpu.mel_lens[:, None]
+    vc, vg = (fc > 1) & mask, (fg > 1) & mask
+    assert (vc == vg)[mask].float().mean() >= 0.99
+    both = vc & vg
+    assert ((fc - fg).abs()[both] <= 1e-3 * fc[both]).all()

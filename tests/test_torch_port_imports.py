@@ -11,7 +11,7 @@ from isp_tts_tpu_torch.ops import cuda_build
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "isp_tts_tpu_torch"
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "omegaconf",
-           "isp_tts_tpu"]
+           "matplotlib", "isp_tts_tpu"]
 
 _CHILD = """
 import importlib, importlib.abc, json, pkgutil, sys
@@ -42,6 +42,8 @@ def _port_sources():
 
 
 def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
+    """Every module of the port, and the smoke, imports with JAX, flax,
+    optax, msgpack, YAML and matplotlib refused."""
     proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(BLOCKED)],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -53,7 +55,11 @@ def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
                  "models.acoustic.aligner", "models.acoustic.loss",
                  "training.optimizers", "training.trainer", "data.text.table",
                  "serving_server", "synthesize", "models.vocoder", "models.vocoder.model",
-                 "ops.vocoder", "ops.audio", "data.audio"):
+                 "ops.vocoder", "ops.audio", "data.audio", "config.loader", "config.yamlio",
+                 "config.registry", "ops.pitch", "ops.frontend", "data.dataset",
+                 "data.collator", "data.loader", "data.metadata", "data.stats",
+                 "data.providers", "training.callbacks", "training.experiment",
+                 "models.acoustic.evaluator", "utils.plotting", "train"):
         assert f"isp_tts_tpu_torch.{name}" in out["modules"]
 
 

@@ -153,29 +153,44 @@ def test_griffin_lim_path_without_a_vocoder():
 
 
 def test_weights_dtype_bf16_matches_jax(jax_models):
-    """JAX rounds the served weights to bf16. Its vocoder then computes in
-    f32 (a bf16 kernel against f32 activations promotes), as the port's
-    does: 1e-3. Its acoustic model also computes in bf16 from the text
-    embedding on (bf16 against bf16 stays bf16), where the port computes in
-    f32: its mel is held within a tenth of the bf16-to-f32 change JAX shows."""
+    """JAX stores the served weights in bf16 and computes in f32: flax
+    promotes each bf16 kernel against the f32 activations (its text
+    embedding returns f32). The port stores the acoustic model in bf16 (half
+    the bytes) and computes the same way: its mel within 1e-3 of the JAX
+    Synthesizer's served (jitted) program, measured 9.4e-5 on the CPU. Two
+    bf16 computations of this function, JAX's jitted and its op-by-op
+    program, differ by 0.061 here: the bound sits well inside that. The
+    vocoder stores its weights in bf16 too and computes in f32, as JAX's
+    does: 1e-3."""
     jm, jv = jax_models
     pm, pv = _port_models()
+    f32_bytes = [sum(p.numel() * p.element_size() for p in m.parameters()) for m in (pm, pv)]
     synth = Synthesizer(pm, SynthesizerConfig(weights_dtype="bf16"), vocoder=pv)
-    w = synth.vocoder.generator.blocks[0].pwconv1.weight
-    assert w.dtype == torch.float32 and torch.equal(w, w.bfloat16().float())
+    for model, full in zip((synth.model, synth.vocoder), f32_bytes):
+        params = list(model.parameters())
+        assert all(p.dtype == torch.bfloat16 for p in params)
+        assert 2 * sum(p.numel() * p.element_size() for p in params) == full
     jsynth = JSynthesizer(jm, JSynthesizerConfig(weights_dtype="bf16"), vocoder=jv)
     tokens, lens, fb, _ = synth.prepare(TEXTS[:1])
     key = jax.random.PRNGKey(0)
     noise = np.asarray(jax.random.normal(key, tokens.shape + (3,)))
-    jmel16, _ = nnx.merge(jsynth._graphdef, jsynth._state).infer(
-        jnp.asarray(tokens), text_lengths=jnp.asarray(lens), max_dec_len=fb, key=key)
-    jmel32, _ = jm.infer(jnp.asarray(tokens), text_lengths=jnp.asarray(lens),
-                         max_dec_len=fb, key=key)
+    served = nnx.merge(jsynth._graphdef, jsynth._state)
+
+    @nnx.jit
+    def jax_served(m, tok, ln):
+        return m.infer(tok, text_lengths=ln, max_dec_len=fb, key=key)[0]
+
+    jmel16 = np.asarray(jax_served(served, jnp.asarray(tokens), jnp.asarray(lens)), np.float32)
+    jmel16_eager = np.asarray(served.infer(jnp.asarray(tokens), text_lengths=jnp.asarray(lens),
+                                           max_dec_len=fb, key=key)[0], np.float32)
     mel, _ = synth.model.infer(t(tokens).long(), text_lengths=t(lens), max_dec_len=fb,
                                noise=t(noise))
-    control = np.abs(np.asarray(jmel16, np.float32) - np.asarray(jmel32)).max()
-    assert np.abs(mel.numpy() - np.asarray(jmel16, np.float32)).max() <= 0.1 * control
-    jmel = np.asarray(jmel32)
+    assert mel.dtype == torch.float32
+    err = np.abs(mel.numpy() - jmel16).max()
+    control = np.abs(jmel16_eager - jmel16).max()
+    assert err <= 1e-3 and err < 0.1 * control, (err, control)
+    jmel = np.asarray(jm.infer(jnp.asarray(tokens), text_lengths=jnp.asarray(lens),
+                               max_dec_len=fb, key=key)[0])
     jaudio = np.asarray(nnx.merge(jsynth._voc_graphdef, jsynth._voc_state).infer(jnp.asarray(jmel)))
     np.testing.assert_allclose(synth.vocoder.infer(t(jmel)).numpy(), jaudio, atol=1e-3)
 

@@ -28,10 +28,22 @@ from test_serving import TINY
 CHARSET = ["<pad>", "</s>", "#punct", "#en"]
 
 
+def plain_attention(cfg):
+    """``cfg`` with ``flash: off`` in every attention layer: the JAX tests'
+    head dim 8 runs on the plain version (the kernels take 64)."""
+    if isinstance(cfg, dict):
+        out = {k: plain_attention(v) for k, v in cfg.items()}
+        if "heads" in out and "head_dim" in out:
+            out["flash"] = "off"
+        return out
+    return cfg
+
+
 @pytest.fixture(scope="module")
 def server():
     ct = CodingTable.from_charset(CHARSET)
-    cfg = build_config(AcousticModelConfig, dict(TINY, encoding_map=dict(ct.encoding_map)))
+    cfg = build_config(AcousticModelConfig, plain_attention(
+        dict(TINY, encoding_map=dict(ct.encoding_map))))
     torch.manual_seed(0)  # the same weights whatever ran before in this process
     model = AcousticModel(cfg)
     with torch.no_grad():  # durations of ~exp(1.5) - 1 frames a token: no empty answer
@@ -381,3 +393,44 @@ def test_lone_request_skips_batching_window(server):
         assert elapsed < 2.5, f"lone request waited the window: {elapsed:.2f}s"
     finally:
         srv2.stop()
+
+
+class _WarmupProbe:
+    """A synthesizer stand-in that records the thread of each call."""
+
+    sample_rate = 22050
+
+    def __init__(self):
+        self.threads = []
+
+    def warmup(self, batch_sizes=(1,)):
+        self.threads.append(threading.current_thread().name)
+
+
+def test_warmup_runs_on_the_batcher_thread_before_the_socket_serves():
+    """``--warmup`` warms the thread that serves requests (the per-thread
+    first-call costs), and the HTTP thread starts only after it finished."""
+    probe = _WarmupProbe()
+    srv = TTSServer(probe, port=0)
+    started = []
+
+    def warm():
+        started.append(srv._threads[-1].is_alive())  # the HTTP thread
+        probe.warmup(batch_sizes=(1, 8))
+
+    srv.start(warmup=warm)
+    try:
+        assert probe.threads == ["tts-batcher"]
+        assert started == [False] and srv._threads[-1].is_alive()
+    finally:
+        srv.stop()
+
+
+def test_warmup_failure_stops_the_server():
+    def fail():
+        raise RuntimeError("no card")
+
+    srv = TTSServer(_WarmupProbe(), port=0)
+    with pytest.raises(RuntimeError, match="no card"):
+        srv.start(warmup=fail)
+    assert srv._threads == [] and srv._httpd is None

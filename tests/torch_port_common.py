@@ -138,3 +138,61 @@ def flow_draws(key, B, T):
     noise_key, time_key = jax.random.split(key)
     return (np.asarray(jax.random.normal(noise_key, (B, T, 3))),
             np.asarray(jax.random.uniform(time_key, (B,))))
+
+
+#: the JAX end-to-end tests' tiny recipe model, at the head dim the port's
+#: attention kernels take (64) and with every dropout off
+_TINY_LAYER = {"attention": {"heads": 2, "head_dim": 64, "one_kv_head": True,
+                             "alibi_pos_bias": True, "dropout": 0.0},
+               "feed_forward": {"inner_dim": 32, "activation": "gelu", "dropout": 0.0}}
+TINY_MODEL = {
+    "_charset_": ["<pad>", "</s>", "#punct", "#en"],
+    "text_dim": 16,
+    "encoder": {"dim": 16, "depth": 1, "transformer_layer": _TINY_LAYER},
+    "decoder": "${model.encoder}",
+    "temporal_adaptor": {
+        "predictor": {"time_embedding_dim": 8, "transformer": {
+            "dim": 16, "depth": 1, "transformer_layer": _TINY_LAYER}},
+        "embedding": {"transformer": {"dim": 16, "depth": 1, "transformer_layer": _TINY_LAYER}},
+        "soft_duration": True},
+    "aligner": {"attention_dim": 8, "key_kernel_size": 3, "query_kernel_size": 3},
+}
+SR = 22050
+
+
+def write_toy_dataset(root, n: int = 8) -> None:
+    """``n`` short sine-plus-noise WAVs and a ``meta.csv``: the JAX
+    end-to-end tests' toy set, with a vibrato so that pitch statistics have
+    a spread to keep past their outlier cut."""
+    from isp_tts_tpu_torch.data.audio import write_wav
+
+    (root / "wavs").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(0)
+    texts = ["hello there.", "nice day!", "how are you?", "fine thanks.",
+             "testing tts.", "one two three.", "red blue green.", "the end."]
+    lines = []
+    for i in range(n):
+        k = int(SR * (0.3 + 0.05 * (i % 4)))
+        tt = np.arange(k) / SR
+        phase = 2 * np.pi * np.cumsum(130 + 20 * i + 15 * np.sin(2 * np.pi * 4 * tt)) / SR
+        wav = 0.4 * np.sin(phase) + 0.03 * rng.randn(k)
+        write_wav(root / "wavs" / f"u{i}.wav", wav.astype(np.float32), SR)
+        lines.append(f"wavs/u{i}.wav|{texts[i % len(texts)]}")
+    (root / "meta.csv").write_text("\n".join(lines) + "\n")
+
+
+def toy_overrides(root, outdir, **trainer_over) -> dict:
+    """Recipe overrides of ``acoustic/core`` for the toy set, both packages."""
+    return {
+        "dataset": {"root": str(root),
+                    "stats": {"pitch": {"mean": 170.0, "std": 40.0},
+                              "energy": {"mean": 0.0, "std": 1.0}}},
+        "collator": {"text_pad_multiple": 16, "mel_pad_multiple": 32,
+                     "max_mel_len": 64, "max_text_len": 16},
+        "model": TINY_MODEL,
+        "trainer": dict({"output_dir": str(outdir), "experiment_name": "e2e", "label": "run",
+                         "epochs": 1, "batch_size": 4, "eval_batch_size": 4,
+                         "eval_strategy": "no", "save_strategy": "no", "logging_steps": 1,
+                         "progress": False, "log_with": [], "precision": "fp32",
+                         "callbacks": {}}, **trainer_over),
+    }

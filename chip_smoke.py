@@ -31,6 +31,10 @@ how far it got:
              f32 and bf16 with and without dropout, 4 heads, causal with an
              offset, one shared key/value head (bf16 too), and M 3072; then
              K5a and K5b at the tile edges with H and with 1 key/value head.
+   slopes  - the f32 slope gradients of K5b (1 and H key/value heads) and
+             K2 at B 4, N = M = 1024 over 16 draws of dL/do, each within
+             1e-4 of the plain version's scale, beside both sides' distance
+             from the same formula in float64.
 6. slice   - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
              checkpoint, three sentences one at a time and then as one batch,
              with the launch counts zeroed just before and read just after;
@@ -96,8 +100,9 @@ how far it got:
              counts zeroed just before ``train()`` and read just after;
              finite losses, the mel loss of steps 9-16 below that of 1-8,
              finite MCD, durations summing to the mel lengths, the written
-             checkpoint bit-equal to the model; per-step host time, front
-             end per batch, checkpoint save and load, peak memory.
+             checkpoint bit-equal to the model, the WAVs read by the native
+             decoder; per-step host time, front end per batch, checkpoint
+             save and load, peak memory.
 20. resume - a second uninterrupted run (the control) and a run resumed
              from the first's step-8 checkpoint: steps 9-16 and the final
              parameters within twice the control (bit-equal if it is).
@@ -105,6 +110,24 @@ how far it got:
 22. recipe-kernels - K1, K2, K3 and K4 graph-timed at the recipe's shape
              (B 32, text 192 x mel 896) beside their bounds, plain versions
              and library calls.
+
+23. wav-decode - the native C++ decoder's batch against the port's Python
+             reader on 32 of the dataset's WAVs: bit-equal; ms per batch of
+             32 for each.
+24. gan-step - ``vocoder/vocos`` at its widths (generator 512 x 8, MPD
+             periods 2-11 up to 1024 channels, three MRD resolutions, batch
+             16 x 16384) on 128 of the dataset's utterances, warm-started
+             from the committed vocoder: one f32 GAN step on the card against
+             the same step on the CPU (GAN_LOSS_BOUND, GAN_PARAM_BOUND), then
+             two bf16 steps finite; one warm bf16 step under the profiler.
+25. gan-recipe - the same through the CLI (exit 0), then in process: 16
+             steps, evaluating and saving every 8; finite losses, the
+             discriminator's loss of steps 9-16 below that of 1-8, the
+             evaluation mel L1 within GAN_MEL_FACTOR of the warm start's,
+             the checkpoint bit-equal with moments for both branches, the
+             WAVs read by the native decoder; host ms per step, peak
+             memory, checkpoint save and load.
+26. gan-resume - a control run and one resumed from step 8, as phase 20.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -2241,9 +2264,10 @@ def set_args(settings: dict) -> list[str]:
     return args
 
 
-def train_cli(args: list[str], timeout: int = 600) -> subprocess.CompletedProcess:
+def train_cli(args: list[str], timeout: int = 600,
+              recipe: str = RECIPE) -> subprocess.CompletedProcess:
     proc = subprocess.run([sys.executable, "-m", "isp_tts_tpu_torch.train", "--config-name",
-                           RECIPE] + args, cwd=ROOT, capture_output=True, text=True,
+                           recipe] + args, cwd=ROOT, capture_output=True, text=True,
                           timeout=timeout)
     if proc.returncode != 0:
         raise AssertionError(f"train {' '.join(args[:6])} ... exited {proc.returncode}: "
@@ -2303,12 +2327,14 @@ class _ChunkClock:
             self.starts.append(time.perf_counter())
 
 
-def recipe_trainer(settings: dict, out: Path, **trainer):
+def recipe_trainer(settings: dict, out: Path, recipe: str = RECIPE,
+                   base: dict | None = None, **trainer):
     from isp_tts_tpu_torch.training.experiment import ExperimentModules
 
-    over = recipe_overrides({**settings, **RECIPE_SETTINGS, "trainer.output_dir": str(out),
+    base = RECIPE_SETTINGS if base is None else base
+    over = recipe_overrides({**settings, **base, "trainer.output_dir": str(out),
                              **{f"trainer.{k}": v for k, v in trainer.items()}})
-    modules = ExperimentModules(RECIPE, str(ROOT / "recipes"), overrides=over).init_modules()
+    modules = ExperimentModules(recipe, str(ROOT / "recipes"), overrides=over).init_modules()
     clock = _ChunkClock()
     tr = modules.build_trainer(callbacks=[clock])
     clock.trainer = tr
@@ -2363,6 +2389,9 @@ def phase_recipe(t0, settings: dict, out: Path):
             or len(model.encoder.layers) != RECIPE_LAYERS
             or len(model.decoder.layers) != RECIPE_LAYERS or not enc.one_kv_head):
         raise AssertionError(f"the recipe run is not core_fast at its widths: {shape}")
+    from isp_tts_tpu_torch.data.audio import DECODED
+
+    DECODED.update(native=0, python=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launch_counts(reset=True)
@@ -2371,6 +2400,8 @@ def phase_recipe(t0, settings: dict, out: Path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = launch_counts()
+    if DECODED["native"] == 0 or DECODED["python"]:
+        raise AssertionError(f"the loader's WAV decode: {DECODED}")
     evals_made = {k: clock.eval_launches.get(k, 0) for k in launches}
     per_step = {k: (v - evals_made[k]) / RECIPE_STEPS for k, v in launches.items()}
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -2412,7 +2443,8 @@ def phase_recipe(t0, settings: dict, out: Path):
         f" ms per batch of {RECIPE_BATCH} ({ds.frontend_calls} passes on {ds.frontend_device}); "
         f"checkpoint save s {[round(x, 3) for x in trainer.save_seconds]}; eval s per chunk "
         f"{clock.eval_s}; peak memory {peak_mib:.0f} MiB; launches {launches}, of them in "
-        f"the evaluations {evals_made}; the training step's per step {per_step}")
+        f"the evaluations {evals_made}; the training step's per step {per_step}; WAVs "
+        f"decoded natively {DECODED['native']}, by the Python reader {DECODED['python']}")
 
     # the written file, read back with the port's reader
     ckpt = load_checkpoint(trainer.run_dir / "checkpoint_last.ckpt")
@@ -2618,6 +2650,344 @@ def recipe_records(t0, trainer, launches, eval_launches) -> list[dict]:
     return records
 
 
+# ---------------------------------------------------------------- slope gradients
+# The f32 slope gradients of K2 and K5b at B 4, N = M = 1024, H 6, dropout
+# 0.1 (a sum of 4M products ds * dist that cancel to a small total) over 16
+# draws of dL/do, each from a generator of its own: every draw within 1e-4
+# of the plain version's scale (tests/test_torch_port_cuda.py's rule: with
+# one key/value head on dv's scale times the largest distance), and each
+# side's distance from the same formula in float64 read beside it.
+SLOPE_DRAWS = 16
+SLOPE_CASES = (("K5b", 1), ("K5b", 6), ("K2", 1))
+
+
+def phase_slope_draws(t0):
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from torch_bwd_seeds import f64_backward, shares
+
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    B, N, M, H, bound = 4, 1024, 1024, 6, 1e-4
+    for name, hkv in SLOPE_CASES:
+        rng = np.random.RandomState(2)
+        q = torch.from_numpy(rng.randn(B, N, H, 64).astype(np.float32)).cuda()
+        k = torch.from_numpy(rng.randn(B, M, hkv, 64).astype(np.float32)).cuda()
+        v = torch.from_numpy(rng.randn(B, M, hkv, 64).astype(np.float32)).cuda()
+        slopes = torch.from_numpy(rng.rand(2, H).astype(np.float32) * 0.3).cuda()
+        key_lens = torch.tensor([M, M - 100, M // 2, M - 1], dtype=torch.int32).cuda()
+        q_lens = torch.tensor([N, N - 7, N - 300, N // 3], dtype=torch.int32).cuda()
+        per_head = name == "K5b"
+        if not per_head:
+            k, v = k[:, :, 0].contiguous(), v[:, :, 0].contiguous()
+        fwd, bwd, plain = ((fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_reference) if per_head
+                           else (fa.mqa_fwd, fa.mqa_bwd, fa.mqa_bwd_reference))
+        seed = seed_tensor(41)
+        o, lse = fwd(q, k, v, slopes, key_lens, 0.125, 0, q_lens, False, 0.1, seed)
+        worst = {"kernel": 0.0, "kernel/f64": 0.0, "plain/f64": 0.0}
+        for draw in range(SLOPE_DRAWS):
+            gen = torch.Generator(device="cuda").manual_seed(draw)
+            w = torch.randn(q.shape, generator=gen, device="cuda")
+            args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, w, 0.125, 0, False, 0.1)
+            got, ref = bwd(*args), plain(*args)
+            exact = f64_backward(q, k, v, slopes, key_lens, seed, o, lse, w, 0.125, 0, False,
+                                 0.1, per_head)
+            read = {"kernel": shares(got, ref, bound, N)[3],
+                    "kernel/f64": shares(got, exact, bound, N)[3],
+                    "plain/f64": shares(ref, exact, bound, N)[3]}
+            worst = {key: max(worst[key], read[key]) for key in worst}
+            if read["kernel"] > 1.0:
+                raise AssertionError(f"{name} Hkv={hkv} draw {draw}: dslopes at "
+                                     f"{read['kernel']:.3f} of its 1e-4 allowance")
+            del got, ref, exact
+        torch.cuda.empty_cache()
+        say("slopes", t0, f"{name} f32 B={B} N=M={N} H={H} Hkv={hkv} dropout 0.1, "
+            f"{SLOPE_DRAWS} draws: dslopes max share of the 1e-4 allowance " + ", ".join(
+                f"{key} {val:.3f}" for key, val in worst.items()))
+
+
+# ---------------------------------------------------------------- vocoder GAN
+GAN_RECIPE = "vocoder/vocos"
+GAN_STEPS, GAN_EVERY = 16, 8
+GAN_BATCH, GAN_SEGMENT = 16, 16384  # the recipe's batch and segment
+GAN_TRAIN = 128  # utterances: one epoch is 8 steps, so step 8 ends an epoch
+GAN_DIM, GAN_LAYERS = 512, 8  # the recipe's generator width and depth
+#: the smoke's GAN runs: the recipe at its widths, warm-started from the
+#: committed vocoder (its generator; the discriminators from the seed), 16
+#: steps, evaluating (2 batches, and once before the first step) and saving
+#: every 8
+GAN_SETTINGS = {
+    "trainer.max_steps": GAN_STEPS, "trainer.batch_size": GAN_BATCH,
+    "trainer.eval_batch_size": GAN_BATCH, "trainer.eval_steps": GAN_EVERY,
+    "trainer.save_steps": GAN_EVERY, "trainer.eval_batches": 2,
+    "trainer.eval_first_step": True, "trainer.logging_steps": 1, "trainer.log_with": [],
+    "trainer.label": "smoke", "trainer.resume_from_checkpoint": str(VOCODER),
+    "trainer.warm_start": True, "trainer.metric_for_best_model": None,
+}
+# one f32 GAN step on the card against the same step on the CPU (TF32 off):
+# each loss term and gradient norm within GAN_LOSS_BOUND of the CPU's; every
+# updated parameter within GAN_PARAM_BOUND of it, but for at most
+# GAN_FLIP_SHARE of them, which may differ by up to two first AdamW updates
+# (2 x lr): the first update is lr * g / (|g| + eps), about lr * sign(g), so
+# a gradient within the two devices' rounding of zero flips it (1.7e-4 of
+# the parameters flip on an NVIDIA H100 80GB HBM3; PERF.md section 6)
+GAN_LOSS_BOUND = 1e-4
+GAN_PARAM_BOUND = 1e-5
+GAN_FLIP_SHARE = 1e-3
+# the generator's evaluation mel L1 after 16 steps against the warm start's
+# (0.2074 against 0.2513, 0.83x, on an NVIDIA H100 80GB HBM3; PERF.md
+# section 6: the fresh discriminators' first steps may move it either way)
+GAN_MEL_FACTOR = 1.25
+
+
+def gan_data(data: dict) -> dict:
+    """The recipe's dataset settings on the dataset phase's WAVs: the first
+    GAN_TRAIN training utterances (meta_gan.csv) and the 64 validation ones."""
+    root = Path(data["dataset.root"])
+    lines = (root / "meta_train.csv").read_text().splitlines()[:GAN_TRAIN]
+    (root / "meta_gan.csv").write_text("\n".join(lines) + "\n")
+    return {"dataset.root": str(root), "dataset._train_.meta_name": "meta_gan.csv",
+            "dataset._eval_.meta_name": "meta_valid.csv"}
+
+
+def phase_wav_decode(t0, data: dict) -> None:
+    """The native decoder's batch against the port's Python reader on 32 of
+    the dataset's WAVs: bit-equal, and each reader's ms per batch of 32."""
+    from isp_tts_tpu_torch.data.audio import DECODED, load_audio, load_audio_batch
+
+    root = Path(data["dataset.root"])
+    paths = [root / line.split("|")[0]
+             for line in (root / "meta_train.csv").read_text().splitlines()[:32]]
+    before = dict(DECODED)
+    native = load_audio_batch(paths, 22050, native=True)
+    python = [load_audio(p, 22050, native=False) for p in paths]
+    if DECODED["native"] - before["native"] != 32 or DECODED["python"] - before["python"] != 32:
+        raise AssertionError(f"readers {DECODED} (before {before})")
+    for p, a, b in zip(paths, native, python):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{p.name}: the native decode is not bit-equal to the Python "
+                                 "reader's")
+    times = {}
+    for name, fn in (("native", lambda: load_audio_batch(paths, 22050, native=True)),
+                     ("python", lambda: [load_audio(p, 22050, native=False) for p in paths])):
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        times[name] = 1e3 * (time.perf_counter() - t) / 5
+    say("wav-decode", t0, f"32 WAVs ({sum(len(a) for a in native) / 22050:.1f} s of audio) "
+        f"bit-equal; ms per batch of 32: native {times['native']:.2f} (thread pool), Python "
+        f"reader {times['python']:.2f}")
+
+
+def gan_modules(settings: dict, out: Path, device: str, **trainer):
+    from isp_tts_tpu_torch.training.experiment import ExperimentModules
+
+    over = recipe_overrides({**settings, **GAN_SETTINGS, "trainer.output_dir": str(out),
+                             **{f"trainer.{k}": v for k, v in trainer.items()}})
+    return ExperimentModules(GAN_RECIPE, str(ROOT / "recipes"), overrides=over,
+                             device=device).init_modules()
+
+
+def check_gan_widths(model) -> None:
+    gen, disc = model.generator, model.discriminator
+    if (gen.config.dim != GAN_DIM or len(gen.blocks) != GAN_LAYERS
+            or len(disc.period_discs) != 5 or len(disc.resolution_discs) != 3
+            or disc.config.mpd_channels[-1] != 1024):
+        raise AssertionError("the GAN run is not vocoder/vocos at its widths")
+
+
+def phase_gan_step(t0, settings: dict, out: Path):
+    """One f32 GAN step at the recipe's widths on the card against the same
+    step on the CPU (same weights, same batch), then the card's bf16 step
+    finite. Returns the bf16 trainer and its batch."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gan_modules(settings, out / "card", "cuda", precision="fp32").build_trainer()
+    cpu = gan_modules(settings, out / "cpu", "cpu", precision="fp32").build_trainer()
+    check_gan_widths(card.model)
+    before = card.model.jax_state()
+    for key, arr in cpu.model.jax_state().items():
+        if not np.array_equal(arr, before[key]):
+            raise AssertionError(f"card and CPU models differ before the step at {key}")
+    batch = next(iter(card.train_loader))
+    if batch["audio"].shape != (GAN_BATCH, GAN_SEGMENT):
+        raise AssertionError(f"batch {batch['audio'].shape}")
+    lr = card.schedule(0, 0)
+    results = []
+    for tr in (card, cpu):
+        tr._set_lr(lr)
+        if tr is card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics, _ = tr._update(batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        results.append((metrics, time.perf_counter() - t))
+    (got, card_s), (ref, cpu_s) = results
+    loss_err = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref}
+    after_card, after_cpu = card.model.jax_state(), cpu.model.jax_state()
+    diffs = np.concatenate([np.abs(after_card[k] - after_cpu[k]).ravel() for k in after_cpu])
+    moved = max(float(np.abs(after_cpu[k] - before[k]).max()) for k in after_cpu)
+    past = int((diffs > GAN_PARAM_BOUND).sum())
+    say("gan-step", t0, f"{GAN_RECIPE} at its widths ({sum(p.numel() for p in card.model.generator.parameters()) / 1e6:.2f}M "
+        f"generator, {sum(p.numel() for p in card.model.discriminator.parameters()) / 1e6:.2f}M "
+        f"discriminator parameters), batch {GAN_BATCH} x {GAN_SEGMENT}, f32, one step on the "
+        f"card against the CPU: metrics {', '.join(f'{k} {got[k]:.6g}' for k in got)}; "
+        f"relative errors {', '.join(f'{k} {v:.2e}' for k, v in loss_err.items())} (bound "
+        f"{GAN_LOSS_BOUND:.0e}); parameters moved up to {moved:.3e}, card against CPU max "
+        f"{diffs.max():.3e}, {past} of {diffs.size} past {GAN_PARAM_BOUND:.0e} (at most "
+        f"{GAN_FLIP_SHARE:.0e} of them, each within 2 x lr); step {1e3 * card_s:.1f} ms on "
+        f"the card (first, cold), {cpu_s:.1f} s on the CPU")
+    if (max(loss_err.values()) > GAN_LOSS_BOUND or past > GAN_FLIP_SHARE * diffs.size
+            or diffs.max() > 2 * lr + GAN_PARAM_BOUND):
+        raise AssertionError("the card's GAN step left the CPU's")
+    del cpu, card
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    bf16 = gan_modules(settings, out / "bf16", "cuda").build_trainer()
+    if bf16.config.precision != "bf16":
+        raise AssertionError(f"the recipe's precision is {bf16.config.precision}")
+    batch = next(iter(bf16.train_loader))
+    hist = bf16.train([batch], 2)
+    bad = [k for h in hist for k, v in h.items() if not np.isfinite(v)]
+    state = bf16.model.jax_state()
+    bad += [k for k, v in state.items() if not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"the bf16 GAN steps are not finite: {bad[:5]}")
+    say("gan-step", t0, "bf16 (the recipe's precision), two steps on the card: finite, "
+        + ", ".join(f"{k} {v:.5g}" for k, v in hist[-1].items()))
+    return bf16, batch
+
+
+def phase_gan_recipe(t0, settings: dict, out: Path):
+    """``vocoder/vocos`` at its widths through the CLI, then in process;
+    the native decoder read every WAV of the in-process run."""
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.data.audio import DECODED
+    from isp_tts_tpu_torch.training.gan_trainer import BRANCHES
+    from isp_tts_tpu_torch.training.optimizers import jax_param_name, keystr
+
+    t = time.perf_counter()
+    train_cli(set_args({**settings, **GAN_SETTINGS, "trainer.output_dir": str(out / "cli")}),
+              recipe=GAN_RECIPE)
+    cli_s = time.perf_counter() - t
+    cli_ckpt = out / "cli" / "VocoderModel" / "smoke" / "checkpoint_last.ckpt"
+    if load_checkpoint(cli_ckpt)["experiment"]["state"]["global_step"] != GAN_STEPS:
+        raise AssertionError("the CLI run did not take its steps")
+    shutil.rmtree(out / "cli")
+    say("gan-recipe", t0, f"python -m isp_tts_tpu_torch.train --config-name {GAN_RECIPE} "
+        f"({GAN_STEPS} steps, eval and save every {GAN_EVERY}): exit 0 in {cli_s:.1f} s")
+
+    DECODED.update(native=0, python=0)
+    trainer, clock = recipe_trainer(settings, out / "run", recipe=GAN_RECIPE, base=GAN_SETTINGS)
+    model = trainer.model
+    check_gan_widths(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if DECODED["native"] == 0 or DECODED["python"]:
+        raise AssertionError(f"the loader's WAV decode: {DECODED}")
+    if any(launches.values()):
+        raise AssertionError(f"the GAN path launched attention or DP kernels: {launches}")
+    disc = step_losses(trainer, "train_step/losses/disc")
+    gen = step_losses(trainer, "train_step/loss")
+    bad = [k for h in trainer.state.log_history for k, v in h.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad or sorted(disc) != list(range(1, GAN_STEPS + 1)):
+        raise AssertionError(f"non-finite or missing step metrics: {bad}, steps {sorted(disc)}")
+    first = np.mean([disc[s] for s in range(1, GAN_EVERY + 1)])
+    last = np.mean([disc[s] for s in range(GAN_EVERY + 1, GAN_STEPS + 1)])
+    evals = {h["step"]: h for h in trainer.state.log_history if "eval/losses/mel" in h}
+    mel0, mel16 = evals[0]["eval/losses/mel"], evals[GAN_STEPS]["eval/losses/mel"]
+    say("gan-recipe", t0, f"in process: {GAN_STEPS} steps in {wall:.2f} s; losses/disc per "
+        "step " + ", ".join(f"{disc[s]:.4f}" for s in sorted(disc)) + f" (steps 1-{GAN_EVERY} "
+        f"mean {first:.4f}, {GAN_EVERY + 1}-{GAN_STEPS} mean {last:.4f}); generator loss "
+        + ", ".join(f"{gen[s]:.3f}" for s in sorted(gen)) + "; evaluation mel L1 "
+        + ", ".join(f"step {s} {h['eval/losses/mel']:.4f}" for s, h in sorted(evals.items()))
+        + ", spectral convergence " + ", ".join(
+            f"{h.get('eval/metrics/spectral_convergence', float('nan')):.4f}"
+            for _, h in sorted(evals.items()))
+        + f"; WAVs decoded natively {DECODED['native']}, by the Python reader "
+        f"{DECODED['python']}")
+    if not last < first:
+        raise AssertionError("the discriminator's loss did not fall")
+    if not mel16 <= GAN_MEL_FACTOR * mel0:
+        raise AssertionError(f"evaluation mel L1 {mel16:.4f} past {GAN_MEL_FACTOR} x the warm "
+                             f"start's {mel0:.4f}")
+    # host time per step: the step starts (synced), less evaluations and saves
+    step_ms = np.diff(clock.starts + [t + wall]) * 1e3
+    step_ms = [round(float(c - 1e3 * (clock.eval_s.get(i, 0.0) + clock.save_s.get(i, 0.0))), 2)
+               for i, c in enumerate(step_ms) if i > 0]
+    say("gan-recipe", t0, f"host ms per GAN step (steps 2-{GAN_STEPS}, synced at step starts, "
+        f"eval and save left out) {step_ms}, median {np.median(step_ms):.2f}; checkpoint save "
+        f"s {[round(x, 3) for x in trainer.save_seconds]}; eval s {clock.eval_s}; peak memory "
+        f"{peak_mib:.0f} MiB")
+
+    ckpt = load_checkpoint(trainer.run_dir / "checkpoint_last.ckpt")
+    state = model.jax_state()
+    if ckpt["model"]["class"] != "VocoderModel" or set(ckpt["model"]["state"]) != set(state):
+        raise AssertionError("checkpoint_last.ckpt: wrong class or tensor names")
+    for name, arr in state.items():
+        if not np.array_equal(ckpt["model"]["state"][name], arr):
+            raise AssertionError(f"checkpoint_last.ckpt: {name} is not bit-equal")
+    keyed = ckpt["optimizer"]["keyed"]
+    for key, branch in BRANCHES:
+        module = getattr(model, branch)
+        missing = [n for n, _ in module.named_parameters()
+                   if not any(k.startswith(f"['{key}']") and ".mu" in k
+                              and k.endswith(keystr(jax_param_name(module, n)[0]))
+                              for k in keyed)]
+        if missing:
+            raise AssertionError(f"{branch}: optimizer moments missing for {missing[:5]}")
+    return trainer
+
+
+def phase_gan_resume(t0, settings: dict, out: Path, first) -> None:
+    """A second uninterrupted GAN run (the control) and one resumed from the
+    first's step-8 checkpoint: steps 9-16 and the final parameters within
+    twice the control (bit-identical if it is)."""
+    import torch
+
+    # these two write only their final checkpoint (~660 MB, ~5.5 s each)
+    second, _ = recipe_trainer(settings, out / "control", recipe=GAN_RECIPE, base=GAN_SETTINGS,
+                               eval_first_step=False, save_strategy="no")
+    second.train()
+    ckpt = first.run_dir / f"checkpoint_s{GAN_EVERY}.ckpt"
+    resumed, _ = recipe_trainer(settings, out / "resumed", recipe=GAN_RECIPE, base=GAN_SETTINGS,
+                                resume_from_checkpoint=str(ckpt), warm_start=False,
+                                eval_first_step=False, save_strategy="no")
+    if resumed.state.global_step != GAN_EVERY:
+        raise AssertionError(f"resumed at step {resumed.state.global_step}")
+    resumed.train()
+    torch.cuda.synchronize()
+    steps = range(GAN_EVERY + 1, GAN_STEPS + 1)
+    la, lb, lc = (step_losses(x) for x in (first, second, resumed))
+    loss_ctl = max(abs(lb[s] - la[s]) for s in steps)
+    loss_err = max(abs(lc[s] - la[s]) for s in steps)
+    pa, pb, pc = (x.model.jax_state() for x in (first, second, resumed))
+    param_ctl = max(float(np.abs(pb[k] - pa[k]).max()) for k in pa)
+    param_err = max(float(np.abs(pc[k] - pa[k]).max()) for k in pa)
+    exact = loss_ctl == 0.0 and param_ctl == 0.0
+    ok = (loss_err == 0.0 and param_err == 0.0) if exact else (
+        loss_err <= 2 * loss_ctl and param_err <= 2 * param_ctl)
+    say("gan-resume", t0, f"steps {steps.start}-{steps.stop - 1}: generator loss max |resumed "
+        f"- first| {loss_err:.3e}, control |second - first| {loss_ctl:.3e}; final parameters "
+        f"{param_err:.3e}, control {param_ctl:.3e} (bound 2x control"
+        f"{', bit-identical' if exact else ''}); checkpoint load {resumed.load_seconds:.3f} s")
+    if not ok:
+        raise AssertionError("the resumed GAN run left the uninterrupted one")
+
+
 def main() -> int:
     import torch
 
@@ -2629,6 +2999,7 @@ def main() -> int:
     phase_kernel(t0)
     phase_kernel_train(t0)
     phase_kernel_mha(t0)
+    phase_slope_draws(t0)
     synth, serve_launches, reference = phase_slice(t0)
     phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
     phase_profile(t0, lambda: synth(SENTENCES), "batch of 3")
@@ -2666,6 +3037,17 @@ def main() -> int:
                       f"one recipe training step ({RECIPE_TEXT} x {RECIPE_MEL}, bf16)")
         records += recipe_records(t0, recipe, recipe_launches, recipe_eval_launches)
         del recipe
+        torch.cuda.empty_cache()
+        phase_wav_decode(t0, data)
+        gdata = gan_data(data)
+        gan_bf16, gan_batch = phase_gan_step(t0, gdata, work / "gan_step")
+        phase_profile(t0, lambda: gan_bf16.train([gan_batch], 1),
+                      f"one GAN step ({GAN_RECIPE}, batch {GAN_BATCH} x {GAN_SEGMENT}, bf16)")
+        del gan_bf16
+        shutil.rmtree(work / "gan_step", ignore_errors=True)
+        gan = phase_gan_recipe(t0, gdata, work / "gan")
+        phase_gan_resume(t0, gdata, work / "gan", gan)
+        del gan
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say("done", t0)

@@ -18,7 +18,15 @@
 //      (pv, K read transposed). It writes delta for pass 2 and sums the
 //      slope gradients: per element ds * dist by triangle, per row in
 //      registers, over the block in a fixed order, then one float atomic
-//      per (head, block, triangle).
+//      per (head, block, triangle). The terms of a slope's sum (B * N * M
+//      of them) cancel to a small total, so in the f32 kernels this pass
+//      takes each logit less lse in float64 (the slopes, the scale and lse
+//      in float64): the rounding of their base-2 forms, one per head and
+//      one per row, enters every term of a head or row alike and piled up
+//      coherently over the sum, to 1.6x the plain version's distance from
+//      float64 (PERF.md section 6; float64 sums of the f32 logits' terms
+//      did not move that). The bf16 kernels keep f32 logits (their register
+//      budget is spent).
 //   2. dk/dv pass, key-stationary: one block per 64 keys (and per head,
 //      K5b with Hkv = H), each warp keeping its 16 keys' K and V as A
 //      fragments. Row tiles of 64 queries of one head (Q, dO, lse, delta)
@@ -59,6 +67,8 @@
 #include "attention_mma.cuh"
 
 namespace {
+
+constexpr double LOG2E_D = 1.4426950408889634;
 
 // bf16 P and dS terms in pv: hi + lo (1 would round them to bf16)
 constexpr int BWD_TERMS = 2;
@@ -129,6 +139,7 @@ struct BwdRow {
   uint32_t hseed;  // dropout hash index of key 0, plus the seed
   float lse2;      // lse in base 2 (+inf: a dead row)
   float delta;     // rowsum(dO * O)
+  double lo2d, hi2d, lse2d;  // f32 kernels: the same from float64 products
 };
 
 template <typename T, typename Rows>
@@ -151,6 +162,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   const uint32_t thresh24 = static_cast<uint32_t>(p.thresh) << 24;  // keep: hash < this
   const uint32_t seed = static_cast<uint32_t>(p.seed[0]);
   const float scale2 = p.scale * LOG2E;
+  const double scale2d = static_cast<double>(p.scale) * LOG2E_D;
 
   // the keys a span of tile rows [i0, i1] needs: [0, kend)
   auto needed = [&](int i0, int i1) {
@@ -185,6 +197,10 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
       r.lim = p.causal ? min(key_len, max(r.nb + 1, 0)) : key_len;
       r.lo2 = p.slopes[h] * LOG2E;
       r.hi2 = p.slopes[p.H + h] * LOG2E;
+      if constexpr (sizeof(T) == 4) {
+        r.lo2d = static_cast<double>(p.slopes[h]) * LOG2E_D;
+        r.hi2d = static_cast<double>(p.slopes[p.H + h]) * LOG2E_D;
+      }
       r.hseed = rows.hash_base(i) + seed;
       // delta over this thread's 16 dims of the row, then over the quad
       float part = 0.f;
@@ -203,6 +219,10 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       r.delta = part;
       r.lse2 = r.in_range ? p.lse[rows.lse_index(i)] * LOG2E : INFINITY;
+      if constexpr (sizeof(T) == 4) {
+        r.lse2d = r.in_range ? static_cast<double>(p.lse[rows.lse_index(i)]) * LOG2E_D
+                             : static_cast<double>(INFINITY);
+      }
       if (r.in_range && t == 0) p.delta[rows.lse_index(i)] = part;
       const bool used = r.in_range && warp_kend > 0;
       qrow[half] = used ? q + rows.q_offset(i) : nullptr;
@@ -276,15 +296,22 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float dist = d0 + static_cast<float>(8 * j + e);  // exact
-            float x;
-            if (full) {
-              x = fmaf(s[j][2 * half + e], scale2, sl * dist);
+            float pr;
+            if constexpr (sizeof(T) == 4) {  // the logit less lse in float64
+              const double xd = fma(static_cast<double>(s[j][2 * half + e]), scale2d,
+                                    (dist <= 0.f ? r.lo2d : -r.hi2d) * dist) - r.lse2d;
+              pr = full || cb + 8 * j + e < r.lim ? fast_exp2(static_cast<float>(xd)) : 0.f;
             } else {
-              const float slope = dist <= 0.f ? r.lo2 : -r.hi2;
-              x = cb + 8 * j + e < r.lim ? fmaf(s[j][2 * half + e], scale2, slope * dist)
-                                         : ATT_NEG_INF;
+              float x;
+              if (full) {
+                x = fmaf(s[j][2 * half + e], scale2, sl * dist);
+              } else {
+                const float slope = dist <= 0.f ? r.lo2 : -r.hi2;
+                x = cb + 8 * j + e < r.lim ? fmaf(s[j][2 * half + e], scale2, slope * dist)
+                                           : ATT_NEG_INF;
+              }
+              pr = fast_exp2(x - r.lse2);
             }
-            const float pr = fast_exp2(x - r.lse2);
             float dpv = dp[j][2 * half + e];
             if (drop) {  // dropped probabilities carry no gradient
               const uint32_t u = keep_mix(u0 + static_cast<uint32_t>(8 * j + e) * KEEP_MUL);

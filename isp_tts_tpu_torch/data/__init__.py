@@ -7,6 +7,9 @@ COLLATORS = Registry("collators")
 
 from .collator import AcousticCollator  # noqa: E402
 from .dataset import AcousticDataset  # noqa: E402
+from .vocoder import VocoderCollator, VocoderDataset  # noqa: E402
 
 DATASETS.add("AcousticDataset", AcousticDataset)
 COLLATORS.add("AcousticCollator", AcousticCollator)
+DATASETS.add("VocoderDataset", VocoderDataset)
+COLLATORS.add("VocoderCollator", VocoderCollator)

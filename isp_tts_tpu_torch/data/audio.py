@@ -1,10 +1,15 @@
-"""WAV read and write with the standard library's ``wave`` module.
+"""WAV read and write: the native decoder, and the standard library's
+``wave`` module.
 
 Counterpart of ``isp_tts_tpu/data/audio.py``: 8-, 16-, 24- and 32-bit PCM
-in, 16-bit PCM out; mono downmix and resampling on load. The JAX package
-decodes through its native C++ library when it is built and falls back to
-this same stdlib reader, with the same result; the port reads with the
-stdlib alone. Resampling (only on a rate mismatch) is scipy's
+and float32 in (float32 natively only), 16-bit PCM out; mono downmix and
+resampling on load. :func:`load_audio` and :func:`load_audio_batch` decode
+through the native C++ library (:mod:`isp_tts_tpu_torch.native`, the batch
+on its thread pool), bit-equal to :func:`read_wav`; a build or load failure
+raises. The Python reader reads a file only when the caller asks
+(``native=False``, or ``ISP_TTS_TPU_NATIVE=0``) or when the native parser
+refuses the file's codec, as in the JAX package. ``DECODED`` counts the
+files each reader decoded. Resampling (only on a rate mismatch) is scipy's
 ``resample_poly``, imported when it is needed.
 """
 
@@ -69,15 +74,64 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
 
 
-def load_audio(path: str | Path, sample_rate: int | None = None) -> np.ndarray:
-    """A WAV file -> mono float32 (N,), resampled to ``sample_rate`` if given."""
+#: files decoded by each reader since the counts were last set to 0
+DECODED = {"native": 0, "python": 0}
+
+
+def _python_mono(path) -> tuple[np.ndarray, int]:
     x, sr = read_wav(path)
-    mono = x.mean(axis=0) if x.shape[0] > 1 else x[0]
+    DECODED["python"] += 1
+    return (x.mean(axis=0) if x.shape[0] > 1 else x[0]), sr
+
+
+def _native_mono(path) -> tuple[np.ndarray, int]:
+    from .. import native
+
+    try:
+        mono, sr = native.decode_wav_mono(path)
+    except native.WavDecodeError as e:
+        if set(e.codes.values()) != {native.ERR_CODEC}:
+            raise
+        # a codec the native parser does not take: the Python reader reads
+        # the file or raises its own error, as in the JAX package
+        return _python_mono(path)
+    DECODED["native"] += 1
+    return mono, sr
+
+
+def _finish(mono: np.ndarray, sr: int, sample_rate: int | None) -> np.ndarray:
     if sample_rate is not None and sr != sample_rate:
         mono = resample(mono, sr, sample_rate)
     return np.ascontiguousarray(mono, dtype=np.float32)
 
 
-def load_audio_batch(paths, sample_rate: int | None = None) -> list[np.ndarray]:
-    """:func:`load_audio` of each path."""
-    return [load_audio(p, sample_rate) for p in paths]
+def _use_native(native: bool | None) -> bool:
+    from .. import native as _native
+
+    return _native.enabled() if native is None else bool(native)
+
+
+def load_audio(path: str | Path, sample_rate: int | None = None,
+               native: bool | None = None) -> np.ndarray:
+    """A WAV file -> mono float32 (N,), resampled to ``sample_rate`` if
+    given. ``native`` False reads with the Python reader (None: the
+    native decoder unless ``ISP_TTS_TPU_NATIVE=0``)."""
+    mono, sr = _native_mono(path) if _use_native(native) else _python_mono(path)
+    return _finish(mono, sr, sample_rate)
+
+
+def load_audio_batch(paths, sample_rate: int | None = None,
+                     native: bool | None = None) -> list[np.ndarray]:
+    """:func:`load_audio` of each path, the decode of the whole batch on the
+    native thread pool; when a file fails there, each file is read again
+    alone (a refused codec then goes to the Python reader)."""
+    if not _use_native(native):
+        return [load_audio(p, sample_rate, native=False) for p in paths]
+    from .. import native as _native
+
+    try:
+        decoded = _native.decode_wav_batch(paths)
+    except _native.WavDecodeError:
+        return [load_audio(p, sample_rate, native=True) for p in paths]
+    DECODED["native"] += len(decoded)
+    return [_finish(mono, sr, sample_rate) for mono, sr in decoded]

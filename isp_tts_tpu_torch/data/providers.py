@@ -9,6 +9,7 @@ features are read where a path is given instead of audio.
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -196,21 +197,38 @@ class TextProviderConfig:
 
 
 class TextProvider:
-    """Token ids from a coding table, or from a checkpoint's ``encoding_map``."""
+    """Token ids from a coding table, or from a checkpoint's
+    ``encoding_map``. With ``phonemizer`` the text goes through espeak-ng
+    (or the injected ``phonemizer_backend``); ``mask_phonemes`` keeps that
+    share of word groups as graphemes, per word (``word_level_prob``) or,
+    otherwise, for the whole utterance with that probability, drawn from
+    Python's ``random`` (or ``rng``) as the JAX package draws."""
 
     def __init__(self, coding_table: CodingTable | dict, phonemizer: bool = False,
-                 cleaners: list | None = None):
-        self.text_processor = TextProcessor(cleaners, phonemizer=phonemizer)
+                 cleaners: list | None = None, language: str = "en-us",
+                 mask_phonemes: float | bool = False, word_level_prob: bool = True,
+                 phonemizer_backend=None):
+        self.text_processor = TextProcessor(cleaners, language=language, phonemizer=phonemizer,
+                                            phonemizer_backend=phonemizer_backend)
         self.coding_table = (coding_table if isinstance(coding_table, CodingTable)
                              else CodingTable.from_encoding_map(coding_table))
+        self.mask_phonemes = mask_phonemes
+        self.word_level_prob = word_level_prob
 
     @classmethod
-    def from_config(cls, config: TextProviderConfig) -> "TextProvider":
+    def from_config(cls, config: TextProviderConfig, phonemizer_backend=None) -> "TextProvider":
         if config.charset is None:
             raise ValueError("TextProvider requires a charset")
-        return cls(CodingTable.from_charset(config.charset), phonemizer=config.phonemizer)
+        return cls(CodingTable.from_charset(config.charset), phonemizer=config.phonemizer,
+                   language=config.language, mask_phonemes=config.mask_phonemes,
+                   word_level_prob=config.word_level_prob,
+                   phonemizer_backend=phonemizer_backend)
 
-    def __call__(self, text: str) -> np.ndarray:
+    def __call__(self, text: str, rng: random.Random | None = None) -> np.ndarray:
         """int32 token ids of ``text``, end-of-sentence token included."""
-        processed = self.coding_table.check_eos(self.text_processor(text))
+        mask = self.mask_phonemes
+        if mask and not self.word_level_prob:
+            r = rng.random() if rng is not None else random.random()
+            mask = r < float(mask)
+        processed = self.coding_table.check_eos(self.text_processor(text, mask_phonemes=mask))
         return np.asarray(self.coding_table.text_to_vector(processed), np.int32)

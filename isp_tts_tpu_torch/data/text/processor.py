@@ -1,6 +1,7 @@
-"""Text processing: cleaners, the always-on punctuation corrector, then
-lowercase (counterpart of ``isp_tts_tpu/data/text/processor.py`` without
-its phonemizer, which is not ported yet)."""
+"""Text processing: cleaners, the always-on punctuation corrector,
+lowercase, then the phonemizer when one is asked for (counterpart of
+``isp_tts_tpu/data/text/processor.py``). ``phonemizer=True`` builds
+espeak-ng's backend; ``phonemizer_backend`` injects another one."""
 
 from __future__ import annotations
 
@@ -11,18 +12,24 @@ from .cleaners import CLEANERS, punct_corrector
 
 class TextProcessor:
     def __init__(self, cleaners: list[str | Callable] | None = None,
-                 phonemizer: bool = False):
-        if phonemizer:
-            raise NotImplementedError(
-                "the phonemizer path is not ported yet (ROADMAP Queue 1 item 2, "
-                "the data pipeline)")
+                 language: str = "en-us", phonemizer: bool = False,
+                 phonemizer_backend=None):
         self.cleaners = [CLEANERS[c] if isinstance(c, str) else c
                          for c in cleaners or []] + [punct_corrector]
+        self.language = language
+        self.phonemizer = None
+        if phonemizer or phonemizer_backend is not None:
+            from .phonemes import Phonemizer
 
-    def __call__(self, text: str) -> str:
+            self.phonemizer = Phonemizer(language=language, backend=phonemizer_backend)
+
+    def __call__(self, text: str, mask_phonemes: bool | float = False) -> str:
         for cleaner in self.cleaners:
             text = cleaner(text)
-        return text.lower()
+        text = text.lower()
+        if self.phonemizer is not None:
+            text = self.phonemizer(text, mask_phonemes=mask_phonemes)
+        return text
 
 
 def process_text(text: str) -> str:

@@ -69,8 +69,9 @@ class Model(nn.Module):
             return True
         return any(name.startswith(e) for e in self.frozen_prefixes[1:])
 
-    def jax_names(self) -> dict[str, tuple[str, bool]]:
-        """Port state name -> (JAX flat name, layout reversed)."""
+    def jax_names(self) -> dict[str, tuple[str, bool | tuple]]:
+        """Port state name -> (JAX flat name, its layout there:
+        :func:`~isp_tts_tpu_torch.training.optimizers.to_jax_array`)."""
         from ..training.optimizers import jax_param_name
 
         params = dict(self.named_parameters())
@@ -80,12 +81,14 @@ class Model(nn.Module):
     def jax_state(self) -> dict[str, np.ndarray]:
         """Parameters and buffers as the JAX package's flat state: its
         names, its layouts, float32."""
+        from ..training.optimizers import to_jax_array
+
         own = self.state_dict()
         out = {}
-        for name, (jname, reverse) in self.jax_names().items():
+        for name, (jname, layout) in self.jax_names().items():
             arr = own[name].detach().cpu()
             arr = (arr.float() if arr.is_floating_point() else arr).numpy()
-            out[jname] = np.array(arr.T if reverse else arr, order="C")
+            out[jname] = np.array(to_jax_array(arr, layout), order="C")
         return out
 
     def load_params(self, flat: dict[str, np.ndarray], ignore_layers: list[str] | None = None,
@@ -94,6 +97,8 @@ class Model(nn.Module):
         keys holding an ``ignore_layers`` substring are skipped, unknown keys
         warned about, shape-mismatched ones skipped (or raised on), and
         tensors not given keep their values."""
+        from ..training.optimizers import from_jax_array
+
         names = {jname: (name, rev) for name, (jname, rev) in self.jax_names().items()}
         own = self.state_dict()
         accepted = {}
@@ -105,8 +110,7 @@ class Model(nn.Module):
                 logger.warning("load_params: unexpected key %s", key)
                 continue
             name, rev = names[key]
-            arr = np.asarray(value)
-            arr = arr.T if rev else arr
+            arr = from_jax_array(np.asarray(value), rev)
             if tuple(arr.shape) != tuple(own[name].shape):
                 if ignore_mismatched:
                     logger.warning("load_params: shape mismatch for %s: ckpt %s vs model %s "
@@ -129,17 +133,18 @@ class Model(nn.Module):
         """Load the JAX package's flat parameters, strictly: every port
         tensor must be given with its shape, and every given tensor must be
         used."""
+        from ..training.optimizers import from_jax_array
+
         own = self.state_dict()
+        names = {jname: (name, layout) for name, (jname, layout) in self.jax_names().items()}
         mapped: dict[str, torch.Tensor] = {}
         unexpected = []
         for key, value in flat.items():
-            name, transpose = torch_name(key)
-            if name not in own:
+            if key not in names:
                 unexpected.append(key)
                 continue
-            arr = np.asarray(value)
-            if transpose:
-                arr = arr.T
+            name, layout = names[key]
+            arr = from_jax_array(np.asarray(value), layout)
             if tuple(arr.shape) != tuple(own[name].shape):
                 raise ValueError(f"{key}: shape {arr.shape} does not fit "
                                  f"{name} {tuple(own[name].shape)}")

@@ -6,8 +6,13 @@ expansion, GELU, projection, layer-scale residual), and an iSTFT head
 (Linear(dim -> n_fft + 2): log-magnitude and phase per frame) through the
 matmul inverse STFT of :mod:`isp_tts_tpu_torch.ops.vocoder`. Channel-last
 (B, T, C) as in the JAX package; one mel frame gives ``hop_length`` samples.
+Under a bf16 autocast the backbone runs in bf16 and the head, the iSTFT
+and the mel features in float32, as the JAX compute policy runs them.
 
-The ``discriminator`` config (GAN training) is kept but not built.
+:class:`VocoderModel` carries the generator and the GAN discriminators
+(:mod:`.discriminator`) in one checkpoint; ``infer`` and serving touch only
+the generator, and :class:`~isp_tts_tpu_torch.training.gan_trainer.GANTrainer`
+trains both (``TRAINER = "gan"``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 from ...config import as_dict, build_config
 from ...ops.vocoder import istft_matmul, log_mel_matmul
 from ..base import Model
+from .discriminator import VocoderDiscriminator, VocoderDiscriminatorConfig
 
 
 class VocoderOutput(NamedTuple):
@@ -72,9 +78,12 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        # statistics in float32 whatever x's dtype, as flax computes them
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
 
 
 def _conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -119,12 +128,20 @@ class VocosGenerator(nn.Module):
         x = self.norm_pre(_conv(self.embed, mel))
         for block in self.blocks:
             x = block(x)
-        return self.head(self.norm_post(x).float())
+        x = self.norm_post(x).float()
+        # the head stays in float32: exp() of a bf16 log-magnitude is noise
+        with torch.autocast(x.device.type, enabled=False):
+            return self.head(x)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, n_mels) log-mel -> (B, T * hop_length) waveform."""
         cfg = self.config
         h = self.spectrum(mel)
+        with torch.autocast(h.device.type, enabled=False):
+            return self._synthesize(h)
+
+    def _synthesize(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
         n_freqs = cfg.n_fft // 2 + 1
         log_mag = torch.clamp(h[..., :n_freqs], max=cfg.max_log_mag)
         if cfg.min_log_mag is not None:
@@ -142,16 +159,17 @@ class VocosGenerator(nn.Module):
 @dataclass
 class VocoderModelConfig:
     generator: VocosGeneratorConfig = field(default_factory=VocosGeneratorConfig)
-    #: the GAN discriminators' config, kept for the checkpoint; not built
-    discriminator: dict = field(default_factory=dict)
+    discriminator: VocoderDiscriminatorConfig = field(
+        default_factory=VocoderDiscriminatorConfig)
     features: MelFeatureConfig = field(default_factory=MelFeatureConfig)
 
 
 class VocoderModel(Model):
-    """The generator of the JAX package's ``VocoderModel`` (inference and the
-    generator's training forward); its discriminators are not ported yet."""
+    """The generator and the discriminators under one model (one checkpoint
+    carries both); trained by the GANTrainer with :class:`VocoderGANLoss`."""
 
     Config = VocoderModelConfig
+    TRAINER = "gan"
 
     def __init__(self, config: VocoderModelConfig):
         super().__init__()
@@ -161,12 +179,16 @@ class VocoderModel(Model):
         self.generator = VocosGenerator(build_config(
             VocosGeneratorConfig, as_dict(config.generator), n_mels=f.n_mels,
             n_fft=f.n_fft, hop_length=f.hop_length))
+        self.discriminator = VocoderDiscriminator(build_config(
+            VocoderDiscriminatorConfig, as_dict(config.discriminator or {})))
 
     def features(self, audio: torch.Tensor) -> torch.Tensor:
-        """(B, S) waveform -> (B, S / hop, n_mels) log-mel (matmul DFT)."""
+        """(B, S) waveform -> (B, S / hop, n_mels) log-mel (matmul DFT, in
+        float32)."""
         f = self.features_config
-        return log_mel_matmul(audio, f.sample_rate, f.n_fft, f.hop_length, f.win_length,
-                              f.n_mels, f.f_min, f.f_max)
+        with torch.autocast(audio.device.type, enabled=False):
+            return log_mel_matmul(audio.float(), f.sample_rate, f.n_fft, f.hop_length,
+                                  f.win_length, f.n_mels, f.f_min, f.f_max)
 
     def forward(self, audio: torch.Tensor, mel: torch.Tensor | None = None) -> VocoderOutput:
         """``mel`` replaces the generator's input (predicted mels); the
@@ -180,11 +202,29 @@ class VocoderModel(Model):
         """(B, T, n_mels) log-mel -> (B, T * hop) waveform."""
         return self.generator(mel)
 
+    def prepare_inputs(self, batch: dict) -> dict:
+        out = {"audio": batch["audio"]}
+        if "mel" in batch:  # paired predicted mels
+            out["mel"] = batch["mel"]
+        return out
+
+    @staticmethod
+    def inject_data_config(config: dict, dataset) -> dict:
+        feats = dict(config.get("features") or {})
+        sr = getattr(getattr(dataset, "audio_provider", None), "config", None)
+        if sr is not None and "sample_rate" not in feats:
+            feats["sample_rate"] = sr.sample_rate
+        config["features"] = feats
+        return config
+
     def load_jax_state(self, flat: dict[str, np.ndarray]) -> None:
-        """The generator's tensors, strictly; a GAN checkpoint's
-        discriminator tensors are left out, as the discriminators are."""
-        super().load_jax_state({k: v for k, v in flat.items()
-                                if not k.startswith("discriminator.")})
+        """Every tensor, strictly; a checkpoint of the generator alone (the
+        served vocoder's) leaves the discriminators at their initial
+        values, as the JAX package's load keeps missing keys."""
+        if not any(k.startswith("discriminator.") for k in flat):
+            flat = {**flat, **{k: v for k, v in self.jax_state().items()
+                               if k.startswith("discriminator.")}}
+        super().load_jax_state(flat)
 
     @classmethod
     def from_pretrained(cls, path: str | Path, device: str | torch.device | None = None):
@@ -192,5 +232,5 @@ class VocoderModel(Model):
         if Path(path).suffix in (".pt", ".pts", ".pth", ".bin"):
             raise NotImplementedError(
                 f"{path}: torch Vocos checkpoints are read by the reference-interop "
-                "item (ROADMAP Queue 1 item 7), not ported yet; pass a .ckpt")
+                "item (ROADMAP Queue 1 item 4), not ported yet; pass a .ckpt")
         return super().from_pretrained(path, device=device)

@@ -150,7 +150,8 @@ class Synthesizer:
                     "checkpoint's own table.")
         else:
             table = CodingTable.from_encoding_map(model.encoding_map)
-        self.text_provider = TextProvider(table, phonemizer=self.config.phonemizer)
+        self.text_provider = TextProvider(table, phonemizer=self.config.phonemizer,
+                                          language=self.config.language)
         self.vocoder = None
         if vocoder is not None:
             self.attach_vocoder(vocoder)

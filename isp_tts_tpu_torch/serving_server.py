@@ -576,7 +576,7 @@ def main(argv=None) -> None:
         p.error("exactly one of --checkpoint / --artifact is required")
     if args.artifact is not None:
         raise NotImplementedError("serving from an exported artifact waits for the export "
-                                  "item (ROADMAP Queue 1 item 7); pass --checkpoint")
+                                  "item (ROADMAP Queue 1 item 4); pass --checkpoint")
     synth = Synthesizer.from_pretrained(args.checkpoint, SynthesizerConfig(steps=args.steps),
                                         vocoder_path=args.vocoder, device=args.device)
     server = TTSServer(synth, host=args.host, port=args.port,

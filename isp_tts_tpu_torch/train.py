@@ -32,7 +32,7 @@ def main(argv=None):
                         help="multi-process training (not ported)")
     args = parser.parse_args(argv)
     if args.distributed:
-        raise NotImplementedError("multi-GPU training is not ported (ROADMAP Queue 1 item 8)")
+        raise NotImplementedError("multi-GPU training is not ported (ROADMAP Queue 1 item 5)")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s | %(levelname)s | %(name)s | %(message)s")
 

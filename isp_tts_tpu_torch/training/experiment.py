@@ -20,6 +20,7 @@ from ..config.yamlio import dump
 from ..data import COLLATORS, DATASETS
 from ..models import CRITERIA, EVALUATORS, MODELS
 from ..utils.device import resolve_device
+from .gan_trainer import GANTrainer
 from .trainer import Trainer
 from .trainer_config import TrainerConfig
 
@@ -93,10 +94,13 @@ class ExperimentModules:
 
     def build_trainer(self, **kwargs) -> Trainer:
         """The trainer over the built modules (``kwargs`` go to it, e.g. a
-        ``generator``); writes the resolved recipe as ``config.yaml``."""
+        ``generator``): the GANTrainer for a model whose ``TRAINER`` is
+        "gan", else the Trainer; writes the resolved recipe as
+        ``config.yaml``."""
         if self.model is None:
             self.init_modules()
-        trainer = Trainer(model=self.model, criterion=self.criterion,
+        cls = GANTrainer if getattr(self.model, "TRAINER", None) == "gan" else Trainer
+        trainer = cls(model=self.model, criterion=self.criterion,
                           config=self.build_trainer_config(),
                           train_dataset=self.train_dataset, eval_dataset=self.eval_dataset,
                           collator=self.collator, evaluator=self.evaluator,

@@ -94,17 +94,21 @@ class Schedule:
         raise KeyError(f"Unknown lr scheduler {self.kind!r}")
 
 
-def jax_param_name(module: torch.nn.Module, name: str) -> tuple[str, bool]:
+def jax_param_name(module: torch.nn.Module, name: str) -> tuple[str, bool | tuple]:
     """The JAX package's flat name of the port parameter ``name`` of
-    ``module``, and whether its layout is the port's reversed (the inverse
-    of :func:`~isp_tts_tpu_torch.models.base.torch_name`): an Embedding's
+    ``module``, and its layout there (the inverse of
+    :func:`~isp_tts_tpu_torch.models.base.torch_name`): an Embedding's
     ``weight`` is ``embedding``, any other ``weight`` of two or more axes a
-    ``kernel`` with its axes reversed, and a one-axis ``weight`` a norm's
-    ``scale``."""
+    ``kernel`` with its axes reversed (True), and a one-axis ``weight`` a
+    norm's ``scale``. A module's ``JAX_LAYOUTS`` maps a parameter of its
+    own to the permutation that takes its axes to the JAX layout."""
     prefix, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(prefix) if prefix else module
+    perm = getattr(owner, "JAX_LAYOUTS", {}).get(leaf)
+    if perm is not None:
+        return name, tuple(perm)
     if leaf != "weight":
         return name, False
-    owner = module.get_submodule(prefix) if prefix else module
     if isinstance(owner, torch.nn.Embedding):
         return f"{prefix}.embedding", False
     if module.get_parameter(name).dim() >= 2:
@@ -119,14 +123,27 @@ def keystr(jax_name: str) -> str:
                    for p in jax_name.split(".")) + ".value"
 
 
-def to_jax_layout(t: torch.Tensor, reverse: bool) -> np.ndarray:
-    arr = t.detach().float().cpu().numpy()
-    return np.array(arr.T if reverse else arr, order="C")
+def to_jax_array(arr: np.ndarray, layout: bool | tuple) -> np.ndarray:
+    """A port-layout array in the JAX layout: reversed (True), permuted
+    (a tuple of axes) or as it is (False)."""
+    if layout is True:
+        return arr.T
+    return np.transpose(arr, layout) if layout else arr
 
 
-def from_jax_layout(arr, reverse: bool, like: torch.Tensor) -> torch.Tensor:
-    arr = np.asarray(arr)
-    arr = arr.T if reverse else arr
+def from_jax_array(arr: np.ndarray, layout: bool | tuple) -> np.ndarray:
+    """The inverse of :func:`to_jax_array`."""
+    if layout is True:
+        return arr.T
+    return np.transpose(arr, np.argsort(layout)) if layout else arr
+
+
+def to_jax_layout(t: torch.Tensor, layout: bool | tuple) -> np.ndarray:
+    return np.array(to_jax_array(t.detach().float().cpu().numpy(), layout), order="C")
+
+
+def from_jax_layout(arr, layout: bool | tuple, like: torch.Tensor) -> torch.Tensor:
+    arr = from_jax_array(np.asarray(arr), layout)
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"optimizer leaf shape {arr.shape} does not fit {tuple(like.shape)}")
     return torch.from_numpy(np.array(arr, dtype=np.float32)).to(like.device, like.dtype)
@@ -141,11 +158,16 @@ class Optimizer:
     k - 1 micro-steps of an accumulation). ``grad_norm``, the global norm
     of every gradient when the caller has computed it (:func:`grad_norm`),
     is the clip's norm when every parameter is trained and nothing
-    accumulates: the clip then needs no second pass over the gradients."""
+    accumulates: the clip then needs no second pass over the gradients.
+    ``key_prefix`` goes before every key of :meth:`keyed_state`: the JAX
+    GANTrainer keeps one optimizer a branch under ``['gen']`` and
+    ``['disc']``, each over its submodule's own tree (the port's names
+    relative to the ``model`` passed, the branch)."""
 
     def __init__(self, config: OptimizationConfig, model: torch.nn.Module,
-                 trainable: set[str] | None = None):
+                 trainable: set[str] | None = None, key_prefix: str = ""):
         self.config = cfg = config
+        self.key_prefix = key_prefix
         named = [(n, p) for n, p in model.named_parameters()]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -237,7 +259,7 @@ class Optimizer:
     # -- optax's tree paths ----------------------------------------------------
 
     def _prefix(self) -> str:
-        base = ".inner_opt_state" if self.acc is not None else ""
+        base = self.key_prefix + (".inner_opt_state" if self.acc is not None else "")
         if self.masked:
             base += ".inner_states['train'].inner_state"
         return base
@@ -264,11 +286,12 @@ class Optimizer:
                 jname, rev = self.layout[self.names[i]]
                 out[slot + keystr(jname)] = to_jax_layout(t, rev)
         if self.acc is not None:
-            out[".mini_step"] = np.asarray(self.mini_step, np.int32)
-            out[".gradient_step"] = np.asarray(self.gradient_step, np.int32)
+            kp = self.key_prefix
+            out[kp + ".mini_step"] = np.asarray(self.mini_step, np.int32)
+            out[kp + ".gradient_step"] = np.asarray(self.gradient_step, np.int32)
             for n, t in zip(self.names, self.acc):
                 jname, rev = self.layout[n]
-                out[".acc_grads" + keystr(jname)] = to_jax_layout(t, rev)
+                out[kp + ".acc_grads" + keystr(jname)] = to_jax_layout(t, rev)
         return out
 
     def load_keyed_state(self, keyed: dict) -> None:
@@ -293,18 +316,20 @@ class Optimizer:
                     jname, rev = self.layout[self.names[i]]
                     t.copy_(from_jax_layout(keyed[slot + keystr(jname)], rev, t))
             if self.acc is not None:
-                self.mini_step = int(np.asarray(keyed[".mini_step"]))
-                self.gradient_step = int(np.asarray(keyed[".gradient_step"]))
+                kp = self.key_prefix
+                self.mini_step = int(np.asarray(keyed[kp + ".mini_step"]))
+                self.gradient_step = int(np.asarray(keyed[kp + ".gradient_step"]))
                 for n, t in zip(self.names, self.acc):
                     jname, rev = self.layout[n]
-                    t.copy_(from_jax_layout(keyed[".acc_grads" + keystr(jname)], rev, t))
+                    t.copy_(from_jax_layout(keyed[kp + ".acc_grads" + keystr(jname)], rev, t))
 
 
 def build_optimizer(config: OptimizationConfig, model: torch.nn.Module,
-                    trainable: set[str] | None = None) -> tuple[Optimizer, Schedule]:
+                    trainable: set[str] | None = None,
+                    key_prefix: str = "") -> tuple[Optimizer, Schedule]:
     """(the optax chain over ``model``'s parameters, its Schedule)."""
-    return Optimizer(config, model, trainable), Schedule(config.lr_scheduler,
-                                                         config.learning_rate)
+    return (Optimizer(config, model, trainable, key_prefix),
+            Schedule(config.lr_scheduler, config.learning_rate))
 
 
 def set_learning_rate(opt: Optimizer, lr: float) -> None:

@@ -114,6 +114,9 @@ def _plain_config(cfg: Any) -> Any:
 
 
 class Trainer:
+    #: whether ``steps_per_call > 1`` runs chunks of steps back to back
+    CHUNKED = True
+
     def __init__(self, model: torch.nn.Module, criterion, config: TrainerConfig,
                  train_dataset=None, eval_dataset=None, collator=None, evaluator=None,
                  callbacks: list[TrainerCallback] | None = None,
@@ -206,6 +209,14 @@ class Trainer:
         if self._restored_opt_state is not None:
             self.optimizer.load_keyed_state(self._restored_opt_state)
 
+    def _set_lr(self, lr: float) -> None:
+        set_learning_rate(self.optimizer, lr)
+
+    def optimizer_keyed_state(self) -> dict:
+        """The optimizer's state under optax's tree paths (the checkpoint's
+        ``optimizer.keyed``)."""
+        return self.optimizer.keyed_state()
+
     def _maybe_load_checkpoint(self):
         cfg = self.config
         self._restored_opt_state = None
@@ -218,7 +229,7 @@ class Trainer:
         t0 = time.perf_counter()
         if str(path).endswith((".pt", ".pth")):
             raise NotImplementedError("resuming from a reference .pt checkpoint waits for the "
-                                      "interop item (ROADMAP Queue 1 item 7)")
+                                      "interop item (ROADMAP Queue 1 item 4)")
         ckpt = load_checkpoint(path)
         ignore = list(cfg.ignore_layers) if cfg.warm_start else []
         self.model.load_params(ckpt["model"]["state"], ignore_layers=ignore,
@@ -248,8 +259,10 @@ class Trainer:
                                  "restore_optimizer=false")
             self._restored_opt_state = blob["keyed"]
             self._restored_base_lr = blob.get("base_lr")
-            if ".mini_step" in blob["keyed"]:  # micro-steps into an accumulation
-                self._micro_step += int(np.asarray(blob["keyed"][".mini_step"]))
+            # micro-steps into an accumulation (each optimizer's, equal)
+            mini = [v for k, v in blob["keyed"].items() if k.endswith(".mini_step")]
+            if mini:
+                self._micro_step += int(np.asarray(mini[0]))
         self.load_seconds = time.perf_counter() - t0
         logger.info("loaded %s (warm_start=%s) in %.2f s", path, cfg.warm_start,
                     self.load_seconds)
@@ -345,7 +358,7 @@ class Trainer:
         for _ in range(steps):
             batch = batches[self._micro_step % len(batches)]
             lr = self.schedule(self.state.global_step, self._micro_step // len(batches))
-            set_learning_rate(self.optimizer, lr)
+            self._set_lr(lr)
             metrics = {k: float(v) for k, v in self.train_step(batch).items()}
             metrics["stats/learning_rate"] = lr
             history.append(metrics)
@@ -397,7 +410,7 @@ class Trainer:
             loader.skip, self.state.epoch_step = self._skip_batches, self._skip_batches
             self._skip_batches = 0
         try:
-            if is_train and cfg.steps_per_call > 1:
+            if is_train and cfg.steps_per_call > 1 and self.CHUNKED:
                 return self._run_epoch_chunked(loader, epoch_acc, step_acc)
             data_t0 = time.perf_counter()
             for index, host_batch in enumerate(loader):
@@ -458,7 +471,7 @@ class Trainer:
         self.callbacks.on_step_begin(self.config, self.state, self.control)
         model_t0 = time.perf_counter()
         lr = self.schedule(self.state.global_step, int(self.state.epoch))
-        set_learning_rate(self.optimizer, lr)
+        self._set_lr(lr)
         self.state.learning_rate = lr
         metrics, _ = self._update(host_batch)
         model_time = time.perf_counter() - model_t0
@@ -529,7 +542,7 @@ class Trainer:
         results = []
         micro = self._micro_step
         for i, batch in enumerate(device_batches):
-            set_learning_rate(self.optimizer, lrs[i])
+            self._set_lr(lrs[i])
             self._micro_step = micro + i  # the step's generator seed
             results.append(self._update(batch, step=steps[i])[0])
         self._micro_step = micro
@@ -664,7 +677,7 @@ class Trainer:
                       "state": self.model.jax_state()},
         }
         if self.config.save_optimizer:
-            payload["optimizer"] = {"keyed": self.optimizer.keyed_state(),
+            payload["optimizer"] = {"keyed": self.optimizer_keyed_state(),
                                     "base_lr": float(self.schedule.base_lr)}
         return payload
 

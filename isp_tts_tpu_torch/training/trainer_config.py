@@ -109,7 +109,7 @@ class TrainerConfig:
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"{axis} = {getattr(self, axis)}: the port trains on one device "
-                    "(multi-GPU is ROADMAP Queue 1 item 8)")
+                    "(multi-GPU is ROADMAP Queue 1 item 5)")
         if int(self.steps_per_call) < 1:
             raise ValueError("steps_per_call must be >= 1")
         self.do_train = self.do_train and not self.eval_mode

@@ -411,6 +411,33 @@ def test_k5b_matches_plain_version_at_tile_edges(card, B, N, M, H, Hkv, offset, 
                          q_lens, seed, w, offset, causal, rate, bound)
 
 
+# The f32 slope gradients at B 4, N = M = 1024 (a sum of 4M products of
+# ds * dist that cancel to a small total) over 16 draws of dL/do, each from
+# a generator of its own: K5b with one and with H key/value heads, and K2.
+# With f32 logits (the slopes and lse rounded in base 2 once a head and a
+# row) K5b with one key/value head strayed past the bound in 2 of 16 draws;
+# the f32 kernels now take the logits less lse in float64.
+SLOPE_DRAW_CASES = [("K5b", 1), ("K5b", 6), ("K2", 1)]
+
+
+@pytest.mark.parametrize("kernel,Hkv", SLOPE_DRAW_CASES)
+def test_f32_slope_gradient_holds_over_16_draws(card, kernel, Hkv):
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, slopes, key_lens, q_lens = _flash(card, 4, 1024, 1024, 6, Hkv, torch.float32,
+                                               seed=2)
+    if kernel == "K2":
+        fwd, bwd, plain = fa.mqa_fwd, fa.mqa_bwd, fa.mqa_bwd_reference
+        k, v = k[:, :, 0].contiguous(), v[:, :, 0].contiguous()
+    else:
+        fwd, bwd, plain = fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_reference
+    seed = torch.tensor([41], dtype=torch.int32, device=card)
+    for draw in range(16):
+        w = _do(card, q, draw)
+        _kernel_vs_plain_bwd(fwd, bwd, plain, q, k, v, slopes, key_lens, q_lens, seed, w, 0,
+                             False, 0.1, 1e-4)
+
+
 VOCODER = "docs/assets/scale_r5/vocoder_joint10k_r5.f16.ckpt"
 AUDIO_TEXTS = ["The birch canoe slid away.", "Glue the sheet to the dark blue background."]
 

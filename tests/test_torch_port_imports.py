@@ -59,7 +59,10 @@ def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
                  "config.registry", "ops.pitch", "ops.frontend", "data.dataset",
                  "data.collator", "data.loader", "data.metadata", "data.stats",
                  "data.providers", "training.callbacks", "training.experiment",
-                 "models.acoustic.evaluator", "utils.plotting", "train"):
+                 "models.acoustic.evaluator", "utils.plotting", "train",
+                 "data.text.phonemes", "data.text.word_level", "data.text.processor",
+                 "native", "data.vocoder", "models.vocoder.discriminator",
+                 "models.vocoder.loss", "models.vocoder.evaluator", "training.gan_trainer"):
         assert f"isp_tts_tpu_torch.{name}" in out["modules"]
 
 

@@ -67,12 +67,37 @@ how far it got:
              coalesce. Then ``dataset``: 512 + 64 seeded sentences turned
              into 22.05 kHz WAVs by the same Synthesizer and vocoder, with
              meta_train.csv and meta_valid.csv, in a temporary directory.
+11a. export - ``export_serving`` of that audio Synthesizer at batch 1, text
+             bucket 128, frame budget 1024 (``ARTIFACT_SHAPE``), with
+             ``precompile``; loaded with nvcc refused, its embedded K1
+             library loaded privately for its calls and the shared build
+             directory left as it was. Its graph holds 25
+             ``isp_tts.mqa_fwd`` nodes and one call launches K1 25 times and
+             nothing else; its waveform against the live Synthesizer's at
+             that shape for two (seed, duration_factor) pairs
+             (VOCODER_WAVE_BOUND; bit-identity is reported); its warm call
+             within ARTIFACT_WARM_FACTOR of the live one. The same export
+             made on the CPU (platforms cpu and cuda), moved to the card by
+             its loader, checked the same way; then the daemon with
+             ``--artifact`` answers one wav request in a fresh subprocess
+             with nvcc refused and an empty build directory, where only the
+             embedded library can serve.
 12. slice  - the multi-KV-head model: the same checkpoint with every
              attention layer's one key/value head replicated to all heads
              (it computes what the checkpoint computes), served the same way
              through ``Synthesizer(model)`` on K5a; its mel against its own
              plain path and against the one-KV-head model's mel on K1.
 13. profile - one warm multi-KV-head request.
+13a. export - the multi-KV-head model's mel artifact: 25
+             ``isp_tts.flash_fwd`` nodes, 25 K5a launches a call, its mel
+             against the live path's (MEL_BOUND).
+13b. interop - the committed checkpoint written as a reference ``.pt`` and
+             the committed vocoder as a torch Vocos ``.pt``, reloaded on the
+             card: every tensor bit-equal, and the mel and waveform
+             bit-equal to the ``.ckpt`` models read with the reference's
+             semantics (erf GELU; Vocos's upper-only clip at log 100); then
+             one training step of a trainer warm-started from the ``.pt``
+             against one warm-started from the ``.ckpt``.
 14. train  - fine-tunes the same checkpoint at full width with its own
              training setup (batch 32, text 48 x mel 320, bf16, dropout,
              AdamW): the batch is 32 sentences synthesized by the
@@ -1145,6 +1170,363 @@ def phase_daemon(t0, synth):
         + f"stats {stats}")
 
 
+# ------------------------------------------------------- export and interop
+#: the artifact's one shape: batch 1, text bucket 128, frame budget 1024
+ARTIFACT_SHAPE = (1, 128, 1024)
+#: the artifact's warm request against the live Synthesizer's at that shape
+ARTIFACT_WARM_FACTOR = 2.0
+ARTIFACT_CALLS = 5
+#: (seed, duration_factor) of the artifact-vs-live comparisons
+ARTIFACT_DRAWS = ((0, 1.0), (3, 1.2))
+
+
+def artifact_live(synth):
+    """A Synthesizer over ``synth``'s model and vocoder at the artifact's one
+    shape: the live path an artifact call must reproduce."""
+    from isp_tts_tpu_torch.serving import Synthesizer, SynthesizerConfig
+
+    B, TB, FB = ARTIFACT_SHAPE
+    return Synthesizer(synth.model, SynthesizerConfig(
+        text_buckets=(TB,), frame_budgets=(FB,), batch_buckets=(B,)), vocoder=synth.vocoder)
+
+
+def median_ms(fn, calls: int = ARTIFACT_CALLS) -> float:
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()  # numpy on return: the device is done
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def check_artifact(t0, label, ex, live, kernel, op):
+    """One artifact on the card: its graph's registered attention nodes,
+    its launches over one call (``kernel`` alone, one per node), its output
+    against the live Synthesizer's for the same seeds and controls, and its
+    warm time beside the live one's. Returns (launches, first-call ms)."""
+    audio = ex.meta["output"] == "audio"
+    run = (lambda s, **kw: ex(s, **kw)[0])
+    live_run = ((lambda s, **kw: live.synthesize_audio(s, **kw)[0]) if audio
+                else (lambda s, **kw: live(s, **kw)[0]))
+    nodes = ex.kernel_nodes
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    run(SENTENCES[0])
+    first_ms = 1e3 * (time.perf_counter() - t)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if nodes != {op: 25} or launches != {kernel: 25}:
+        raise AssertionError(f"{label}: graph nodes {nodes}, launches over one call "
+                             f"{launches}; want 25 of {op} / {kernel}")
+    errs, equal = [], True
+    for seed, df in ARTIFACT_DRAWS:
+        got = run(SENTENCES[1], seed=seed, duration_factor=df)
+        want = live_run(SENTENCES[1], seed=seed, duration_factor=df)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: artifact output {got.shape}, live {want.shape}")
+        errs.append(float(np.abs(got - want).max()))
+        equal = equal and bool(np.array_equal(got, want))
+    bound = VOCODER_WAVE_BOUND if audio else MEL_BOUND
+    if not max(errs) <= bound:
+        raise AssertionError(f"{label}: artifact vs live max_err {errs} > {bound:.0e}")
+    warm = median_ms(lambda: run(SENTENCES[0]))
+    live_run(SENTENCES[0])  # the live path's first call at this shape
+    live_warm = median_ms(lambda: live_run(SENTENCES[0]))
+    if not warm <= ARTIFACT_WARM_FACTOR * live_warm:
+        raise AssertionError(f"{label}: warm artifact call {warm:.2f} ms > "
+                             f"{ARTIFACT_WARM_FACTOR}x the live {live_warm:.2f} ms")
+    say("export", t0, f"{label}: graph nodes {nodes}, launches over one call {launches}; "
+        f"vs live (seed, duration_factor) {list(ARTIFACT_DRAWS)}: max_err {errs} "
+        f"(bound {bound:.0e}, bit-identical {equal}); first call {first_ms:.1f} ms, warm "
+        f"{warm:.2f} ms (median of {ARTIFACT_CALLS}) vs live warm {live_warm:.2f} ms "
+        f"(bound {ARTIFACT_WARM_FACTOR}x)")
+    return launches[kernel], first_ms
+
+
+@contextlib.contextmanager
+def no_nvcc():
+    """Inside the block any kernel build raises: what runs there loads
+    libraries that exist."""
+    from isp_tts_tpu_torch.ops import cuda_build
+
+    def refuse():
+        raise AssertionError("nvcc was called")
+
+    orig = cuda_build.nvcc_path
+    cuda_build.nvcc_path = refuse
+    try:
+        yield
+    finally:
+        cuda_build.nvcc_path = orig
+
+
+def phase_export(t0, synth, work: Path) -> int:
+    """``export_serving`` of the audio Synthesizer (the committed checkpoint
+    and vocoder) at ARTIFACT_SHAPE on the card with ``precompile``, loaded
+    with nvcc refused: its embedded K1 library is loaded privately and
+    serves its calls, and the shared build directory is left as it was.
+    Then the same export made on the CPU with platforms cpu and cuda, moved
+    to the card by its loader; then the daemon with ``--artifact`` in a
+    fresh subprocess with nvcc refused and an empty build directory, where
+    only the embedded library can serve. Returns the artifact's K1
+    launches."""
+    from isp_tts_tpu_torch.export import ExportedSynthesizer, export_serving
+    from isp_tts_tpu_torch.ops import cuda_build
+    from isp_tts_tpu_torch.serving import Synthesizer, SynthesizerConfig
+
+    B, TB, FB = ARTIFACT_SHAPE
+    live = artifact_live(synth)
+    path = work / "audio.zip"
+    t = time.perf_counter()
+    meta = export_serving(live, path, TB, FB, batch=B, platforms=("cuda",), precompile=True)
+    export_s = time.perf_counter() - t
+    shared = {p.name: p.read_bytes() for p in cuda_build.BUILD_DIR.glob("*.so")}
+    t = time.perf_counter()
+    with no_nvcc():
+        ex = ExportedSynthesizer(path)
+    load_s = time.perf_counter() - t
+    own = ex._libs.get("mqa_fwd")
+    if set(ex._libs) != {"mqa_fwd"} or own._handle == cuda_build.load("mqa_fwd")._handle:
+        raise AssertionError(f"the artifact's embedded libraries {ex._libs} are not its own")
+    say("export", t0, f"audio artifact {TB} x {FB} x batch {B}: export {export_s:.2f} s, "
+        f"{path.stat().st_size / 1e6:.1f} MB (embedded kernels {meta['precompiled']}), "
+        f"load {load_s:.2f} s with nvcc refused: its embedded K1 library loaded privately")
+    with no_nvcc():
+        launches, _ = check_artifact(t0, "audio artifact", ex, live, "K1 mqa_fwd",
+                                     "isp_tts.mqa_fwd.default")
+    if {p.name: p.read_bytes() for p in cuda_build.BUILD_DIR.glob("*.so")} != shared:
+        raise AssertionError("loading and calling the artifact changed the shared build "
+                             "directory")
+    del ex
+
+    cpu = Synthesizer.from_pretrained(CKPT, SynthesizerConfig(
+        text_buckets=(TB,), frame_budgets=(FB,), batch_buckets=(B,)),
+        vocoder_path=VOCODER, device="cpu")
+    cpu_path = work / "audio_cpu.zip"
+    t = time.perf_counter()
+    export_serving(cpu, cpu_path, TB, FB, batch=B, platforms=("cpu", "cuda"))
+    export_s = time.perf_counter() - t
+    del cpu
+    t = time.perf_counter()
+    moved = ExportedSynthesizer(cpu_path)
+    say("export", t0, f"the same exported on the CPU (platforms cpu, cuda): export "
+        f"{export_s:.2f} s, load on the card (move_to_device_pass) "
+        f"{time.perf_counter() - t:.2f} s")
+    check_artifact(t0, "CPU-exported audio artifact on the card", moved, live, "K1 mqa_fwd",
+                   "isp_tts.mqa_fwd.default")
+    del moved
+    phase_artifact_daemon(t0, path, work / "empty_build")
+    return launches
+
+
+#: runs the daemon in a fresh process whose kernel builds raise and whose
+#: build directory is argv[1] (empty): only an artifact's embedded libraries
+#: can serve its launches
+NO_BUILD_DAEMON = """
+import sys
+from pathlib import Path
+from isp_tts_tpu_torch.ops import cuda_build
+def refuse():
+    raise RuntimeError("nvcc refused")
+cuda_build.nvcc_path = refuse
+cuda_build.BUILD_DIR = Path(sys.argv[1])
+from isp_tts_tpu_torch.serving_server import main
+main(sys.argv[2:])
+"""
+
+
+def phase_artifact_daemon(t0, path: Path, build_dir: Path) -> None:
+    """The daemon's ``--artifact`` (``serving_server.main``) in a fresh
+    subprocess with nvcc refused and the empty ``build_dir`` as its build
+    directory: /healthz, then one wav request, 200 and a 22.05 kHz WAV of a
+    multiple of 256 samples, and ``build_dir`` still empty; the process is
+    stopped after."""
+    import io
+    import socket
+    import urllib.request
+    import wave
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t = time.perf_counter()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    if any(build_dir.iterdir()):
+        raise AssertionError(f"{build_dir} is not empty")
+    proc = subprocess.Popen([sys.executable, "-c", NO_BUILD_DAEMON, str(build_dir),
+                             "--artifact", str(path), "--port", str(port), "--warmup"],
+                            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the artifact daemon exited {proc.returncode}: "
+                                     f"{proc.stderr.read()[-2000:]}")
+            if time.perf_counter() - t > 180:
+                raise AssertionError("the artifact daemon did not answer /healthz in 180 s")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                            timeout=5) as resp:
+                    if resp.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/synthesize",
+                                     data=json.dumps({"text": SENTENCES[0],
+                                                      "format": "wav"}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            status, ctype, body = resp.status, resp.headers.get("Content-Type"), resp.read()
+        ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    with wave.open(io.BytesIO(body)) as w:
+        params = (w.getframerate(), w.getsampwidth(), w.getnchannels())
+        n = w.getnframes()
+    if status != 200 or ctype != "audio/wav" or params != (22050, 2, 1) or not 0 < n \
+            or n % 256:
+        raise AssertionError(f"artifact daemon answer: {status} {ctype} {params} {n}")
+    if any(build_dir.iterdir()):
+        raise AssertionError(f"the artifact daemon wrote {list(build_dir.iterdir())}")
+    say("export", t0, f"daemon --artifact (fresh subprocess, nvcc refused, empty build "
+        f"directory: the embedded K1 library served): /healthz after {up_s:.1f} s, one wav "
+        f"request {ms:.1f} ms, {n} samples; build directory still empty")
+
+
+def phase_export_mha(t0, synth, work: Path) -> int:
+    """The multi-KV-head model's mel artifact: K5a's nodes and launches, and
+    its mel against the live path's. Returns its K5a launches."""
+    from isp_tts_tpu_torch.export import ExportedSynthesizer, export_serving
+
+    B, TB, FB = ARTIFACT_SHAPE
+    live = artifact_live(synth)
+    path = work / "mha.zip"
+    t = time.perf_counter()
+    export_serving(live, path, TB, FB, batch=B)
+    export_s = time.perf_counter() - t
+    ex = ExportedSynthesizer(path)
+    say("export", t0, f"multi-KV-head mel artifact: export {export_s:.2f} s, "
+        f"{path.stat().st_size / 1e6:.1f} MB")
+    launches, _ = check_artifact(t0, "multi-KV-head mel artifact", ex, live, "K5a flash_fwd",
+                                 "isp_tts.flash_fwd.default")
+    path.unlink()
+    return launches
+
+
+def reference_semantics(cls, blob: dict, convert):
+    """A model rebuilt from a ``.ckpt``'s config as a reference file's
+    reader sees it (``convert`` maps the config), with the ``.ckpt``'s
+    weights, on the card."""
+    from isp_tts_tpu_torch.config import build_config
+
+    model = cls(build_config(cls.Config, convert(blob["config"])))
+    model.load_jax_state(blob["state"])
+    return model.cuda().eval()
+
+
+def phase_interop(t0, experiment, batch, reference, work: Path) -> None:
+    """The committed checkpoint written as a reference ``.pt`` and the
+    committed vocoder as a torch Vocos ``.pt``, both reloaded on the card:
+    every tensor bit-equal to the ``.ckpt`` model's, and the outputs
+    bit-equal to the ``.ckpt`` models read with the reference's semantics
+    (erf GELU; Vocos's upper-only magnitude clip at log 100), on the slice's
+    batch; then one training step of the trainer warm-started from the
+    ``.pt`` against one warm-started from the ``.ckpt``."""
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint, save_torch_checkpoint
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.interop import (export_torch_config,
+                                                           import_torch_config)
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticLossConfig, AcousticModelLoss
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+    from isp_tts_tpu_torch.models.vocoder import VocoderModel
+    from isp_tts_tpu_torch.models.vocoder.interop import save_torch_vocoder
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    tok, ln, fb, B, noise, _, _ = reference
+    ckpt_model = AcousticModel.from_pretrained(CKPT)
+    pt = work / "acoustic.pt"
+    t = time.perf_counter()
+    save_torch_checkpoint(ckpt_model, pt)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pt_model = AcousticModel.from_pretrained(pt)
+    load_s = time.perf_counter() - t
+    own = ckpt_model.state_dict()
+    same = [torch.equal(v, own[k]) for k, v in pt_model.state_dict().items()]
+    blob = load_checkpoint(CKPT)["model"]
+    exact = reference_semantics(AcousticModel, blob,
+                                lambda c: import_torch_config(export_torch_config(c)))
+    mel_pt, ad_pt = pt_model.infer(tok, ln, max_dec_len=fb, noise=noise)
+    mel_ex, ad_ex = exact.infer(tok, ln, max_dec_len=fb, noise=noise)
+    mel_ck, _ = ckpt_model.infer(tok, ln, max_dec_len=fb, noise=noise)
+    if not (len(same) == len(own) and all(same) and torch.equal(mel_pt, mel_ex)
+            and torch.equal(ad_pt.dec_lengths, ad_ex.dec_lengths)):
+        raise AssertionError(f"reference .pt: {sum(same)} of {len(own)} tensors bit-equal; "
+                             f"mel max_err {(mel_pt - mel_ex).abs().max().item():.3e}")
+    say("interop", t0, f"reference .pt of {CKPT.name}: {pt.stat().st_size / 1e6:.1f} MB, "
+        f"save {save_s:.2f} s, load on the card {load_s:.2f} s; {len(own)} tensors "
+        f"bit-equal; mel on the slice batch bit-equal to the .ckpt model with erf GELU; "
+        f"against the .ckpt model's own tanh GELU max_err "
+        f"{(mel_pt - mel_ck).abs().max().item():.3e} (not a gate)")
+    del exact, pt_model
+
+    voc = VocoderModel.from_pretrained(VOCODER)
+    vpt = work / "vocos.pt"
+    save_torch_vocoder(voc, vpt)
+    t = time.perf_counter()
+    voc_pt = VocoderModel.from_pretrained(vpt)
+    load_s = time.perf_counter() - t
+    gen = voc.generator.state_dict()
+    same = [torch.equal(v, gen[k]) for k, v in voc_pt.generator.state_dict().items()]
+    vblob = load_checkpoint(VOCODER)["model"]
+    voc_exact = reference_semantics(VocoderModel, vblob, lambda c: dict(c, generator=dict(
+        c["generator"], gelu="exact", min_log_mag=None, max_log_mag=float(np.log(100.0)))))
+    wav_pt, wav_ex = voc_pt.infer(mel_ck), voc_exact.infer(mel_ck)
+    if not (len(same) == len(gen) and all(same) and torch.equal(wav_pt, wav_ex)):
+        raise AssertionError(f"Vocos .pt: {sum(same)} of {len(gen)} generator tensors "
+                             f"bit-equal; wave max_err {(wav_pt - wav_ex).abs().max().item():.3e}")
+    wav_ck = voc.infer(mel_ck)
+    say("interop", t0, f"Vocos .pt of {VOCODER.name}: {vpt.stat().st_size / 1e6:.1f} MB, load "
+        f"on the card {load_s:.2f} s; {len(gen)} generator tensors bit-equal; waveform "
+        f"bit-equal to the .ckpt vocoder with erf GELU and the upper-only clip; against its "
+        f"own tanh GELU and clip max_err {(wav_pt - wav_ck).abs().max().item():.3e} "
+        f"(not a gate)")
+    del voc, voc_pt, voc_exact, ckpt_model
+
+    results = {}
+    for src in (CKPT, pt):
+        torch.manual_seed(0)
+        model = AcousticModel(build_config(AcousticModel.Config, blob["config"]))
+        cfg = build_config(TrainerConfig, experiment["trainer"])
+        cfg.resume_from_checkpoint, cfg.warm_start = str(src), True
+        trainer = Trainer(model, AcousticModelLoss(build_config(
+            AcousticLossConfig, experiment["criterion"])), cfg,
+            generator=torch.Generator(device="cuda").manual_seed(7))
+        loaded = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        metrics = trainer.train([batch], 1)
+        results[src.suffix] = loaded, metrics
+        del trainer, model
+    (ck_state, ck_metrics), (pt_state, pt_metrics) = results[".ckpt"], results[".pt"]
+    same = all(torch.equal(v, ck_state[k]) for k, v in pt_state.items())
+    ck_loss, pt_loss = ck_metrics[-1]["loss"], pt_metrics[-1]["loss"]
+    if not (same and np.isfinite(pt_loss)
+            and abs(pt_loss - ck_loss) <= STEP_LOSS_BOUND * abs(ck_loss)):
+        raise AssertionError(f"warm start from .pt: weights equal {same}, step loss "
+                             f"{pt_loss} vs {ck_loss} from the .ckpt")
+    say("interop", t0, f"trainer warm-started from the .pt: weights bit-equal to the .ckpt "
+        f"warm start; one step's loss {pt_loss:.6f} vs {ck_loss:.6f} (equal "
+        f"{pt_loss == ck_loss}, bound {STEP_LOSS_BOUND:.0e} relative)")
+    torch.cuda.empty_cache()
+
 # ---------------------------------------------------------------- training
 # K2 against autograd through the plain K1: f32 sums in another order (the
 # JAX package's bound for its kernel against its reference); bf16 gradients
@@ -1954,7 +2336,7 @@ def phase_kv_grad(t0, experiment, batch):
 
 # ---------------------------------------------------------------- records
 def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_launches,
-                   audio_launches):
+                   audio_launches, artifact_launches, mha_artifact_launches):
     """Every kernel's numbers at the training path's shapes: the decoder's
     attention (B 32, N = M = 320, H 6, bf16, dropout 0.1, the batch's frame
     counts; K5a/K5b with 6 key/value heads), the aligner's MAS and the
@@ -1962,7 +2344,8 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
     at the serving decoder's shape (B 4, N = M = 1024, H 6, f32, ragged).
     ``launches`` are the one-KV-head training run's counts (K1-K4),
     ``mha_launches`` the multi-KV-head run's (K5a, K5b); K1 also carries
-    the mel and the audio serving runs' counts."""
+    the mel and the audio serving runs' counts, K1 and K5a those of one
+    call of their exported artifacts."""
     import torch
 
     from isp_tts_tpu_torch.ops.flash_attention import (mqa_attention_reference, mqa_bwd,
@@ -1988,7 +2371,7 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
         {"name": "K1 mqa_fwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/mqa_fwd.cu",
          "replaces": "isp_tts_tpu/ops/flash_attention.py:736", "launches": launches["K1 mqa_fwd"],
          "launches_serving": serve_launches, "launches_serving_audio": audio_launches,
-         "design": FWD_DESIGN,
+         "launches_artifact": artifact_launches, "design": FWD_DESIGN,
          "max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
          "ms": graph_ms(lambda: mqa_fwd(q, k, v, slopes, lens, scale, 0, lens, False, rate,
                                         seed)),
@@ -2012,7 +2395,7 @@ def kernel_records(batch, launches, serve_launches, mha_launches, mha_serve_laun
          "shape": shape},
     ]
     torch.cuda.empty_cache()
-    records += k5_records(batch, mha_launches, mha_serve_launches)
+    records += k5_records(batch, mha_launches, mha_serve_launches, mha_artifact_launches)
     records += dp_records(batch, launches, gen)
     return records
 
@@ -2105,7 +2488,7 @@ DP_DESIGN = ("warp-resident rows (K4 one column a lane, K3 up to 8), neighbours 
              "map staged by cp.async (csrc/dp_common.cuh)")
 
 
-def k5_records(batch, launches, serve_launches):
+def k5_records(batch, launches, serve_launches, artifact_launches):
     """K5a's and K5b's records (see :func:`kernel_records`)."""
     import torch
 
@@ -2132,7 +2515,8 @@ def k5_records(batch, launches, serve_launches):
     records = [
         {"name": "K5a flash_fwd", "route": "cuda", "source": "isp_tts_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "isp_tts_tpu/ops/flash_attention.py:80", "launches": launches["K5a flash_fwd"],
-         "launches_serving": serve_launches, "design": FWD_DESIGN,
+         "launches_serving": serve_launches, "launches_artifact": artifact_launches,
+         "design": FWD_DESIGN,
          "max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
          "ms": graph_ms(lambda: flash_fwd(*fwd_args)),
          "plain_ms": cuda_ms(lambda: flash_attention_reference(*fwd_args), iters=5),
@@ -3010,13 +3394,19 @@ def main() -> int:
     phase_cli(t0)
     phase_daemon(t0, audio_synth)
     work = Path(tempfile.mkdtemp(dir=ROOT, prefix="_smoke_recipe_"))
+    (work / "export").mkdir()
+    artifact_launches = phase_export(t0, audio_synth, work / "export")
     data = phase_dataset(t0, audio_synth, work / "data")
     del audio_synth
     mha_synth, mha_serve_launches = phase_slice_mha(t0, reference)
     phase_profile(t0, lambda: mha_synth(SENTENCES[0]), "one sentence, multi-KV-head")
-    del mha_synth, reference
+    mha_artifact_launches = phase_export_mha(t0, mha_synth, work / "export")
+    del mha_synth
     experiment, batch, durations = phase_batch(t0, synth)
     del synth
+    phase_interop(t0, experiment, batch, reference, work / "export")
+    shutil.rmtree(work / "export", ignore_errors=True)
+    del reference
     trainer, train_launches = phase_train(t0, experiment, batch, durations)
     phase_profile(t0, lambda: trainer.train([batch], 1), "one training step")
     del trainer
@@ -3026,7 +3416,8 @@ def main() -> int:
     del mha_trainer
     phase_kv_grad(t0, experiment, batch)
     records = kernel_records(batch, train_launches, serve_launches, mha_launches,
-                             mha_serve_launches, audio_launches)
+                             mha_serve_launches, audio_launches, artifact_launches,
+                             mha_artifact_launches)
     try:
         torch.cuda.empty_cache()
         data = phase_stats(t0, data)

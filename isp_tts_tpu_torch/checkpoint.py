@@ -14,15 +14,24 @@ model's ``state`` is flattened to ``{"a.b.c": np.ndarray}`` (the JAX
 trainer writes it flat; nested maps are flattened too), the form
 :func:`isp_tts_tpu_torch.models.base.load_jax_state` takes.
 :func:`save_checkpoint` writes a payload atomically (through ``.tmp``).
+
+The reference's torch ``.pt`` checkpoints (``{"model": {"config",
+"state_dict"}}``) are read by :func:`load_torch_checkpoint`, which
+:func:`load_checkpoint` calls for a ``.pt`` path as the JAX package does,
+and written by :func:`save_torch_checkpoint`; the names map through
+:mod:`isp_tts_tpu_torch.models.acoustic.interop`.
 """
 
 from __future__ import annotations
 
+import logging
 import struct
 from pathlib import Path
 from typing import Any
 
 import numpy as np
+
+logger = logging.getLogger("isp_tts_tpu_torch")
 
 _EXT_NDARRAY = 1
 _EXT_COMPLEX = 2
@@ -158,7 +167,10 @@ def flatten_state(state: dict, prefix: str = "") -> dict[str, np.ndarray]:
 
 def load_checkpoint(path: str | Path) -> dict:
     """Read a ``.ckpt`` file: ``{"model": {"config": dict, "state": flat}}``
-    plus whatever else the file holds (``format``, ``experiment``)."""
+    plus whatever else the file holds (``format``, ``experiment``). A
+    ``.pt`` file is a reference checkpoint: :func:`load_torch_checkpoint`."""
+    if Path(path).suffix == ".pt":
+        return load_torch_checkpoint(path)
     ckpt = msgpack_restore(Path(path).read_bytes())
     model = ckpt.get("model")
     if not isinstance(model, dict) or "config" not in model or "state" not in model:
@@ -256,3 +268,62 @@ def save_checkpoint(path: str | Path, payload: dict) -> None:
     tmp = path.with_suffix(path.suffix + ".tmp")
     tmp.write_bytes(msgpack_serialize(payload))
     tmp.replace(path)
+
+
+# -- reference torch ``.pt`` files ----------------------------------------------
+
+
+def _plain(obj: Any) -> Any:
+    """Mappings and sequences (OmegaConf's containers too) as dicts and lists."""
+    if hasattr(obj, "items"):
+        return {str(k): _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    return obj
+
+
+def load_torch_checkpoint(path: str | Path) -> dict:
+    """Read a reference torch checkpoint: ``{"format": "torch", "model":
+    {"config": dict, "state": {reference name: np.ndarray}}}``. Map the
+    names with the model class's ``convert_torch_checkpoint``.
+
+    Files of tensors and plain containers load in ``weights_only`` mode.
+    The reference's own files pickle an OmegaConf config beside the
+    tensors; for those it warns and unpickles in full, which runs code from
+    the file, as the JAX package does.
+    """
+    import torch
+
+    try:
+        ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    except Exception:  # noqa: BLE001 - any refusal of the safe loader
+        logger.warning("%s does not load in safe mode (weights_only); unpickling it in "
+                       "full: only do this with checkpoints you trust", path)
+        ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    model_blob = ckpt.get("model", ckpt)
+    state_dict = model_blob.get("state_dict", model_blob)
+    state = {str(k): v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+             for k, v in state_dict.items()}
+    config = model_blob.get("config", {})
+    return {"format": "torch", "model": {"config": _plain(config), "state": state}}
+
+
+def save_torch_checkpoint(model, path: str | Path) -> None:
+    """Write a port acoustic model as a reference-format ``.pt``
+    (``{"model": {"config", "state_dict"}}``), which the reference's
+    ``from_pretrained`` and the JAX package's :func:`load_torch_checkpoint`
+    read: the inverse of :func:`load_torch_checkpoint`."""
+    import torch
+
+    from .config import config_to_dict
+    from .models.acoustic.interop import export_torch_config, export_torch_state
+
+    temb = getattr(getattr(getattr(model, "temporal_adaptor", None), "predictor", None),
+                   "time_embedding", None)
+    freq_scale = float(temb.freq_scale) if temb is not None else None
+    state = export_torch_state(model.state_dict(), freq_scale)
+    tensors = {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+    config = export_torch_config(config_to_dict(model.config))
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": {"config": config, "state_dict": tensors}}, str(path))

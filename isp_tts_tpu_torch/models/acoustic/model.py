@@ -127,6 +127,14 @@ class AcousticModel(Model):
             }
         return config
 
+    @classmethod
+    def convert_torch_checkpoint(cls, config: dict, state: dict) -> tuple[dict, dict]:
+        """A reference ``.pt``'s config and state in the port's schema and
+        names, with the reference's ``gelu`` built as exact erf GELU."""
+        from .interop import convert_torch_state, import_torch_config
+
+        return import_torch_config(config), convert_torch_state(state)
+
     @staticmethod
     def prepare_inputs(batch: dict) -> dict:
         """A collated batch (the JAX collator's key names) -> forward kwargs."""

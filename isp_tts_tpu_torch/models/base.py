@@ -11,7 +11,8 @@ to the port parameter's dtype, as ``load_params`` casts to the live one.
 :meth:`Model.jax_state` is the inverse, the JAX flat names and layouts a
 checkpoint stores; :meth:`Model.load_params` is the JAX package's partial
 load (``ignore_layers``, shape-mismatched tensors skipped) for resume and
-warm start; :meth:`Model.freeze` records the fine-tuning prefixes the
+warm start; :meth:`Model.from_pretrained` also reads a reference ``.pt``
+through the class's ``convert_torch_checkpoint``; :meth:`Model.freeze` records the fine-tuning prefixes the
 trainer's freeze mask reads.
 """
 
@@ -92,15 +93,17 @@ class Model(nn.Module):
         return out
 
     def load_params(self, flat: dict[str, np.ndarray], ignore_layers: list[str] | None = None,
-                    ignore_mismatched: bool = True) -> None:
+                    ignore_mismatched: bool = True, port_names: bool = False) -> None:
         """Load a JAX flat state partially, as ``Model.load_params`` there:
         keys holding an ``ignore_layers`` substring are skipped, unknown keys
         warned about, shape-mismatched ones skipped (or raised on), and
-        tensors not given keep their values."""
+        tensors not given keep their values. With ``port_names`` the keys
+        and layouts are the port's own (a converted reference ``.pt``)."""
         from ..training.optimizers import from_jax_array
 
-        names = {jname: (name, rev) for name, (jname, rev) in self.jax_names().items()}
         own = self.state_dict()
+        names = ({name: (name, False) for name in own} if port_names else
+                 {jname: (name, rev) for name, (jname, rev) in self.jax_names().items()})
         accepted = {}
         for key, value in flat.items():
             if ignore_layers and any(il in key for il in ignore_layers):
@@ -135,32 +138,52 @@ class Model(nn.Module):
         used."""
         from ..training.optimizers import from_jax_array
 
-        own = self.state_dict()
         names = {jname: (name, layout) for name, (jname, layout) in self.jax_names().items()}
-        mapped: dict[str, torch.Tensor] = {}
-        unexpected = []
-        for key, value in flat.items():
-            if key not in names:
-                unexpected.append(key)
-                continue
-            name, layout = names[key]
-            arr = from_jax_array(np.asarray(value), layout)
-            if tuple(arr.shape) != tuple(own[name].shape):
-                raise ValueError(f"{key}: shape {arr.shape} does not fit "
-                                 f"{name} {tuple(own[name].shape)}")
-            mapped[name] = torch.from_numpy(np.array(arr)).to(own[name].dtype)
-        missing = sorted(set(own) - set(mapped))
-        if unexpected or missing:
-            raise KeyError(f"unexpected JAX tensors {unexpected}; "
-                           f"port tensors not given {missing}")
+        unexpected = sorted(set(flat) - set(names))
+        if unexpected:
+            raise KeyError(f"unexpected JAX tensors {unexpected}")
+        self.load_port_state({names[key][0]: from_jax_array(np.asarray(value), names[key][1])
+                              for key, value in flat.items()})
+
+    def load_port_state(self, state: dict[str, np.ndarray]) -> None:
+        """Load every tensor by the port's own names and layouts, strictly,
+        cast to each tensor's dtype."""
+        own = self.state_dict()
+        missing, unexpected = sorted(set(own) - set(state)), sorted(set(state) - set(own))
+        if missing or unexpected:
+            raise KeyError(f"unexpected tensors {unexpected}; port tensors not given {missing}")
+        mapped = {}
+        for name, value in state.items():
+            t = torch.from_numpy(np.array(value))
+            if tuple(t.shape) != tuple(own[name].shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} does not fit "
+                                 f"{tuple(own[name].shape)}")
+            mapped[name] = t.to(own[name].dtype)
         self.load_state_dict(mapped, strict=True)
+
+    @classmethod
+    def convert_torch_checkpoint(cls, config: dict, state: dict) -> tuple[dict, dict]:
+        """A reference torch checkpoint's (config, state) in this class's
+        schema and the port's tensor names. Classes with a torch interop
+        override it; the base refuses rather than build a model from
+        unconverted names."""
+        raise NotImplementedError(f"{cls.__name__} has no torch-checkpoint converter; load "
+                                  "a .ckpt or implement convert_torch_checkpoint")
 
     @classmethod
     def from_pretrained(cls, path: str | Path, device: str | torch.device | None = None):
         """Rebuild the model from a ``.ckpt`` file's embedded config and
-        weights, in eval mode, on ``device`` (CUDA unless named)."""
+        weights, or from a reference ``.pt`` through
+        :meth:`convert_torch_checkpoint`, in eval mode, on ``device`` (CUDA
+        unless named)."""
         dev = resolve_device(device)
-        blob = load_checkpoint(path)["model"]
-        model = cls(build_config(cls.Config, blob["config"]))
-        model.load_jax_state(blob["state"])
+        ckpt = load_checkpoint(path)
+        blob = ckpt["model"]
+        if ckpt.get("format") == "torch":
+            config, state = cls.convert_torch_checkpoint(blob["config"], blob["state"])
+            model = cls(build_config(cls.Config, config))
+            model.load_port_state(state)
+        else:
+            model = cls(build_config(cls.Config, blob["config"]))
+            model.load_jax_state(blob["state"])
         return model.to(dev).eval()

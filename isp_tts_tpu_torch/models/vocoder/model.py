@@ -227,10 +227,34 @@ class VocoderModel(Model):
         super().load_jax_state(flat)
 
     @classmethod
-    def from_pretrained(cls, path: str | Path, device: str | torch.device | None = None):
-        """A ``.ckpt`` vocoder on ``device`` (CUDA unless named)."""
-        if Path(path).suffix in (".pt", ".pts", ".pth", ".bin"):
-            raise NotImplementedError(
-                f"{path}: torch Vocos checkpoints are read by the reference-interop "
-                "item (ROADMAP Queue 1 item 4), not ported yet; pass a .ckpt")
+    def from_pretrained(cls, path: str | Path, device: str | torch.device | None = None,
+                        **kwargs):
+        """A ``.ckpt`` vocoder, or a torch Vocos checkpoint (TorchScript
+        ``.pts``/``.pt``, a state dict ``.pt``/``.pth``/``.bin``) through
+        :func:`~isp_tts_tpu_torch.models.vocoder.interop.load_torch_vocoder`
+        (which takes the mel contract as ``kwargs``), on ``device`` (CUDA
+        unless named)."""
+        from .interop import TORCH_SUFFIXES, load_torch_vocoder
+
+        if Path(path).suffix in TORCH_SUFFIXES:
+            return load_torch_vocoder(path, device=device, **kwargs)
         return super().from_pretrained(path, device=device)
+
+    @classmethod
+    def convert_torch_checkpoint(cls, config: dict, state: dict) -> tuple[dict, dict]:
+        """A torch Vocos state dict as this class's config and the port's
+        generator names: the trainer's warm start from a ``.pt``. The mel
+        contract comes from ``config["features"]`` where it is given, else
+        the reference's defaults."""
+        from .interop import convert_vocos_state, features_config, infer_generator_config
+
+        flat = convert_vocos_state(state)
+        if "generator.embed.weight" not in flat:
+            raise ValueError("torch checkpoint has no Vocos backbone; cannot convert "
+                             f"(keys: {sorted(state)[:5]}...)")
+        feats = dict((config or {}).get("features") or {})
+        hop = int(feats.get("hop_length", 256))
+        gen_cfg = infer_generator_config(flat, hop)
+        return {"generator": gen_cfg, "features": features_config(
+            gen_cfg, hop, int(feats.get("sample_rate", 22050)), float(feats.get("f_min", 0.0)),
+            feats.get("f_max", 8000.0))}, flat

@@ -15,8 +15,9 @@ version: "off" runs the family's plain einsum version
 :func:`~isp_tts_tpu_torch.ops.flash_attention.flash_attention_reference`),
 differentiated by autograd; any other value ("auto", "on", and "ring",
 which the JAX package runs locally on one device) runs the family's
-autograd function — kernels K1/K2 or K5a/K5b on CUDA tensors, their plain
-versions on CPU tensors. Under fp16 autocast the kernels run on the fp16
+registered operator (``isp_tts::mqa_fwd`` or ``isp_tts::flash_fwd``, one
+node of an exported program) — kernels K1/K2 or K5a/K5b on CUDA tensors,
+their plain versions on CPU tensors. Under fp16 autocast the kernels run on the fp16
 values widened to f32 (exactly), their output narrowed back. In train mode a nonzero ``dropout`` drops
 attention probabilities on both versions with the same hashed keep mask,
 from a seed drawn per call from the layer's dropout generator.

@@ -6,11 +6,14 @@ library under ``isp_tts_tpu_torch/_build/`` (listed in ``.gitignore``). The
 library's file name carries a hash of the source, of the shared headers
 (``csrc/*.cuh``) and of the command, so an edited source builds anew and an
 unchanged one is built once. Nothing is built at import time: :func:`load`
-builds at first use.
+builds at first use. Inside :func:`libraries` it returns libraries the
+caller loaded itself (an exported artifact's embedded ones) instead.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -28,6 +31,9 @@ NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-shared",
 
 #: name -> loaded library; filled by :func:`load`
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: name -> library that :func:`load` returns instead, set by :func:`libraries`
+_OVERRIDE: contextvars.ContextVar[dict[str, ctypes.CDLL]] = contextvars.ContextVar(
+    "isp_tts_kernel_libraries", default={})
 #: name -> {"seconds": seconds from the start of its build batch to the end of
 #: its nvcc (0.0 when cached), "log": nvcc output}
 BUILD_INFO: dict[str, dict] = {}
@@ -47,6 +53,13 @@ def nvcc_path() -> str:
 
 def nvcc_command(source: Path, out: Path) -> list[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(source)]
+
+
+def sources_hash() -> str:
+    """One hash of every kernel source, the shared headers and the flags:
+    libraries built from equal hashes are interchangeable."""
+    blob = b"".join(f.name.encode() + f.read_bytes() for f in sorted(CSRC.glob("*.cu*")))
+    return hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
 
 
 def library_path(name: str) -> Path:
@@ -116,8 +129,22 @@ def build_all(names: list[str]) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library."""
-    lib = _LOADED.get(name)
+    """Build (if needed) and load ``csrc/<name>.cu``'s library, or return the
+    one that an enclosing :func:`libraries` names."""
+    lib = _OVERRIDE.get().get(name) or _LOADED.get(name)
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+@contextlib.contextmanager
+def libraries(libs: dict[str, ctypes.CDLL]):
+    """Inside the block (in this thread or task) :func:`load` returns
+    ``libs[name]`` for each name in ``libs``, and builds nothing for them:
+    the caller's own libraries serve its launches without entering the
+    shared build directory or :data:`_LOADED`."""
+    token = _OVERRIDE.set(libs)
+    try:
+        yield
+    finally:
+        _OVERRIDE.reset(token)

@@ -1,6 +1,6 @@
 """Attention kernels and their plain versions: the folded-MQA forward (K1)
 and backward (K2), the per-head forward (K5a) and backward (K5b), and the
-autograd function that joins a forward to its backward.
+registered operators that join a forward to its backward.
 
 Counterpart of ``isp_tts_tpu/ops/flash_attention.py``:
 
@@ -16,6 +16,12 @@ Counterpart of ``isp_tts_tpu/ops/flash_attention.py``:
   ``_flash_fwd`` (Pallas ``_fwd_kernel``) and the backward ``_flash_bwd``
   (``_dq_kernel`` + ``_dkv_kernel``). On a CUDA tensor :func:`flash_fwd`
   launches ``csrc/flash_fwd.cu`` and :func:`flash_bwd` ``csrc/flash_bwd.cu``.
+
+Each forward and its backward are one registered operator,
+``isp_tts::mqa_fwd`` or ``isp_tts::flash_fwd`` (:func:`mqa_attention`,
+:func:`flash_attention`), which the attention layers call in training and
+in serving and which ``torch.export`` keeps as a node of an exported
+program.
 
 On a CPU tensor each wrapper runs its plain einsum version
 (:func:`mqa_attention_reference`, :func:`mqa_bwd_reference`,
@@ -528,41 +534,83 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
 flash_bwd.launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    """A kernel forward (K1 or K5a) and its kernel backward (K2 or K5b),
-    or their plain versions on CPU tensors."""
+# -- the registered operators -------------------------------------------------
+#
+# Each family is one operator, ``isp_tts::mqa_fwd`` (K1, backward K2) and
+# ``isp_tts::flash_fwd`` (K5a, backward K5b), with its backward registered
+# beside it: training, serving and ``torch.export`` all go through it. Its
+# body is the wrapper above, which launches the kernel on a CUDA tensor
+# (and counts it in ``mqa_fwd.launches`` / ``flash_fwd.launches``) and runs
+# the plain version on a CPU tensor. ``torch.export`` traces with fake
+# tensors, which have no ``data_ptr`` for the launches: the fake version
+# gives the outputs' shapes, and an exported program holds one node per
+# attention call that launches the kernel when it runs on the card.
+# Registering needs no card and builds nothing.
 
-    @staticmethod
-    def forward(ctx, kernels, q, k, v, slopes, key_lens, q_lens, seed, scale, offset,
-                causal, dropout_rate):
-        fwd, ctx.bwd = kernels
-        o, lse = fwd(q, k, v, slopes, key_lens, scale, offset, q_lens, causal,
-                     dropout_rate, seed)
-        ctx.save_for_backward(q, k, v, slopes, key_lens, q_lens, seed, o, lse)
-        ctx.args = (scale, offset, causal, dropout_rate)
-        return o
+Tensor = torch.Tensor
+#: the operators' namespace: ``isp_tts`` for this package; a second copy of
+#: it imported under another name (a study tool's parent checkout) gets its
+#: own, so each copy's layers launch and count their own kernels
+NAMESPACE = ("isp_tts" if __name__.split(".")[0] == "isp_tts_tpu_torch"
+             else __name__.split(".")[0])
 
-    @staticmethod
-    def backward(ctx, do):
+
+def _register(name: str, bwd_name: str, lse_shape):
+    """Register ``<NAMESPACE>::<name>`` and return its overload: the
+    wrapper ``name`` of this module as its body, the wrapper ``bwd_name`` as its backward (both looked up at
+    each call, so a tool may swap them), ``lse_shape(B, N, H)`` for the fake
+    lse. Raises where the operator is registered already."""
+    if hasattr(getattr(torch.ops, NAMESPACE), name):
+        raise RuntimeError(f"{NAMESPACE}::{name} is already registered: import one copy "
+                           "of the package under one name per process")
+
+    @torch.library.custom_op(f"{NAMESPACE}::{name}", mutates_args=())
+    def op(q: Tensor, k: Tensor, v: Tensor, slopes: Tensor, key_lens: Tensor,
+           q_lens: Tensor, seed: Tensor, scale: float, offset: int, causal: bool,
+           dropout_rate: float) -> tuple[Tensor, Tensor]:
+        return globals()[name](q, k, v, slopes, key_lens, scale, offset, q_lens, causal,
+                               dropout_rate, seed)
+
+    @op.register_fake
+    def _(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal, dropout_rate):
+        B, N, H, _ = q.shape
+        return torch.empty_like(q), q.new_empty(lse_shape(B, N, H), dtype=torch.float32)
+
+    def setup_context(ctx, inputs, output):
+        q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal, rate = inputs
+        ctx.save_for_backward(q, k, v, slopes, key_lens, q_lens, seed, *output)
+        ctx.args = (scale, offset, causal, rate)
+
+    def backward(ctx, do, _dlse):
         q, k, v, slopes, key_lens, q_lens, seed, o, lse = ctx.saved_tensors
-        dq, dk, dv, dslopes = ctx.bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse,
-                                      do.contiguous(), *ctx.args)
-        return None, dq, dk, dv, dslopes, None, None, None, None, None, None, None
+        dq, dk, dv, dslopes = globals()[bwd_name](q, k, v, slopes, key_lens, q_lens, seed,
+                                                  o, lse, do.contiguous(), *ctx.args)
+        return dq, dk, dv, dslopes, None, None, None, None, None, None, None
+
+    op.register_autograd(backward, setup_context=setup_context)
+    # the overload itself: a call skips the Python wrapper around it
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+mqa_op = _register("mqa_fwd", "mqa_bwd", lambda B, N, H: (B, N * H))
+flash_op = _register("flash_fwd", "flash_bwd", lambda B, N, H: (B, H, N))
 
 
 def mqa_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
                   causal=False, dropout_rate=0.0, seed=None):
-    """Differentiable folded-MQA attention: :func:`mqa_fwd`'s output o, with
-    :func:`mqa_bwd` as its backward. Arguments as in :func:`mqa_fwd`."""
+    """Differentiable folded-MQA attention (``isp_tts::mqa_fwd``):
+    :func:`mqa_fwd`'s output o, with :func:`mqa_bwd` as its backward.
+    Arguments as in :func:`mqa_fwd`."""
     q_lens, seed = _defaults(q, q_lens, seed)
-    return _FlashAttention.apply((mqa_fwd, mqa_bwd), q, k, v, slopes, key_lens, q_lens,
-                                 seed, scale, offset, causal, dropout_rate)
+    return mqa_op(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal,
+                  dropout_rate)[0]
 
 
 def flash_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
                     causal=False, dropout_rate=0.0, seed=None):
-    """Differentiable per-head attention: :func:`flash_fwd`'s output o, with
-    :func:`flash_bwd` as its backward. Arguments as in :func:`flash_fwd`."""
+    """Differentiable per-head attention (``isp_tts::flash_fwd``):
+    :func:`flash_fwd`'s output o, with :func:`flash_bwd` as its backward.
+    Arguments as in :func:`flash_fwd`."""
     q_lens, seed = _defaults(q, q_lens, seed)
-    return _FlashAttention.apply((flash_fwd, flash_bwd), q, k, v, slopes, key_lens,
-                                 q_lens, seed, scale, offset, causal, dropout_rate)
+    return flash_op(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal,
+                    dropout_rate)[0]

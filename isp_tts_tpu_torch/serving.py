@@ -171,8 +171,9 @@ class Synthesizer:
     def from_pretrained(cls, path: str | Path, config: SynthesizerConfig | None = None,
                         vocoder_path: str | Path | None = None,
                         device: str | torch.device | None = None) -> "Synthesizer":
-        """Load a ``.ckpt`` acoustic checkpoint, and a ``.ckpt`` vocoder when
-        given, onto ``device`` (CUDA unless named)."""
+        """Load a ``.ckpt`` (or reference ``.pt``) acoustic checkpoint, and a
+        vocoder when given (a ``.ckpt`` or a torch Vocos file), onto
+        ``device`` (CUDA unless named)."""
         model = AcousticModel.from_pretrained(path, device=device)
         vocoder = None
         if vocoder_path is not None:

@@ -24,8 +24,9 @@ Requests inside one batching window are grouped by their control tuple
 becomes one device call. A fixed ``seed`` pins the noise for a fixed batch
 shape only: what shares a window changes a request's buckets and row.
 
-Serving from an exported artifact (``--artifact``) waits for the export
-item and raises ``NotImplementedError``.
+``--artifact`` serves from an exported audio artifact
+(:mod:`isp_tts_tpu_torch.export`) through :class:`ArtifactServing`, with no
+model code; coalescing stops at the artifact's one batch shape.
 """
 
 from __future__ import annotations
@@ -400,6 +401,34 @@ class TTSServer:
         r.done.set()
 
 
+class ArtifactServing:
+    """The daemon's synthesizer interface over an exported artifact
+    (:class:`~isp_tts_tpu_torch.export.ExportedSynthesizer`): a deployment
+    host needs the artifact and torch, nothing else. Only audio artifacts
+    (exported with a vocoder) serve the wav and pcm formats; a mel request
+    raises."""
+
+    def __init__(self, exported):
+        if exported.meta["output"] != "audio":
+            raise ValueError("daemon artifact serving needs an audio artifact (export "
+                             f"with --vocoder); this one outputs {exported.meta['output']!r}")
+        self.exported = exported
+
+    @property
+    def max_batch(self) -> int:
+        return int(self.exported.meta["batch"])
+
+    @property
+    def sample_rate(self) -> int:
+        return int(self.exported.meta["sample_rate"])
+
+    def synthesize_audio(self, texts, **controls):
+        return self.exported(texts, **controls)
+
+    def __call__(self, texts, **controls):
+        raise ValueError("mel format is unavailable when serving from an audio artifact")
+
+
 def _make_handler(server: TTSServer):
     class Handler(BaseHTTPRequestHandler):
         # route logging through the framework logger, not stderr
@@ -553,12 +582,11 @@ def main(argv=None) -> None:
     """``python -m isp_tts_tpu_torch.serving_server --checkpoint ckpt [--vocoder v]``"""
     import argparse
 
-    from .serving import Synthesizer, SynthesizerConfig
-
     p = argparse.ArgumentParser(description="isp_tts_tpu_torch serving daemon")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--artifact", default=None,
-                   help="serve from an exported artifact (not ported yet)")
+                   help="serve from an exported audio artifact (isp_tts_tpu_torch.export) "
+                        "instead of a checkpoint: no model code needed")
     p.add_argument("--vocoder", default=None, help="optional VocoderModel checkpoint")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
@@ -574,16 +602,27 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     if (args.checkpoint is None) == (args.artifact is None):
         p.error("exactly one of --checkpoint / --artifact is required")
+    max_batch, warmup = args.max_batch, None
     if args.artifact is not None:
-        raise NotImplementedError("serving from an exported artifact waits for the export "
-                                  "item (ROADMAP Queue 1 item 4); pass --checkpoint")
-    synth = Synthesizer.from_pretrained(args.checkpoint, SynthesizerConfig(steps=args.steps),
-                                        vocoder_path=args.vocoder, device=args.device)
+        from .export import ExportedSynthesizer
+
+        synth = ArtifactServing(ExportedSynthesizer(args.artifact, device=args.device))
+        # the artifact has one batch shape: don't coalesce past it
+        max_batch = min(max_batch, synth.max_batch)
+        if args.warmup:
+            warmup = lambda: synth.synthesize_audio(["warm up."])  # noqa: E731
+    else:
+        from .serving import Synthesizer, SynthesizerConfig
+
+        synth = Synthesizer.from_pretrained(args.checkpoint,
+                                            SynthesizerConfig(steps=args.steps),
+                                            vocoder_path=args.vocoder, device=args.device)
+        if args.warmup:
+            warmup = lambda: synth.warmup(batch_sizes=(1, max_batch))  # noqa: E731
     server = TTSServer(synth, host=args.host, port=args.port,
-                       config=ServerConfig(max_batch=args.max_batch,
+                       config=ServerConfig(max_batch=max_batch,
                                            max_wait_ms=args.max_wait_ms))
-    port = server.start(warmup=(lambda: synth.warmup(batch_sizes=(1, args.max_batch)))
-                        if args.warmup else None)
+    port = server.start(warmup=warmup)
     logger.info("serving on http://%s:%d: POST /synthesize", args.host, port)
     try:
         threading.Event().wait()  # serve until interrupted

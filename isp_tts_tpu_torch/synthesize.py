@@ -3,8 +3,10 @@ vocoder -> 16-bit WAV.
 
 Counterpart of ``isp_tts_tpu/synthesize.py``, with its flags and defaults
 and ``--device`` (CUDA unless named). The vocoder is a ``VocoderModel``
-``.ckpt`` given with ``--vocoder``, else Griffin-Lim (``torch.fft``) on the
-same device, peak-normalised to 0.95.
+``.ckpt`` or a torch Vocos checkpoint (``.pts``, ``.pt``, ``.pth``,
+``.bin``) given with ``--vocoder``, else Griffin-Lim (``torch.fft``) on the
+same device, peak-normalised to 0.95. ``--checkpoint`` also takes a
+reference ``.pt``.
 
     python -m isp_tts_tpu_torch.synthesize --checkpoint ckpt.ckpt \
         --text "Hello world." --output out.wav [--vocoder voc.ckpt] [--steps 4]
@@ -38,8 +40,8 @@ def main(argv=None) -> None:
     parser.add_argument("--max-frames", type=int, default=2048)
     parser.add_argument("--sample-rate", type=int, default=22050)
     parser.add_argument("--vocoder", default=None,
-                        help="neural vocoder: a VocoderModel checkpoint (.ckpt) "
-                             "(default: Griffin-Lim)")
+                        help="neural vocoder: a VocoderModel checkpoint (.ckpt) or a "
+                             "torch Vocos file (.pts/.pt/.pth/.bin) (default: Griffin-Lim)")
     parser.add_argument("--griffin-lim-iters", type=int, default=48)
     parser.add_argument("--device", default="cuda",
                         help="device to run on (default: cuda; there is no fallback)")

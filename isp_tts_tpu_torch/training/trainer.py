@@ -227,13 +227,18 @@ class Trainer:
         if not path:
             return
         t0 = time.perf_counter()
-        if str(path).endswith((".pt", ".pth")):
-            raise NotImplementedError("resuming from a reference .pt checkpoint waits for the "
-                                      "interop item (ROADMAP Queue 1 item 4)")
         ckpt = load_checkpoint(path)
         ignore = list(cfg.ignore_layers) if cfg.warm_start else []
-        self.model.load_params(ckpt["model"]["state"], ignore_layers=ignore,
-                               ignore_mismatched=cfg.ignore_mismatched_keys)
+        state = ckpt["model"]["state"]
+        torch_file = ckpt.get("format") == "torch"
+        if torch_file:
+            # a reference .pt: the model class maps its names onto the port's
+            # (the model is built, so the converted config is not used)
+            _, state = type(self.model).convert_torch_checkpoint(
+                ckpt["model"].get("config", {}), state)
+        self.model.load_params(state, ignore_layers=ignore,
+                               ignore_mismatched=cfg.ignore_mismatched_keys,
+                               port_names=torch_file)
         if not cfg.warm_start:
             exp_state = ckpt.get("experiment", {}).get("state")
             if not exp_state:

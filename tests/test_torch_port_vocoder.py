@@ -226,10 +226,27 @@ def jax_mel():
     return np.asarray(mel)[:, :n]
 
 
-def test_checkpoint_suffixes_of_torch_vocos_raise():
+def test_checkpoint_suffixes_of_torch_vocos_raise(tmp_path):
+    """The torch Vocos suffixes, refused until the reference interop was
+    ported, now each load: the committed vocoder's generator written as a
+    ``.pt``, ``.pth`` and ``.bin`` state dict and as a TorchScript ``.pts``
+    comes back bit for bit (``tests/test_torch_port_vocos_interop.py`` holds
+    the files to the JAX package's)."""
+    from isp_tts_tpu_torch.models.vocoder.interop import export_vocos_state, save_torch_vocoder
+    from torch_port_common import save_torchscript_state
+
+    src = VocoderModel.from_pretrained(VOCODER, device="cpu")
+    for suffix in (".pt", ".pth", ".bin"):
+        save_torch_vocoder(src, tmp_path / f"vocos{suffix}")
+    save_torchscript_state({k: torch.from_numpy(v) for k, v in
+                            export_vocos_state(src.state_dict()).items()},
+                           tmp_path / "vocos.pts")
+    want = src.generator.state_dict()
     for suffix in (".pt", ".pts", ".pth", ".bin"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            VocoderModel.from_pretrained(f"vocos{suffix}", device="cpu")
+        got = VocoderModel.from_pretrained(tmp_path / f"vocos{suffix}", device="cpu")
+        assert got.generator.state_dict().keys() == want.keys()
+        for k, v in got.generator.state_dict().items():
+            assert torch.equal(v, want[k]), (suffix, k)
 
 
 def test_jax_flat_names_cover_the_port_generator():

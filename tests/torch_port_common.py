@@ -196,3 +196,27 @@ def toy_overrides(root, outdir, **trainer_over) -> dict:
                          "progress": False, "log_with": [], "precision": "fp32",
                          "callbacks": {}}, **trainer_over),
     }
+
+
+class _ScriptRoot(torch.nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def save_torchscript_state(state: dict[str, torch.Tensor], path) -> None:
+    """A TorchScript module whose ``state_dict()`` is ``state`` (dotted
+    names become nested modules; ``window`` leaves are buffers), saved to
+    ``path``: the form of the reference's ``vocos_ms_fp16.pts``."""
+    root = _ScriptRoot()
+    for name, value in state.items():
+        *mods, leaf = name.split(".")
+        m = root
+        for part in mods:
+            if part not in m._modules:
+                m.add_module(part, torch.nn.Module())
+            m = m._modules[part]
+        if leaf == "window":
+            m.register_buffer(leaf, value.clone())
+        else:
+            m.register_parameter(leaf, torch.nn.Parameter(value.clone(), requires_grad=False))
+    torch.jit.script(root).save(str(path))

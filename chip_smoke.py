@@ -35,6 +35,13 @@ how far it got:
              K2 at B 4, N = M = 1024 over 16 draws of dL/do, each within
              1e-4 of the plain version's scale, beside both sides' distance
              from the same formula in float64.
+   tp-heads - K1, K2a, K5a and K5b at the fine-tuning shape with dropout
+             0.1, f32 and bf16: the whole call against its two head halves
+             run as a model split runs them (the global head count and the
+             half's first head in the dropout hash): each half's o, lse, dq
+             and slope gradients equal the whole call's slices (K5b's dk and
+             dv too; K2a's halves' dk and dv sum to the whole), within the
+             kernel phases' bounds.
 6. slice   - ``Synthesizer.from_pretrained`` on the committed 23M-parameter
              checkpoint, three sentences one at a time and then as one batch,
              with the launch counts zeroed just before and read just after;
@@ -56,6 +63,14 @@ how far it got:
              before and read just after; every waveform finite, in [-1, 1],
              dec_len x 256 samples; then one warm audio request under the
              profiler and the vocoder's share of its device time.
+9a. serve-devices - ``Synthesizer.from_pretrained(ckpt, vocoder_path=...,
+             devices=["cuda:0", "cuda:0"])``, two replicas on the one card,
+             against one device on the three sentences, f32, both on the
+             one device's durations: each replica's rows equal one device on
+             them (SERVE_SHARD_BOUND), and the whole batch within
+             SERVE_WHOLE_BOUNDS of the mel's max-abs and of the waveform;
+             then one device's own gap between a batch and its shards over
+             GAP_SEEDS (shard_gaps), which that mel bound rests on.
 10. cli    - ``python -m isp_tts_tpu_torch.synthesize`` as a subprocess, with
              the vocoder and with Griffin-Lim: 22.05 kHz 16-bit mono WAVs of
              frames x 256 samples.
@@ -110,6 +125,11 @@ how far it got:
              after, finite metrics and a falling mel loss; (c) the
              aligner's durations sum to the mel lengths.
 15. profile - one warm training step under torch.profiler.
+15a. dist-one - an NCCL process group of world size 1 in this process: 3
+             fine-tuning steps through the distributed trainer (the data
+             group's bucketed all-reduce, rank 0's barriered save) against
+             the plain trainer's 3 steps: bit-equal, or within rel 1e-6;
+             the same K1-K4 launches; the two checkpoints' bytes.
 16. train  - the same for the multi-KV-head model on K5a/K5b, and, in f32
              with dropout off, its ``to_kv`` gradient summed over the heads
              against the one-KV-head model's, both models on the same K and
@@ -801,6 +821,154 @@ def phase_slice_mha(t0, reference):
     say("slice", t0, f"multi-KV-head model on K5a vs the one-KV-head model on K1: mel "
         f"max_err={err:.3e} bound={MEL_BOUND:.0e}")
     return synth, launches
+
+
+def hold_durations(synth, durations) -> None:
+    """Every replica of ``synth`` infers on its rows of ``durations``
+    (Bb, T), as the mel gates hold the durations."""
+    n = len(synth.replicas)
+    per = durations.shape[0] // n
+    for i, (replica, dev) in enumerate(zip(synth.replicas, synth.devices)):
+        rows = durations[i * per:(i + 1) * per].to(dev)
+        infer = replica.infer
+        replica.infer = (lambda *a, _infer=infer, _rows=rows, **k:
+                         _infer(*a, duration_target=_rows, **k))
+
+
+#: the Synthesizer over replicas against one device. Each replica's rows
+#: against one device serving those rows alone (the same shapes, the same
+#: kernels): equal but for this, the mel against its max-abs and the
+#: waveform absolutely. Against one device serving the whole batch: the
+#: mel against its max-abs within SERVE_WHOLE_BOUNDS["mel"], the waveform
+#: within the vocoder's bound. A replica runs a share of the rows, and
+#: cuBLAS picks other GEMM kernels for another row count, whose sums round
+#: otherwise; the flow predictor and the pitch/energy embedding amplify that.
+#: So the whole-batch mel bound sits just above one device's own gap between
+#: a batch and its shards, which :func:`shard_gaps` reads in every run over
+#: GAP_SEEDS: on an H100 (700 W) 64 readings (16 seeds; 3 and 8 sentences; 2
+#: and 4 shards) spread 2.8e-6 to 5.87e-4, the gated draw (3 sentences, 2
+#: shards, seed 0) 1.5e-4 (PERF.md section 6)
+SERVE_SHARD_BOUND = 1e-6
+SERVE_WHOLE_BOUNDS = {"mel": 7e-4, "wave": 1e-3}  # wave: the vocoder card-vs-CPU bound
+GAP_SEEDS = range(16)
+
+
+def one_device_references(one, texts, n, seed=0, audio=(False, True)):
+    """``one`` (one device) on ``texts`` as one padded batch from
+    ``seed``'s noise, on its own durations: the durations, and for each
+    entry of ``audio`` the whole batch's output and that of its ``n`` equal
+    shards each served alone (joined), as float32 numpy arrays."""
+    import torch
+
+    tokens, lens, fb, _ = one.prepare(texts)
+    tok, ln = batch_tensors(tokens, lens)
+    tok, ln = tok.to(one.device), ln.to(one.device)
+    noise = one._noise(tokens.shape, seed)
+    _, ad = one.model.infer(tok, ln, max_dec_len=fb, steps=one.config.steps, noise=noise)
+    durations = ad.duration
+
+    def run(rows, a):
+        mel, _ = one.model.infer(tok[rows], ln[rows], max_dec_len=fb, steps=one.config.steps,
+                                 noise=noise[rows], duration_target=durations[rows])
+        return one._vocode(mel) if a else mel
+
+    per = tokens.shape[0] // n
+    shards = [slice(i * per, (i + 1) * per) for i in range(n)]
+    shard = {a: torch.cat([run(r, a) for r in shards]).float().cpu().numpy() for a in audio}
+    whole = {a: run(slice(None), a).float().cpu().numpy() for a in audio}
+    return durations, shard, whole
+
+
+def mel_rel_err(mels, ref) -> float:
+    """The largest row error of ``mels`` against ``ref``'s rows, each
+    against the reference row's max-abs."""
+    return max(float(np.abs(m - ref[i, :len(m)]).max() / np.abs(ref[i]).max())
+               for i, m in enumerate(mels))
+
+
+def shard_gaps(one, texts, n, seeds=GAP_SEEDS) -> list[float]:
+    """One device's own mel gap, per seed, between serving ``texts`` as one
+    batch and as ``n`` shards, all on the whole batch's durations: what
+    ``n`` replicas read against one device on the whole batch."""
+    gaps = []
+    for seed in seeds:
+        _, shard, whole = one_device_references(one, texts, n, seed, audio=(False,))
+        gaps.append(mel_rel_err(list(shard[False]), whole[False]))
+    return gaps
+
+
+def serve_over_devices(synth, one, texts) -> dict:
+    """``synth`` (replicas over cards) against ``one`` (one device) on
+    ``texts`` as one batch, f32, every call on the one device's durations:
+    the replicas' mels and waveforms through the public calls, held to one
+    device on each replica's rows and on the whole batch. Returns the
+    errors, the frame counts and the replicas' K1 launches."""
+    n = len(synth.devices)
+    durations, shard, whole = one_device_references(one, texts, n)
+    hold_durations(synth, durations)
+    launch_counts(reset=True)
+    mels, waves = synth(texts), synth.synthesize_audio(texts)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    hop = synth._hop_length()
+    frames = [m.shape[0] for m in mels]
+    errs = {}
+    for name, ref in (("shard", shard), ("whole", whole)):
+        errs[name] = {
+            "mel": mel_rel_err(mels, ref[False]),
+            "wave": max(np.abs(w - ref[True][i, :len(w)]).max() for i, w in enumerate(waves))}
+    same = all(np.array_equal(m, shard[False][i, :len(m)]) for i, m in enumerate(mels)) and \
+        all(np.array_equal(w, shard[True][i, :len(w)]) for i, w in enumerate(waves))
+    ok = (all(e <= SERVE_SHARD_BOUND for e in errs["shard"].values())
+          and all(errs["whole"][k] <= SERVE_WHOLE_BOUNDS[k] for k in SERVE_WHOLE_BOUNDS)
+          and [len(w) for w in waves] == [f * hop for f in frames]
+          # CPU calls never count (a rehearsal on the CPU)
+          and set(launches) == ({"K1 mqa_fwd"} if synth.device.type != "cpu" else set()))
+    if not ok:
+        raise AssertionError(f"{n} replicas against one device: errors {errs} (bounds "
+                             f"{SERVE_SHARD_BOUND:.0e} on each replica's rows, "
+                             f"{SERVE_WHOLE_BOUNDS} on the whole batch), frames {frames}, "
+                             f"launches {launches}")
+    return {"errs": errs, "bit_equal": same, "frames": frames, "launches": launches}
+
+
+def phase_serve_devices(t0):
+    """The Synthesizer over two replicas on the one card against one
+    device (:func:`serve_over_devices`), on the three sentences; then one
+    device's own batch-against-shards gaps (:func:`shard_gaps`) over
+    GAP_SEEDS, two and four shards of the three sentences and two and four
+    of eight training sentences, which SERVE_WHOLE_BOUNDS["mel"] rests on."""
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    one = Synthesizer.from_pretrained(CKPT, vocoder_path=VOCODER)
+    two = Synthesizer.from_pretrained(CKPT, vocoder_path=VOCODER, devices=["cuda:0", "cuda:0"])
+    r = serve_over_devices(two, one, SENTENCES)
+    t = time.perf_counter()
+    two(SENTENCES)
+    mel_ms = 1e3 * (time.perf_counter() - t)
+    say("serve-devices", t0, "Synthesizer(devices=['cuda:0', 'cuda:0']) against one device, 3 "
+        "sentences, f32, the one device's durations: each replica's rows against one device "
+        f"on them: mel rel {r['errs']['shard']['mel']:.3e}, wave {r['errs']['shard']['wave']:.3e}"
+        f" (bound {SERVE_SHARD_BOUND:.0e}; bit-equal {r['bit_equal']}); the whole batch on one "
+        f"device: mel rel {r['errs']['whole']['mel']:.3e}, wave {r['errs']['whole']['wave']:.3e}"
+        f" (bounds {SERVE_WHOLE_BOUNDS}); frames {r['frames']}; launches {r['launches']}; a "
+        f"warm mel request {mel_ms:.1f} ms")
+    gaps = {f"{name} / {n}": shard_gaps(one, texts, n)
+            for name, texts in (("3 sentences", SENTENCES), ("8 sentences", TRAIN_SENTENCES[:8]))
+            for n in (2, 4)}
+    worst = max(max(g) for g in gaps.values())
+    say("serve-devices", t0, f"one device's mel gap, a batch against its shards, seeds "
+        f"{GAP_SEEDS.start}-{GAP_SEEDS.stop - 1}: " + "; ".join(
+            f"{k}: " + ", ".join(f"{g:.3e}" for g in v) for k, v in gaps.items())
+        + f"; largest {worst:.3e} (the whole-batch bound {SERVE_WHOLE_BOUNDS['mel']:.0e})")
+    if not worst <= SERVE_WHOLE_BOUNDS["mel"]:
+        raise AssertionError(f"one device's batch-against-shards gap {worst:.3e} passed the "
+                             f"whole-batch bound {SERVE_WHOLE_BOUNDS['mel']:.0e}")
+
+
+def batch_tensors(tokens, lens):
+    import torch
+
+    return torch.from_numpy(tokens).long().cuda(), torch.from_numpy(lens).cuda()
 
 
 def phase_profile(t0, run, label):
@@ -1872,6 +2040,75 @@ def phase_kernel_train(t0):
             f"bound={K4_LOSS_BOUND:.0e} grad rel_err={grad_err:.2e} bound={K4_GRAD_BOUND:.0e}")
 
 
+def phase_tp_heads(t0):
+    """K1/K2a and K5a/K5b at the fine-tuning shape (B 32, N = M = 320, 6
+    heads, dropout 0.1), f32 and bf16: the whole call, then each half of
+    its heads as a model split runs it (``head0``, ``heads_total`` in the
+    dropout hash), held to the whole call's slices within the kernel
+    phases' bounds (bit-equality reported)."""
+    import torch
+
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    scale, rate, H = 64 ** -0.5, 0.1, 6
+    for dt in ("float32", "bfloat16"):
+        for kv in (None, H):
+            mqa = kv is None
+            fwd, bwd = (fa.mqa_fwd, fa.mqa_bwd) if mqa else (fa.flash_fwd, fa.flash_bwd)
+            q, k, v, slopes, kl, ql = mqa_inputs(BATCH, MEL_LEN, MEL_LEN, H, getattr(torch, dt),
+                                                 False, gen, kv_heads=kv)
+            w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+            seed = seed_tensor(4321)
+            o, lse = fwd(q, k, v, slopes, kl, scale, 0, ql, False, rate, seed)
+            dq, dk, dv, dsl = bwd(q, k, v, slopes, kl, ql, seed, o, lse, w, scale, 0, False,
+                                  rate)
+            # lse as (B, N, H) for both families
+            lse_h = lse.reshape(BATCH, MEL_LEN, H) if mqa else lse.transpose(1, 2)
+            f_bound = F32_BOUND if dt == "float32" else BF16_BOUND
+            b_bound = K2_BOUNDS[dt]
+            errs, exact, dk_sum, dv_sum = {}, True, torch.zeros_like(dk), torch.zeros_like(dv)
+            before = (fwd.launches, bwd.launches)
+            for h0 in (0, H // 2):
+                hs = slice(h0, h0 + H // 2)
+                kk, vv = (k, v) if mqa else (k[:, :, hs].contiguous(), v[:, :, hs].contiguous())
+                args = (q[:, :, hs].contiguous(), kk, vv, slopes[:, hs].contiguous(), kl)
+                o_p, lse_p = fwd(*args, scale, 0, ql, False, rate, seed, 0, h0, H)
+                g = bwd(*args, ql, seed, o_p, lse_p, w[:, :, hs].contiguous(), scale, 0, False,
+                        rate, 0, h0, H)
+                lse_p = lse_p.reshape(BATCH, MEL_LEN, -1) if mqa else lse_p.transpose(1, 2)
+                live = torch.isfinite(lse_h[:, :, hs])
+                if not torch.equal(torch.isfinite(lse_p), live):
+                    raise AssertionError(f"tp-heads {dt} heads {hs}: other dead rows")
+                pairs = {"o": (o_p, o[:, :, hs]), "lse": (lse_p[live], lse_h[:, :, hs][live]),
+                         "dq": (g[0], dq[:, :, hs]), "dslopes": (g[3], dsl[:, hs])}
+                if not mqa:
+                    pairs.update(dk=(g[1], dk[:, :, hs]), dv=(g[2], dv[:, :, hs]))
+                else:
+                    dk_sum += g[1].float()
+                    dv_sum += g[2].float()
+                for name, (a, b) in pairs.items():
+                    errs[name] = max(errs.get(name, 0.0), rel_err(a, b))
+                    exact = exact and torch.equal(a, b)
+            if mqa:
+                errs["dk sum"], errs["dv sum"] = rel_err(dk_sum, dk), rel_err(dv_sum, dv)
+            torch.cuda.synchronize()
+            launched = (fwd.launches - before[0], bwd.launches - before[1])
+            bad = {n: e for n, e in errs.items()
+                   if e > (f_bound if n in ("o", "lse") else b_bound)}
+            name = "K1/K2a" if mqa else "K5a/K5b"
+            if bad or launched != (2, 2):
+                raise AssertionError(f"tp-heads {name} {dt}: halves against the whole call "
+                                     f"{errs} past the bounds {f_bound:.0e} / {b_bound:.0e} "
+                                     f"(forward / backward); launches {launched}")
+            say("tp-heads", t0, f"{name} B={BATCH} N=M={MEL_LEN} H={H} {dt} dropout={rate}: "
+                "two head halves (head0 0 and 3 of 6) against the whole call, relative "
+                + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+                + f"; bounds {f_bound:.0e} / {b_bound:.0e}; slices bit-equal {exact}")
+            del q, k, v, o, lse, dq, dk, dv, w
+            torch.cuda.empty_cache()
+
+
 K5_CASES = (  # B, N, M, H, Hkv, dtype, rate, offset, causal
     [(32, 320, 320, 6, 6, dt, rate, 0, False)
      for dt in ("float32", "bfloat16") for rate in (0.0, 0.1)]
@@ -2228,6 +2465,73 @@ def phase_train(t0, experiment, batch, durations, mha=False):
     say(label, t0, f"(c) MAS durations sum to mel_len in all {BATCH} rows; mean |MAS - "
         f"Synthesizer duration| {gap.item():.2f} frames per token (not a gate)")
     return kernel, launches
+
+
+#: the distributed trainer at world size 1 against the plain trainer: equal,
+#: or (a sum in another order) within this, relative
+DIST_ONE_BOUND = 1e-6
+DIST_ONE_STEPS = 3
+
+
+def phase_dist_one(t0, experiment, batch):
+    """An NCCL process group of world size 1, started in this process: the
+    fine-tuning steps through the distributed trainer (the data group's
+    bucketed all-reduce, rank 0's barriered save) against the same steps
+    of the plain trainer, the K1-K4 launches alike."""
+    import torch
+    import torch.distributed as dist
+
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticLossConfig, AcousticModelLoss
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+    from isp_tts_tpu_torch.parallel.mesh import init_distributed
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    work = Path(tempfile.mkdtemp(dir=ROOT, prefix="_smoke_dist_"))
+    runs = {}
+    try:
+        for distributed in (False, True):
+            if distributed:
+                init_distributed("nccl", init_method=f"file://{work / 'store'}", world_size=1,
+                                 rank=0, local_rank=0)
+            cfg = build_config(TrainerConfig, experiment["trainer"])
+            cfg.output_dir = str(work)
+            trainer = Trainer(AcousticModel.from_pretrained(CKPT), AcousticModelLoss(
+                build_config(AcousticLossConfig, experiment["criterion"])), cfg,
+                generator=torch.Generator(device="cuda").manual_seed(7))
+            groups = dict(trainer.parallel_ctx.groups)
+            launch_counts(reset=True)
+            history = trainer.train([batch], DIST_ONE_STEPS)
+            launches = launch_counts()
+            name = f"checkpoint_{'dist' if distributed else 'plain'}.ckpt"
+            trainer._save_checkpoint(name)
+            params = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+            ckpt = (Path(trainer.run_dir) / name).read_bytes()
+            runs[distributed] = (history, params, launches, ckpt, groups)
+            del trainer
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    (h0, p0, l0, f0, _), (h1, p1, l1, f1, groups) = runs[False], runs[True]
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(h1, h0)
+                     for k in b)
+    param_err = max(rel_err(p1[n], p0[n]) for n in p0)
+    equal = metric_err == 0 and all(torch.equal(p1[n], p0[n]) for n in p0)
+    same_file = f0 == f1
+    path = ("K1 mqa_fwd", "K2 mqa_bwd", "K3 mas", "K4 ctc_fwd", "K4 ctc_bwd")
+    if not (set(groups) == {"data"} and (equal or max(metric_err, param_err) <= DIST_ONE_BOUND)
+            and l0 == l1 and min(l1[k] for k in path) > 0):
+        raise AssertionError(f"world-size-1 NCCL trainer against the plain trainer: groups "
+                             f"{sorted(groups)}, metrics {metric_err:.3e}, parameters "
+                             f"{param_err:.3e} (bound {DIST_ONE_BOUND:.0e}), launches {l1} "
+                             f"vs {l0}")
+    say("dist-one", t0, f"{DIST_ONE_STEPS} fine-tuning steps through an NCCL process group of "
+        f"world size 1 against the plain trainer: bit-equal {equal} (metrics rel "
+        f"{metric_err:.3e}, parameters rel {param_err:.3e}, bound {DIST_ONE_BOUND:.0e}); "
+        f"checkpoints byte-equal {same_file}; launches {l1} in both; losses "
+        + ", ".join(f"{h['loss']:.6f}" for h in h1))
 
 
 #: the multi-KV-head step's to_kv gradient, summed over its head blocks,
@@ -3383,6 +3687,7 @@ def main() -> int:
     phase_kernel(t0)
     phase_kernel_train(t0)
     phase_kernel_mha(t0)
+    phase_tp_heads(t0)
     phase_slope_draws(t0)
     synth, serve_launches, reference = phase_slice(t0)
     phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
@@ -3391,6 +3696,7 @@ def main() -> int:
     phase_serve_bf16(t0, synth(SENTENCES))
     audio_synth, audio_launches = phase_serve_audio(t0)
     phase_profile_audio(t0, audio_synth)
+    phase_serve_devices(t0)
     phase_cli(t0)
     phase_daemon(t0, audio_synth)
     work = Path(tempfile.mkdtemp(dir=ROOT, prefix="_smoke_recipe_"))
@@ -3410,6 +3716,7 @@ def main() -> int:
     trainer, train_launches = phase_train(t0, experiment, batch, durations)
     phase_profile(t0, lambda: trainer.train([batch], 1), "one training step")
     del trainer
+    phase_dist_one(t0, experiment, batch)
     mha_trainer, mha_launches = phase_train(t0, experiment, batch, durations, mha=True)
     phase_profile(t0, lambda: mha_trainer.train([batch], 1),
                   "one training step, multi-KV-head")

@@ -99,6 +99,8 @@ struct BwdParams {
   int thresh;
   float inv_keep;
   int splits;
+  int hash_heads;       // the dropout index's head count (H on one rank)
+  uint32_t seed_shift;  // the dropout index of this call's first element
 };
 
 // The A operand of the backward: f32 keeps its values and splits at each
@@ -160,7 +162,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   const int nrows = rows.count();
   const bool drop = p.thresh < 256;
   const uint32_t thresh24 = static_cast<uint32_t>(p.thresh) << 24;  // keep: hash < this
-  const uint32_t seed = static_cast<uint32_t>(p.seed[0]);
+  const uint32_t seed = static_cast<uint32_t>(p.seed[0]) + p.seed_shift;
   const float scale2 = p.scale * LOG2E;
   const double scale2d = static_cast<double>(p.scale) * LOG2E_D;
 
@@ -402,7 +404,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   const int cw = c0 + 16 * warp;  // the warp's first key
   const bool drop = p.thresh < 256;
   const uint32_t thresh24 = static_cast<uint32_t>(p.thresh) << 24;
-  const uint32_t seed = static_cast<uint32_t>(p.seed[0]);
+  const uint32_t seed = static_cast<uint32_t>(p.seed[0]) + p.seed_shift;
   const float scale2 = p.scale * LOG2E;
 
   // the rows this block's keys need: queries [n_start, q_len) of each head

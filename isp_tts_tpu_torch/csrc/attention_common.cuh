@@ -71,6 +71,12 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
 // and K2 fold row r = n*H + h of the (B, N*H, 64) view onto the one K/V
 // head, K5a and K5b give each head its own block of rows.
 //
+// The dropout index is over the global batch and heads: a data rank's
+// first batch row and a model rank's first head shift every index of the
+// call by one amount, which the wrapper folds into the seed
+// (p.seed_shift); the index's head stride is the global head count
+// (p.hash_heads, H on one rank), so a rank's heads hash as one rank's do.
+//
 // Row-stationary blocks (the forwards, the backward's dq pass): Rows is
 // built from the parameters and blockIdx and gives the block's row count
 // and, for tile row i, its query n, head h, q/o element offset, lse index
@@ -84,11 +90,12 @@ struct FoldedRows {
   // 3 bf16 blocks an SM: 4 (at 128 registers, with spills) measured slower
   // at the decoder's training shape (PERF.md §6)
   static constexpr int kBf16Blocks = 3;
-  int b, r0, R, M, H;
+  int b, r0, R, N, M, H, HH;
 
   template <typename P>
   __device__ explicit FoldedRows(const P& p)
-      : b(blockIdx.y), r0(blockIdx.x * ATT_ROWS), R(p.N * p.H), M(p.M), H(p.H) {}
+      : b(blockIdx.y), r0(blockIdx.x * ATT_ROWS), R(p.N * p.H), N(p.N), M(p.M), H(p.H),
+        HH(p.hash_heads) {}
   __device__ int count() const { return min(ATT_ROWS, R - r0); }
   __device__ int query(int i) const { return (r0 + i) / H; }
   __device__ int head(int i) const { return (r0 + i) % H; }
@@ -97,10 +104,12 @@ struct FoldedRows {
     return (static_cast<size_t>(b) * R + r0 + i) * ATT_D;
   }
   __device__ size_t lse_index(int i) const { return static_cast<size_t>(b) * R + r0 + i; }
-  // (b*R + r)*M, wrapping in uint32 as the TPU kernel's int32 index does
+  // ((b*N + n)*HH + h)*M, wrapping in uint32 as the TPU kernel's int32
+  // index does: (b*R + r)*M when HH = H
   __device__ uint32_t hash_base(int i) const {
-    return (static_cast<uint32_t>(b) * static_cast<uint32_t>(R) +
-            static_cast<uint32_t>(r0 + i)) * static_cast<uint32_t>(M);
+    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(N) +
+             static_cast<uint32_t>(query(i))) * static_cast<uint32_t>(HH) +
+            static_cast<uint32_t>(head(i))) * static_cast<uint32_t>(M);
   }
   __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * ATT_D; }
   __device__ size_t kv_stride() const { return ATT_D; }
@@ -113,12 +122,12 @@ struct HeadRows {
   // decoder's training shape, where each block reads its own head's K/V
   // (PERF.md §6)
   static constexpr int kBf16Blocks = 4;
-  int b, h, n0, N, H, M, Hkv;
+  int b, h, n0, N, H, M, Hkv, HH;
 
   template <typename P>
   __device__ explicit HeadRows(const P& p)
       : b(blockIdx.z), h(blockIdx.y), n0(blockIdx.x * ATT_ROWS), N(p.N), H(p.H), M(p.M),
-        Hkv(p.Hkv) {}
+        Hkv(p.Hkv), HH(p.hash_heads) {}
   __device__ int count() const { return min(ATT_ROWS, N - n0); }
   __device__ int query(int i) const { return n0 + i; }
   __device__ int head(int) const { return h; }
@@ -129,9 +138,9 @@ struct HeadRows {
   __device__ size_t lse_index(int i) const {
     return (static_cast<size_t>(b) * H + h) * N + n0 + i;
   }
-  // ((b*H + h)*N + n)*M, wrapping in uint32 as the TPU kernel's int32 does
+  // ((b*HH + h)*N + n)*M, wrapping in uint32 as the TPU kernel's int32 does
   __device__ uint32_t hash_base(int i) const {
-    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(H) +
+    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(HH) +
              static_cast<uint32_t>(h)) * static_cast<uint32_t>(N) +
             static_cast<uint32_t>(n0 + i)) * static_cast<uint32_t>(M);
   }
@@ -151,10 +160,11 @@ struct HeadRows {
 
 // K2: every head reads the one K/V head.
 struct FoldedKeys {
-  int b, N, M, H;
+  int b, N, M, H, HH;
 
   template <typename P>
-  __device__ explicit FoldedKeys(const P& p) : b(blockIdx.z), N(p.N), M(p.M), H(p.H) {}
+  __device__ explicit FoldedKeys(const P& p)
+      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), HH(p.hash_heads) {}
   __device__ int split() const { return blockIdx.y; }
   __device__ int head_lo() const { return 0; }
   __device__ int head_hi() const { return H; }
@@ -170,10 +180,10 @@ struct FoldedKeys {
   __device__ size_t lse_stride() const { return H; }
   __device__ uint32_t hash_base(int n, int h) const {
     return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(N) + static_cast<uint32_t>(n)) *
-                static_cast<uint32_t>(H) + static_cast<uint32_t>(h)) * static_cast<uint32_t>(M);
+                static_cast<uint32_t>(HH) + static_cast<uint32_t>(h)) * static_cast<uint32_t>(M);
   }
   __device__ uint32_t hash_stride() const {
-    return static_cast<uint32_t>(H) * static_cast<uint32_t>(M);
+    return static_cast<uint32_t>(HH) * static_cast<uint32_t>(M);
   }
 };
 
@@ -181,11 +191,11 @@ struct FoldedKeys {
 // The block's split and head are read from blockIdx at each use, so the
 // policy holds no more registers than FoldedKeys.
 struct HeadKeys {
-  int b, N, M, H, Hkv;
+  int b, N, M, H, Hkv, HH;
 
   template <typename P>
   __device__ explicit HeadKeys(const P& p)
-      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), Hkv(p.Hkv) {}
+      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), Hkv(p.Hkv), HH(p.hash_heads) {}
   __device__ int split() const { return Hkv == 1 ? blockIdx.y : blockIdx.y / H; }
   __device__ int head_lo() const { return Hkv == 1 ? 0 : blockIdx.y % H; }
   __device__ int head_hi() const { return Hkv == 1 ? H : head_lo() + 1; }
@@ -202,7 +212,7 @@ struct HeadKeys {
   }
   __device__ size_t lse_stride() const { return 1; }
   __device__ uint32_t hash_base(int n, int h) const {
-    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(H) + static_cast<uint32_t>(h)) *
+    return ((static_cast<uint32_t>(b) * static_cast<uint32_t>(HH) + static_cast<uint32_t>(h)) *
                 static_cast<uint32_t>(N) + static_cast<uint32_t>(n)) * static_cast<uint32_t>(M);
   }
   __device__ uint32_t hash_stride() const { return static_cast<uint32_t>(M); }

@@ -61,6 +61,8 @@ struct FwdParams {
   float scale;
   int thresh;
   float inv_keep;
+  int hash_heads;       // the dropout index's head count (H on one rank)
+  uint32_t seed_shift;  // the dropout index of this call's first element
 };
 
 // Dynamic shared memory of one block: two stages of K and of V.
@@ -106,7 +108,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Block
   const int nrows = rows.count();
   const bool drop = p.thresh < 256;
   const uint32_t thresh24 = static_cast<uint32_t>(p.thresh) << 24;  // keep: hash < this
-  const uint32_t seed = static_cast<uint32_t>(p.seed[0]);
+  const uint32_t seed = static_cast<uint32_t>(p.seed[0]) + p.seed_shift;
   const float scale2 = p.scale * LOG2E;
 
   // the keys a span of tile rows [i0, i1] needs: [0, kend)

@@ -5,7 +5,8 @@
 // and _dkv_kernel (wrapper _flash_bwd): the backward of flash_fwd.cu, with
 // the same layouts (q, o, dO, dq (B, N, H, 64); k, v, dk, dv
 // (B, M, Hkv, 64), Hkv = H or 1; with Hkv = 1 dk and dv sum over the
-// heads). The keep bit is the forward's hash of ((b*H + h)*N + n)*M + c.
+// heads). The keep bit is the forward's hash of ((b*HH + h)*N + n)*M + c
+// plus the seed shift.
 //
 // What bounds it on an H100: at the decoder's bf16 training shape (B 32,
 // N = M = 320, H 6, Hkv 6) the bytes, ~63 MB (q, o, dO, dq and H heads of
@@ -31,9 +32,10 @@ extern "C" int isp_flash_bwd(const void* q, const void* k, const void* v,
                              void* delta, void* work, int B, int N, int M,
                              int H, int Hkv, int offset, int causal,
                              float scale, int thresh, float inv_keep,
-                             int splits, int dtype, void* stream) {
+                             int splits, int hash_heads,
+                             unsigned int seed_shift, int dtype, void* stream) {
   const int heads = Hkv == 1 ? 1 : H;  // key-stationary blocks per split
-  if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H) || splits < 1 ||
+  if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H) || splits < 1 || hash_heads < H ||
       static_cast<long long>(splits) * heads > 65535 || (splits > 1 && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -42,7 +44,7 @@ extern "C" int isp_flash_bwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(seed), o, static_cast<const float*>(lse), dout,
                     dq, dk, dv, static_cast<float*>(dslopes), static_cast<float*>(delta),
                     static_cast<float*>(work), B, N, M, H, Hkv, offset, causal, scale, thresh,
-                    inv_keep, splits};
+                    inv_keep, splits, hash_heads, seed_shift};
   const dim3 grid1((N + ATT_ROWS - 1) / ATT_ROWS, H, B);
   const dim3 grid2((M + ATT_ROWS - 1) / ATT_ROWS, splits * heads, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -16,7 +16,9 @@
 // Dropout (thresh < 256) acts on the post-softmax probabilities: the
 // normaliser l sums the undropped p, the value product the dropped ones.
 // The keep bit of (b, h, n, c) is the TPU kernel's _head_keep: the hash of
-// the index ((b*H + h)*N + n)*M + c plus the seed, in uint32 arithmetic, so
+// the index ((b*HH + h)*N + n)*M + c plus the seed and seed_shift, in
+// uint32 arithmetic (HH = H and no shift on one rank; a rank's global head
+// count and first row's and head's index under a split), so
 // the backward regenerates it bit for bit.
 //
 // What bounds it on an H100: bytes. At the decoder's bf16 training shape
@@ -41,14 +43,16 @@ extern "C" int isp_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_lens, const void* seed, void* o,
                              void* lse, int B, int N, int M, int H, int Hkv,
                              int offset, int causal, float scale, int thresh,
-                             float inv_keep, int dtype, void* stream) {
-  if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H)) {
+                             float inv_keep, int hash_heads,
+                             unsigned int seed_shift, int dtype, void* stream) {
+  if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H) || hash_heads < H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FwdParams p{q, k, v, static_cast<const float*>(slopes),
                     static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
                     static_cast<const int*>(seed), o, static_cast<float*>(lse),
-                    N, M, H, Hkv, offset, causal, scale, thresh, inv_keep};
+                    N, M, H, Hkv, offset, causal, scale, thresh, inv_keep, hash_heads,
+                    seed_shift};
   const dim3 grid((N + ATT_ROWS - 1) / ATT_ROWS, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

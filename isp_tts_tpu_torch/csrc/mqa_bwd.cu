@@ -11,7 +11,7 @@
 // Rows are folded as in the forward (mqa_fwd.cu): row r = n * H + h of the
 // (B, N*H, 64) view of q and dO reads the one shared (B, M, 64) key/value
 // head; dk and dv sum over the H heads. The keep bit is the forward's hash
-// of the folded index (b*R + r)*M + c.
+// of the folded index ((b*N + n)*HH + h)*M + c plus the seed shift.
 //
 // What bounds it on an H100: at the decoder's bf16 training shape (B 32,
 // N = M = 320, H 6) the bytes, ~37 MB (q, o, dO, dq 128 bytes a row each,
@@ -35,8 +35,9 @@ extern "C" int isp_mqa_bwd(const void* q, const void* k, const void* v,
                            void* dv, void* dslopes, void* delta, void* work,
                            int B, int N, int M, int H, int offset, int causal,
                            float scale, int thresh, float inv_keep, int splits,
-                           int dtype, void* stream) {
-  if (B > 65535 || H > ATT_ROWS || splits < 1 || splits > 65535 ||
+                           int hash_heads, unsigned int seed_shift, int dtype,
+                           void* stream) {
+  if (B > 65535 || H > ATT_ROWS || splits < 1 || splits > 65535 || hash_heads < H ||
       (splits > 1 && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -45,7 +46,7 @@ extern "C" int isp_mqa_bwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(seed), o, static_cast<const float*>(lse), dout,
                     dq, dk, dv, static_cast<float*>(dslopes), static_cast<float*>(delta),
                     static_cast<float*>(work), B, N, M, H, 1, offset, causal, scale, thresh,
-                    inv_keep, splits};
+                    inv_keep, splits, hash_heads, seed_shift};
   const dim3 grid1((N * H + ATT_ROWS - 1) / ATT_ROWS, B);
   const dim3 grid2((M + ATT_ROWS - 1) / ATT_ROWS, splits, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -11,9 +11,13 @@
 //
 // Dropout (thresh < 256) acts on the post-softmax probabilities: the
 // normaliser l sums the undropped p, the value product the dropped ones.
-// The keep bit of (b, row r, key c) is the TPU kernel's _keep_hash of the
-// folded index (b*R + r)*M + c plus the seed, all in uint32 arithmetic, so
-// the backward (mqa_bwd.cu) regenerates it bit for bit.
+// The keep bit of (b, row r = n*H + h, key c) is the TPU kernel's
+// _keep_hash of the folded index ((b*N + n)*HH + h)*M + c plus the seed
+// and seed_shift, all in uint32 arithmetic: with HH = H and no shift the
+// TPU kernel's (b*R + r)*M + c; a rank of a data or model split passes the
+// global head count HH and its first row's and head's index as the shift,
+// so its bits are the global call's. The backward (mqa_bwd.cu)
+// regenerates them bit for bit.
 //
 // What bounds it on an H100: bytes. At the decoder's bf16 training shape
 // (B 32, N = M = 320, H 6) it moves q and o (128 bytes a row each) and one
@@ -40,12 +44,14 @@ extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
                            const void* q_lens, const void* seed, void* o,
                            void* lse, int B, int N, int M, int H, int offset,
                            int causal, float scale, int thresh, float inv_keep,
-                           int dtype, void* stream) {
-  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                           int hash_heads, unsigned int seed_shift, int dtype,
+                           void* stream) {
+  if (B > 65535 || hash_heads < H) return static_cast<int>(cudaErrorInvalidValue);
   const FwdParams p{q, k, v, static_cast<const float*>(slopes),
                     static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
                     static_cast<const int*>(seed), o, static_cast<float*>(lse),
-                    N, M, H, 1, offset, causal, scale, thresh, inv_keep};
+                    N, M, H, 1, offset, causal, scale, thresh, inv_keep, hash_heads,
+                    seed_shift};
   const dim3 grid((N * H + ATT_ROWS - 1) / ATT_ROWS, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -18,7 +18,7 @@ Difference by design: the JAX program takes a ``seed`` and draws the flow
 noise with ``PRNGKey(seed)`` inside; an exported torch program cannot take
 a ``torch.Generator``. So the flow noise, (batch, text_bucket, features),
 is a program input, and :class:`ExportedSynthesizer` draws it as the live
-``Synthesizer._infer`` does: ``torch.Generator(device).manual_seed(seed)``,
+``Synthesizer._run`` does: ``torch.Generator(device).manual_seed(seed)``,
 one ``torch.randn`` of that shape on the serving device. An artifact call
 then computes what the live ``Synthesizer`` computes for the same seed,
 controls and shapes. The five controls are 0-d float32 program inputs.
@@ -332,7 +332,7 @@ class ExportedSynthesizer:
                                  f"{len(texts)}")
             spk[: len(ids)] = ids
         dev = self.device
-        # the live Synthesizer's draw (serving.Synthesizer._infer)
+        # the live Synthesizer's draw (serving.Synthesizer._run)
         gen = torch.Generator(device=dev).manual_seed(seed)
         noise = torch.randn(tuple(meta["noise_shape"]), generator=gen, device=dev,
                             dtype=torch.float32)

@@ -22,6 +22,7 @@ from torch import nn
 from ...config import as_dict, build_config
 from ...nn.embeddings import TimePositionalEmbedding
 from ...nn.transformer import Transformer, TransformerConfig
+from ...parallel.context import data_rows
 from ...utils.autocast import no_autocast
 from ...utils.masks import get_float_mask_from_lengths, get_mask_3d, masked_mean
 
@@ -161,7 +162,8 @@ class FlowTransformerTemporalModule(nn.Module):
         """Training: t ~ U(0, 1), the OT-CFM flow target, masked MSE.
 
         ``noise`` (x0, shaped like ``targets``) and ``t`` (B,) are drawn from
-        ``generator`` (noise first) when not given. Returns
+        ``generator`` (noise first) when not given, for the global batch
+        under a data split, each rank keeping its rows. Returns
         (x_pred detached, {"flow_loss": loss}).
         """
         B, T, _ = x.shape
@@ -169,9 +171,10 @@ class FlowTransformerTemporalModule(nn.Module):
             mask = torch.ones((B, T), dtype=torch.bool, device=x.device)
         x1 = targets.detach().float()
         if noise is None:
-            noise = torch.randn(x1.shape, generator=generator, device=x.device)
+            noise = data_rows(lambda n: torch.randn((n, *x1.shape[1:]), generator=generator,
+                                                    device=x.device), B)
         if t is None:
-            t = torch.rand((B,), generator=generator, device=x.device)
+            t = data_rows(lambda n: torch.rand((n,), generator=generator, device=x.device), B)
         x0, t = noise.to(x1), t.to(x1)
         t_emb = self.time_embedding(t)
         tb = t[:, None, None]

@@ -13,6 +13,8 @@ from dataclasses import dataclass, field
 import torch
 
 from ...ops.ctc import ordered_ctc_neg_logp, ordered_ctc_neg_logp_reference
+from ...parallel.context import get_parallel_context
+from ...parallel.mesh import data_sum
 from ...utils.autocast import no_autocast
 from ...utils.masks import get_mask_from_lengths, masked_mean
 
@@ -80,9 +82,15 @@ def attention_ctc_loss_fn(attn_logits, text_lens, mel_lens, blank_logprob=-1.0,
 
 @no_autocast
 def attention_binarization_loss_fn(attn_soft, attn_hard, eps=1e-6):
-    """-mean log(soft attention) at the hard-attention positions."""
+    """-mean log(soft attention) at the hard-attention positions of the
+    global batch: under a data split the denominator is summed over the
+    data group and the rank's share scaled by the data-rank count, so the
+    ranks' mean (the gradient mean) is one rank's loss. The identity with
+    one data rank."""
     log_soft = torch.log(attn_soft.float().clamp_min(eps))
-    return -(log_soft * attn_hard).sum() / attn_hard.sum().clamp_min(1.0)
+    ctx = get_parallel_context()
+    den = data_sum(attn_hard.sum(), ctx).clamp_min(1.0)
+    return -(log_soft * attn_hard).sum() * ctx.data_size / den
 
 
 class AcousticModelLoss:

@@ -21,6 +21,17 @@ their plain versions on CPU tensors. Under fp16 autocast the kernels run on the 
 values widened to f32 (exactly), their output narrowed back. In train mode a nonzero ``dropout`` drops
 attention probabilities on both versions with the same hashed keep mask,
 from a seed drawn per call from the layer's dropout generator.
+
+Under a data split the hash is placed at this rank's first batch row (the
+live parallel context's data rank times the local batch). Split over the
+model axis (``tp``, set by
+:func:`~isp_tts_tpu_torch.parallel.mesh.shard_params`), a rank holds
+``to_q``'s rows and ``to_out``'s columns of its H/tp heads, runs the
+kernel on those heads (placed at its first head of the H in the hash, so
+its masks are one rank's), and sums ``to_out``'s partial products over
+the model group. ``to_kv`` and the slopes stay whole: a rank slices its
+heads' share (with one KV head, all of it), and their gradients, partial
+on each rank, are summed over the model group by the trainer.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ from torch import nn
 from ..ops.flash_attention import (HEAD_DIM, drop_params, flash_attention,
                                    flash_attention_reference, mqa_attention,
                                    mqa_attention_reference)
+from ..parallel.context import get_parallel_context
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .embeddings import LearnedALiBiBias
 from .layers import FastDropout
 
@@ -84,6 +97,7 @@ class Attention(nn.Module):
             raise ValueError("alibi_heads must be <= heads")
         self.rel_pos = (LearnedALiBiBias(alibi_heads, cfg.heads, cfg.alibi_symmetric)
                         if cfg.alibi_pos_bias else None)
+        self.tp = None
 
     def _slopes2(self, device) -> torch.Tensor:
         """(2, heads) [lower, upper] slopes; zeros without a relative bias."""
@@ -94,14 +108,20 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """x (B, N, dim); mask (B, N) bool, True = valid. Returns (B, N, dim)."""
         b, n, _ = x.shape
-        q = self.to_q(x).reshape(b, n, self.heads, self.head_dim)
+        heads, head0, slopes = self.heads, 0, self._slopes2(x.device)
+        if self.tp is not None:
+            heads //= self.tp.size
+            head0 = self.tp.rank * heads
+            slopes = slopes[:, head0:head0 + heads]
+            x = copy_to_model(x, self.tp)
+        q = self.to_q(x).reshape(b, n, heads, self.head_dim)
         k, v = self.to_kv(x).chunk(2, dim=-1)  # (B, N, Hkv * D) each, K first
         if self.one_kv_head:
             core, plain = mqa_attention, mqa_attention_reference
         else:
             core, plain = flash_attention, flash_attention_reference
-            k = k.reshape(b, n, self.heads, self.head_dim)
-            v = v.reshape(b, n, self.heads, self.head_dim)
+            k = k.reshape(b, n, self.heads, self.head_dim)[:, :, head0:head0 + heads]
+            v = v.reshape(b, n, self.heads, self.head_dim)[:, :, head0:head0 + heads]
         rate = self.dropout.rate if self.training and drop_params(self.dropout.rate) else 0.0
         seed = self.dropout.draw_seed(x.device) if rate else None
         lens = (mask.sum(dim=-1, dtype=torch.int32) if mask is not None
@@ -109,16 +129,20 @@ class Attention(nn.Module):
         half = q.dtype == torch.float16 and q.device.type == "cuda" and self.flash != "off"
         if half:  # the kernels take f32 and bf16: fp16 values are exact in f32
             q, k, v = q.float(), k.float(), v.float()
-        args = (q.contiguous(), k.contiguous(), v.contiguous(), self._slopes2(x.device),
+        args = (q.contiguous(), k.contiguous(), v.contiguous(), slopes.contiguous(),
                 lens, self.scale, 0)
-        kwargs = dict(q_lens=lens, causal=self.causal, dropout_rate=rate, seed=seed)
+        kwargs = dict(q_lens=lens, causal=self.causal, dropout_rate=rate, seed=seed,
+                      batch0=get_parallel_context().data_rank * b, head0=head0,
+                      heads_total=self.heads)
         if self.flash == "off":
             out, _ = plain(*args, **kwargs)
         else:
             out = core(*args, **kwargs)
         if half:
             out = out.half()
-        out = self.to_out(out.reshape(b, n, self.heads * self.head_dim))
+        out = out.reshape(b, n, heads * self.head_dim)
+        out = (self.to_out(out) if self.tp is None
+               else reduce_from_model(self.to_out(out), self.tp))
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out

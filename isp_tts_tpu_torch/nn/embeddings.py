@@ -10,6 +10,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .layers import choose_activation
 
 
@@ -88,9 +89,16 @@ class TimePositionalEmbedding(nn.Module):
         self.fc1 = nn.Linear(freq_dim + int(with_steps), emb_dim)
         self.fc2 = nn.Linear(emb_dim, emb_dim)
         self.act = choose_activation("silu")
+        #: the model-axis split of fc1's rows and fc2's columns (the JAX TP
+        #: rules match its fc1/fc2 too), set by shard_params
+        self.tp = None
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         emb = sinusoidal_embedding(t, self.freq_dim, self.theta, self.freq_scale)
         if self.with_steps:
             emb = torch.cat([t.float()[..., None], emb], dim=-1)
-        return self.fc2(self.act(self.fc1(emb)))
+        if self.tp is None:
+            return self.fc2(self.act(self.fc1(emb)))
+        h = self.act(self.fc1(copy_to_model(emb, self.tp)))
+        return reduce_from_model(nn.functional.linear(h, self.fc2.weight), self.tp) + \
+            self.fc2.bias

@@ -1,13 +1,21 @@
 """Position-wise feed-forward block (counterpart of ``isp_tts_tpu/nn/feedforward.py``):
-Linear -> activation (or GLU) -> dropout (train mode) -> Linear."""
+Linear -> activation (or GLU) -> dropout (train mode) -> Linear.
+
+Split over the model axis (``tp``, set by
+:func:`~isp_tts_tpu_torch.parallel.mesh.shard_params`), each rank holds
+its share of the inner dim: ``fc1``'s rows (both GLU halves alike) and
+``fc2``'s columns; ``fc2``'s partial products are summed over the model
+group before its bias."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .layers import FastDropout, choose_activation
 
 
@@ -31,12 +39,19 @@ class FeedForward(nn.Module):
                              bias=cfg.bias)
         self.fc2 = nn.Linear(cfg.inner_dim, cfg.dim, bias=cfg.bias)
         self.dropout = FastDropout(cfg.dropout)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
         h = self.fc1(x)
         if self.glu:
             h, gate = h.chunk(2, dim=-1)
             h = h * self.act(gate)
         else:
             h = self.act(h)
-        return self.fc2(self.dropout(h))
+        h = self.dropout(h)
+        if self.tp is None:
+            return self.fc2(h)
+        out = reduce_from_model(F.linear(h, self.fc2.weight), self.tp)
+        return out if self.fc2.bias is None else out + self.fc2.bias

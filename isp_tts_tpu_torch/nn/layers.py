@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import drop_params
+from ..parallel.context import data_rows
 
 ACTIVATIONS = {
     "linear": lambda x: x,
@@ -42,19 +43,41 @@ class FastDropout(torch.nn.Module):
     :func:`set_dropout_generator` hands to every dropout of a model. Active
     in train mode only; a rate that quantises to keep-everything is a
     no-op, as there. Attention layers hold one to draw their kernel seed.
+
+    Under a data split (the live
+    :class:`~isp_tts_tpu_torch.parallel.context.ParallelContext`) the bytes
+    are drawn for the global batch and this rank keeps its rows; a dropout
+    inside a model-split layer (``split_last``: its rank and the rank
+    count, set by :func:`~isp_tts_tpu_torch.parallel.mesh.shard_params`)
+    draws the global last dim and keeps its share. So every rank drops
+    what one rank drops at those positions.
     """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
         self.generator: torch.Generator | None = None
+        self.split_last: tuple[int, int] | None = None
+
+    def _bits(self, shape, device) -> torch.Tensor:
+        def draw(batch):
+            full = list(shape)
+            full[0] = batch
+            if self.split_last is not None:
+                full[-1] *= self.split_last[1]
+            bits = torch.randint(0, 256, full, dtype=torch.uint8, device=device,
+                                 generator=self.generator)
+            if self.split_last is not None:
+                bits = bits.chunk(self.split_last[1], dim=-1)[self.split_last[0]]
+            return bits
+
+        return data_rows(draw, shape[0])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         drop = drop_params(self.rate) if self.training else None
         if drop is None:
             return x
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
-                             generator=self.generator)
+        bits = self._bits(x.shape, x.device)
         return torch.where(bits < drop[0], x * drop[1], torch.zeros((), dtype=x.dtype,
                                                                     device=x.device))
 
@@ -70,3 +93,4 @@ def set_dropout_generator(module: torch.nn.Module,
     for m in module.modules():
         if isinstance(m, FastDropout):
             m.generator = generator
+

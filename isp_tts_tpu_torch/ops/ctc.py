@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from ..utils.autocast import no_autocast
+from .cuda_build import launch_stream
 
 NEG = -1e30
 
@@ -97,11 +98,6 @@ def _fn(symbol: str, n_ptr: int):
     return fn
 
 
-def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
-
-
 def ctc_fwd(logprobs, text_lens, mel_lens):
     """K4 forward: (neg_logp (B,) f32, alphas_blank and alphas_label
     (B, M, W) f64, log Z (B,) f64). Alphas of frames at or past mel_len are
@@ -117,10 +113,10 @@ def ctc_fwd(logprobs, text_lens, mel_lens):
     al = torch.empty_like(ab)
     logz = torch.empty((B,), dtype=torch.float64, device=logprobs.device)
     neg = torch.empty((B,), dtype=torch.float32, device=logprobs.device)
-    err = _fn("isp_ctc_fwd", 7)(logprobs.data_ptr(), text_lens.data_ptr(),
-                                mel_lens.data_ptr(), ab.data_ptr(), al.data_ptr(),
-                                logz.data_ptr(), neg.data_ptr(), B, M, W,
-                                _stream(logprobs.device))
+    with launch_stream(logprobs.device) as stream:
+        err = _fn("isp_ctc_fwd", 7)(logprobs.data_ptr(), text_lens.data_ptr(),
+                                    mel_lens.data_ptr(), ab.data_ptr(), al.data_ptr(),
+                                    logz.data_ptr(), neg.data_ptr(), B, M, W, stream)
     if err != 0:
         raise RuntimeError(f"K4 ctc_fwd launch failed: CUDA error {err}")
     ctc_fwd.launches += 1
@@ -138,10 +134,10 @@ def ctc_bwd(logprobs, ab, al, logz, g, text_lens, mel_lens):
             x.dtype != torch.float64 for x in (ab, al, logz)):
         raise ValueError("alphas and log Z must be K4's forward's float64 outputs")
     dlp = torch.empty_like(logprobs)
-    err = _fn("isp_ctc_bwd", 8)(logprobs.data_ptr(), ab.data_ptr(), al.data_ptr(),
-                                logz.data_ptr(), g.data_ptr(), text_lens.data_ptr(),
-                                mel_lens.data_ptr(), dlp.data_ptr(), B, M, W,
-                                _stream(logprobs.device))
+    with launch_stream(logprobs.device) as stream:
+        err = _fn("isp_ctc_bwd", 8)(logprobs.data_ptr(), ab.data_ptr(), al.data_ptr(),
+                                    logz.data_ptr(), g.data_ptr(), text_lens.data_ptr(),
+                                    mel_lens.data_ptr(), dlp.data_ptr(), B, M, W, stream)
     if err != 0:
         raise RuntimeError(f"K4 ctc_bwd launch failed: CUDA error {err}")
     ctc_bwd.launches += 1

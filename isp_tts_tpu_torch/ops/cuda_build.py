@@ -128,6 +128,18 @@ def build_all(names: list[str]) -> dict[str, Path]:
     return out
 
 
+@contextlib.contextmanager
+def launch_stream(device):
+    """The current CUDA stream of ``device``, with ``device`` the current
+    card inside the block: a kernel launched there runs on the card that
+    holds its tensors, whichever card is current outside (a Synthesizer
+    serving over several cards runs them from one thread)."""
+    import torch
+
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream().cuda_stream
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, or return the
     one that an enclosing :func:`libraries` names."""

@@ -38,6 +38,15 @@ the same bits and nothing of shape (N, M) is stored. The two families hash
 different indices, as there: the folded ``(b*N*H + n*H + h)*M + c``
 (``_mqa_keep``) and the per-head ``((b*H + h)*N + n)*M + c``
 (``_head_keep``), both over the unpadded N and M, mod 2**32.
+
+Under a data or model split (``parallel/``) the index stays the global
+call's: every function takes ``batch0`` (the global index of its first
+batch row), ``head0`` (of its first head) and ``heads_total`` (the global
+head count, H by default), so a rank's keep mask is the slice of the
+global call's mask that its rows and heads see. The kernels take the
+global head count as the index's head stride and the first row's and
+head's offset folded into the seed (:func:`hash_origin`); with the
+defaults both reduce to one rank's call and the JAX masks.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import ctypes
 import torch
 
 from ..utils.autocast import no_autocast
+from .cuda_build import launch_stream
 
 NEG_INF = -1e30
 HEAD_DIM = 64
@@ -87,20 +97,50 @@ def keep_hash(idx: torch.Tensor, seed, thresh: int) -> torch.Tensor:
     return (u >> 24) < thresh
 
 
-def mqa_keep_mask(B: int, N: int, H: int, M: int, seed: torch.Tensor,
-                  thresh: int) -> torch.Tensor:
+def hash_origin(folded: bool, N: int, M: int, H: int, batch0: int = 0, head0: int = 0,
+                heads_total: int | None = None) -> tuple[int, int]:
+    """(the index's head count, the seed shift) a kernel takes for a call
+    whose first batch row and head are ``batch0`` and ``head0`` of a
+    global call with ``heads_total`` heads: the global index of the call's
+    first element, mod 2**32 (0 on one rank)."""
+    hh = H if heads_total is None else int(heads_total)
+    if hh < H + head0:
+        raise ValueError(f"heads {head0}..{head0 + H} exceed heads_total {hh}")
+    first = (batch0 * N * hh + head0) * M if folded else (batch0 * hh + head0) * N * M
+    return hh, first & _M32
+
+
+def _grid(dev, *ranges):
+    """Broadcastable int64 aranges, one axis each: ``ranges`` of (start, n)."""
+    out = []
+    for i, (start, n) in enumerate(ranges):
+        shape = [1] * len(ranges)
+        shape[i] = n
+        out.append(torch.arange(start, start + n, dtype=torch.int64, device=dev).reshape(shape))
+    return out
+
+
+def mqa_keep_mask(B: int, N: int, H: int, M: int, seed: torch.Tensor, thresh: int,
+                  batch0: int = 0, head0: int = 0,
+                  heads_total: int | None = None) -> torch.Tensor:
     """(B, N, H, M) keep mask; element (b, n, h, c) hashes the folded index
-    (b * N*H + n*H + h) * M + c with the (1,) int32 ``seed``."""
-    idx = torch.arange(B * N * H * M, dtype=torch.int64, device=seed.device)
-    return keep_hash(idx, seed.to(torch.int64), thresh).reshape(B, N, H, M)
+    ((B0 + b)*N + n)*HH + H0 + h)*M + c with the (1,) int32 ``seed``, where
+    B0, H0, HH are ``batch0``, ``head0``, ``heads_total`` (H)."""
+    hh = H if heads_total is None else int(heads_total)
+    b, n, h, c = _grid(seed.device, (batch0, B), (0, N), (head0, H), (0, M))
+    idx = ((b * N + n) * hh + h) * M + c
+    return keep_hash(idx, seed.to(torch.int64), thresh)
 
 
-def head_keep_mask(B: int, H: int, N: int, M: int, seed: torch.Tensor,
-                   thresh: int) -> torch.Tensor:
+def head_keep_mask(B: int, H: int, N: int, M: int, seed: torch.Tensor, thresh: int,
+                   batch0: int = 0, head0: int = 0,
+                   heads_total: int | None = None) -> torch.Tensor:
     """(B, H, N, M) keep mask; element (b, h, n, c) hashes the per-head
-    index ((b*H + h)*N + n)*M + c with the (1,) int32 ``seed``."""
-    idx = torch.arange(B * H * N * M, dtype=torch.int64, device=seed.device)
-    return keep_hash(idx, seed.to(torch.int64), thresh).reshape(B, H, N, M)
+    index (((B0 + b)*HH + H0 + h)*N + n)*M + c with the (1,) int32 ``seed``."""
+    hh = H if heads_total is None else int(heads_total)
+    b, h, n, c = _grid(seed.device, (batch0, B), (head0, H), (0, N), (0, M))
+    idx = ((b * hh + h) * N + n) * M + c
+    return keep_hash(idx, seed.to(torch.int64), thresh)
 
 
 def _geometry(N, M, offset, slopes, device):
@@ -199,22 +239,24 @@ def _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse, do, scale, offse
 
 
 def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
-                            q_lens=None, causal=False, dropout_rate=0.0, seed=None):
+                            q_lens=None, causal=False, dropout_rate=0.0, seed=None,
+                            batch0=0, head0=0, heads_total=None):
     """Plain version of K1. Shapes as in :func:`mqa_fwd`; math in f32.
 
     Returns (o (B, N, H, D) in q's dtype, lse (B, N*H) f32).
     """
     B, N, H, _ = q.shape
     M = k.shape[1]
-    keep = _keep(drop_params(dropout_rate),
-                 lambda thresh: mqa_keep_mask(B, N, H, M, seed, thresh))
+    keep = _keep(drop_params(dropout_rate), lambda thresh: mqa_keep_mask(
+        B, N, H, M, seed, thresh, batch0, head0, heads_total))
     o, lse = _attention_reference(q, k[:, :, None], v[:, :, None], slopes, key_lens,
                                   scale, offset, q_lens, causal, keep)
     return o, lse.reshape(B, N * H)
 
 
 def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
-                      offset=0, causal=False, dropout_rate=0.0):
+                      offset=0, causal=False, dropout_rate=0.0, batch0=0, head0=0,
+                      heads_total=None):
     """Plain version of K2: the gradients of K1's o from the saved o and lse.
 
     p is recomputed as exp(s - lse) (0 on dead rows, whose lse is +inf);
@@ -224,8 +266,8 @@ def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale
     """
     B, N, H, _ = q.shape
     M = k.shape[1]
-    keep = _keep(drop_params(dropout_rate),
-                 lambda thresh: mqa_keep_mask(B, N, H, M, seed, thresh))
+    keep = _keep(drop_params(dropout_rate), lambda thresh: mqa_keep_mask(
+        B, N, H, M, seed, thresh, batch0, head0, heads_total))
     dq, dk, dv, dslopes = _attention_bwd_reference(
         q, k[:, :, None], v[:, :, None], slopes, key_lens, o, lse.reshape(B, N, H), do,
         scale, offset, causal, keep)
@@ -233,7 +275,8 @@ def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale
 
 
 def flash_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
-                              q_lens=None, causal=False, dropout_rate=0.0, seed=None):
+                              q_lens=None, causal=False, dropout_rate=0.0, seed=None,
+                              batch0=0, head0=0, heads_total=None):
     """Plain version of K5a. Shapes as in :func:`flash_fwd`; math in f32.
 
     Returns (o (B, N, H, D) in q's dtype, lse (B, H, N) f32).
@@ -241,14 +284,15 @@ def flash_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
     B, N, H, _ = q.shape
     M = k.shape[1]
     keep = _keep(drop_params(dropout_rate), lambda thresh: head_keep_mask(
-        B, H, N, M, seed, thresh).permute(0, 2, 1, 3))
+        B, H, N, M, seed, thresh, batch0, head0, heads_total).permute(0, 2, 1, 3))
     o, lse = _attention_reference(q, k, v, slopes, key_lens, scale, offset, q_lens,
                                   causal, keep)
     return o, lse.transpose(1, 2).contiguous()
 
 
 def flash_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
-                        offset=0, causal=False, dropout_rate=0.0):
+                        offset=0, causal=False, dropout_rate=0.0, batch0=0, head0=0,
+                        heads_total=None):
     """Plain version of K5b: the gradients of K5a's o from the saved o and
     lse (B, H, N), as :func:`mqa_bwd_reference` does for K1. Returns (dq,
     dk, dv in their inputs' dtypes, dk/dv (B, M, Hkv, D) summed over the
@@ -256,7 +300,7 @@ def flash_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, sca
     B, N, H, _ = q.shape
     M = k.shape[1]
     keep = _keep(drop_params(dropout_rate), lambda thresh: head_keep_mask(
-        B, H, N, M, seed, thresh).permute(0, 2, 1, 3))
+        B, H, N, M, seed, thresh, batch0, head0, heads_total).permute(0, 2, 1, 3))
     return _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse.transpose(1, 2),
                                     do, scale, offset, causal, keep)
 
@@ -311,12 +355,7 @@ def _kernel(name: str, symbol: str, argtypes: list):
     return fn
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _stream(device) -> int:
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
 
 def _defaults(q, q_lens, seed):
@@ -329,7 +368,8 @@ def _defaults(q, q_lens, seed):
 
 
 def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
-            causal=False, dropout_rate=0.0, seed=None):
+            causal=False, dropout_rate=0.0, seed=None, batch0=0, head0=0,
+            heads_total=None):
     """Folded-MQA attention forward.
 
     Args:
@@ -342,6 +382,8 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
       q_lens: optional (B,) int32 valid query counts; rows past them give 0.
       causal: query n attends keys <= n + offset only.
       dropout_rate: probability dropout; seed: (1,) int32 on q's device.
+      batch0, head0, heads_total: where this call sits in a global call
+        whose dropout mask it must slice (the module docstring).
 
     Returns:
       (o (B, N, H, 64) in q's dtype, lse (B, N*H) float32 row logsumexp,
@@ -350,7 +392,8 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     q_lens, seed = _defaults(q, q_lens, seed)
     if q.device.type == "cpu":
         return mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset,
-                                       q_lens, causal, dropout_rate, seed)
+                                       q_lens, causal, dropout_rate, seed, batch0, head0,
+                                       heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {q.device}")
     _check(q, k, v, slopes, key_lens, q_lens, seed)
@@ -361,12 +404,15 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     if o.numel() == 0:
         return o, lse
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
-    fn = _kernel("mqa_fwd", "isp_mqa_fwd", [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
-             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, N, M, H, int(offset), int(bool(causal)),
-             float(scale), thresh, inv_keep, _DTYPE_CODES[q.dtype],
-             _stream(q.device))
+    hh, shift = hash_origin(True, N, M, H, batch0, head0, heads_total)
+    fn = _kernel("mqa_fwd", "isp_mqa_fwd",
+                 [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _U, _I, _P])
+    with launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+                 key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), B, N, M, H, int(offset), int(bool(causal)),
+                 float(scale), thresh, inv_keep, hh, shift, _DTYPE_CODES[q.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"K1 mqa_fwd launch failed: CUDA error {err}")
     mqa_fwd.launches += 1
@@ -394,7 +440,8 @@ def _dkv_work(splits: int, k: torch.Tensor):
 
 
 def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
-            offset=0, causal=False, dropout_rate=0.0):
+            offset=0, causal=False, dropout_rate=0.0, batch0=0, head0=0,
+            heads_total=None):
     """Folded-MQA attention backward: (dq, dk, dv, dslopes (2, H) f32).
 
     The arguments are K1's, its outputs o and lse, and do = dL/do. dk and
@@ -402,7 +449,8 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     """
     if q.device.type == "cpu":
         return mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do,
-                                 scale, offset, causal, dropout_rate)
+                                 scale, offset, causal, dropout_rate, batch0, head0,
+                                 heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda or cpu tensors, not {q.device}")
     _check(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do)
@@ -422,15 +470,17 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     delta = torch.empty((B, N * H), dtype=torch.float32, device=q.device)
     work = _dkv_work(splits, k)
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
+    hh, shift = hash_origin(True, N, M, H, batch0, head0, heads_total)
     fn = _kernel("mqa_bwd", "isp_mqa_bwd",
-                 [_P] * 16 + [_I] * 6 + [_F, _I, _F, _I, _I, _P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
-             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
-             None if work is None else work.data_ptr(), B, N, M, H, int(offset),
-             int(bool(causal)), float(scale), thresh, inv_keep, splits,
-             _DTYPE_CODES[q.dtype], _stream(q.device))
+                 [_P] * 16 + [_I] * 6 + [_F, _I, _F, _I, _I, _U, _I, _P])
+    with launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+                 key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
+                 None if work is None else work.data_ptr(), B, N, M, H, int(offset),
+                 int(bool(causal)), float(scale), thresh, inv_keep, splits, hh, shift,
+                 _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"K2 mqa_bwd launch failed: CUDA error {err}")
     mqa_bwd.launches += 1
@@ -442,15 +492,17 @@ mqa_bwd.launches = 0
 
 
 def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
-              causal=False, dropout_rate=0.0, seed=None):
+              causal=False, dropout_rate=0.0, seed=None, batch0=0, head0=0,
+              heads_total=None):
     """Per-head attention forward.
 
     Args:
       q: (B, N, H, 64) float32 or bfloat16 (the q projection's layout).
       k, v: (B, M, Hkv, 64), q's dtype, Hkv = H (one key/value head per
         query head) or 1 (one shared by all).
-      slopes, key_lens, scale, offset, q_lens, causal, dropout_rate, seed:
-        as in :func:`mqa_fwd`; the dropout mask is the per-head hash.
+      slopes, key_lens, scale, offset, q_lens, causal, dropout_rate, seed,
+        batch0, head0, heads_total: as in :func:`mqa_fwd`; the dropout mask
+        is the per-head hash.
 
     Returns:
       (o (B, N, H, 64) in q's dtype, lse (B, H, N) float32 row logsumexp,
@@ -459,7 +511,8 @@ def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     q_lens, seed = _defaults(q, q_lens, seed)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, slopes, key_lens, scale, offset,
-                                         q_lens, causal, dropout_rate, seed)
+                                         q_lens, causal, dropout_rate, seed, batch0, head0,
+                                         heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K5a runs on cuda or cpu tensors, not {q.device}")
     _check(q, k, v, slopes, key_lens, q_lens, seed, per_head=True)
@@ -470,11 +523,15 @@ def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     if o.numel() == 0:
         return o, lse
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
-    fn = _kernel("flash_fwd", "isp_flash_fwd", [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
-             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, N, M, H, Hkv, int(offset), int(bool(causal)),
-             float(scale), thresh, inv_keep, _DTYPE_CODES[q.dtype], _stream(q.device))
+    hh, shift = hash_origin(False, N, M, H, batch0, head0, heads_total)
+    fn = _kernel("flash_fwd", "isp_flash_fwd",
+                 [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _U, _I, _P])
+    with launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+                 key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), B, N, M, H, Hkv, int(offset), int(bool(causal)),
+                 float(scale), thresh, inv_keep, hh, shift, _DTYPE_CODES[q.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"K5a flash_fwd launch failed: CUDA error {err}")
     flash_fwd.launches += 1
@@ -486,7 +543,8 @@ flash_fwd.launches = 0
 
 
 def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
-              offset=0, causal=False, dropout_rate=0.0):
+              offset=0, causal=False, dropout_rate=0.0, batch0=0, head0=0,
+              heads_total=None):
     """Per-head attention backward: (dq, dk, dv, dslopes (2, H) f32).
 
     The arguments are K5a's, its outputs o and lse, and do = dL/do. dk and
@@ -494,7 +552,8 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     """
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do,
-                                   scale, offset, causal, dropout_rate)
+                                   scale, offset, causal, dropout_rate, batch0, head0,
+                                   heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K5b runs on cuda or cpu tensors, not {q.device}")
     _check(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, per_head=True)
@@ -515,15 +574,17 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     work = _dkv_work(splits, k)
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
+    hh, shift = hash_origin(False, N, M, H, batch0, head0, heads_total)
     fn = _kernel("flash_bwd", "isp_flash_bwd",
-                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _I, _P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
-             key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
-             None if work is None else work.data_ptr(), B, N, M, H, Hkv, int(offset),
-             int(bool(causal)), float(scale), thresh, inv_keep, splits,
-             _DTYPE_CODES[q.dtype], _stream(q.device))
+                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _I, _U, _I, _P])
+    with launch_stream(q.device) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
+                 key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
+                 None if work is None else work.data_ptr(), B, N, M, H, Hkv, int(offset),
+                 int(bool(causal)), float(scale), thresh, inv_keep, splits, hh, shift,
+                 _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"K5b flash_bwd launch failed: CUDA error {err}")
     flash_bwd.launches += 1
@@ -567,25 +628,27 @@ def _register(name: str, bwd_name: str, lse_shape):
     @torch.library.custom_op(f"{NAMESPACE}::{name}", mutates_args=())
     def op(q: Tensor, k: Tensor, v: Tensor, slopes: Tensor, key_lens: Tensor,
            q_lens: Tensor, seed: Tensor, scale: float, offset: int, causal: bool,
-           dropout_rate: float) -> tuple[Tensor, Tensor]:
+           dropout_rate: float, batch0: int, head0: int,
+           heads_total: int) -> tuple[Tensor, Tensor]:
         return globals()[name](q, k, v, slopes, key_lens, scale, offset, q_lens, causal,
-                               dropout_rate, seed)
+                               dropout_rate, seed, batch0, head0, heads_total)
 
     @op.register_fake
-    def _(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal, dropout_rate):
+    def _(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal, dropout_rate,
+          batch0, head0, heads_total):
         B, N, H, _ = q.shape
         return torch.empty_like(q), q.new_empty(lse_shape(B, N, H), dtype=torch.float32)
 
     def setup_context(ctx, inputs, output):
-        q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal, rate = inputs
+        q, k, v, slopes, key_lens, q_lens, seed, *args = inputs
         ctx.save_for_backward(q, k, v, slopes, key_lens, q_lens, seed, *output)
-        ctx.args = (scale, offset, causal, rate)
+        ctx.args = args  # scale, offset, causal, rate, batch0, head0, heads_total
 
     def backward(ctx, do, _dlse):
         q, k, v, slopes, key_lens, q_lens, seed, o, lse = ctx.saved_tensors
         dq, dk, dv, dslopes = globals()[bwd_name](q, k, v, slopes, key_lens, q_lens, seed,
                                                   o, lse, do.contiguous(), *ctx.args)
-        return dq, dk, dv, dslopes, None, None, None, None, None, None, None
+        return dq, dk, dv, dslopes, *[None] * 10
 
     op.register_autograd(backward, setup_context=setup_context)
     # the overload itself: a call skips the Python wrapper around it
@@ -597,20 +660,24 @@ flash_op = _register("flash_fwd", "flash_bwd", lambda B, N, H: (B, H, N))
 
 
 def mqa_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
-                  causal=False, dropout_rate=0.0, seed=None):
+                  causal=False, dropout_rate=0.0, seed=None, batch0=0, head0=0,
+                  heads_total=None):
     """Differentiable folded-MQA attention (``isp_tts::mqa_fwd``):
     :func:`mqa_fwd`'s output o, with :func:`mqa_bwd` as its backward.
     Arguments as in :func:`mqa_fwd`."""
     q_lens, seed = _defaults(q, q_lens, seed)
     return mqa_op(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal,
-                  dropout_rate)[0]
+                  dropout_rate, batch0, head0,
+                  q.shape[2] if heads_total is None else heads_total)[0]
 
 
 def flash_attention(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
-                    causal=False, dropout_rate=0.0, seed=None):
+                    causal=False, dropout_rate=0.0, seed=None, batch0=0, head0=0,
+                    heads_total=None):
     """Differentiable per-head attention (``isp_tts::flash_fwd``):
     :func:`flash_fwd`'s output o, with :func:`flash_bwd` as its backward.
     Arguments as in :func:`flash_fwd`."""
     q_lens, seed = _defaults(q, q_lens, seed)
     return flash_op(q, k, v, slopes, key_lens, q_lens, seed, scale, offset, causal,
-                    dropout_rate)[0]
+                    dropout_rate, batch0, head0,
+                    q.shape[2] if heads_total is None else heads_total)[0]

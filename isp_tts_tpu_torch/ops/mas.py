@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.autocast import no_autocast
+from .cuda_build import launch_stream
 
 NEG_INF = -1e9
 
@@ -83,10 +84,9 @@ def monotonic_alignment_search(log_attn: torch.Tensor, text_lens: torch.Tensor,
     # the choice bits go to global scratch where they do not fit in shared memory
     bits = torch.empty((B * lib.isp_mas_scratch_bytes(M, T),), dtype=torch.uint8,
                        device=log_attn.device)
-    with torch.cuda.device(log_attn.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = lib.isp_mas(log_attn.data_ptr(), text_lens.data_ptr(), mel_lens.data_ptr(),
-                      bits.data_ptr(), out.data_ptr(), B, M, T, stream)
+    with launch_stream(log_attn.device) as stream:
+        err = lib.isp_mas(log_attn.data_ptr(), text_lens.data_ptr(), mel_lens.data_ptr(),
+                          bits.data_ptr(), out.data_ptr(), B, M, T, stream)
     if err != 0:
         raise RuntimeError(f"K3 mas launch failed: CUDA error {err}")
     monotonic_alignment_search.launches += 1

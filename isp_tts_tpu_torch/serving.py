@@ -8,10 +8,23 @@ budget. The audio path vocodes the padded mel, (Bb, budget, n_mels), with
 the attached neural vocoder, or without one with the matmul Griffin-Lim, on
 the model's device; clips to [-1, 1]; and keeps ``dec_len * hop`` samples of
 each row, as the JAX package's fused audio program does.
+
+``Synthesizer(..., devices=[...])`` is the counterpart of the JAX
+``Synthesizer(mesh=...)``: one process serves one batch over several
+cards, with the acoustic model and the vocoder replicated on each. Batch
+buckets round up to a multiple of the card count, so the shards are
+equal; the flow noise of the whole padded batch is drawn once, on the
+first card, and split, so the rows equal one card's; every shard is
+launched before any is waited for. It is an equivalence counterpart, not a
+way to more requests per second: one thread issues the replicas in turn,
+and a request is host-bound, so a batch over N cards takes about N times
+one card's host time. For throughput run one daemon a card
+(``serving_server --device cuda:i``).
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import re
 from dataclasses import dataclass, field
@@ -126,10 +139,23 @@ def batch_bucket(n: int, buckets: tuple) -> int:
     return -(-n // buckets[-1]) * buckets[-1]
 
 
+def _replicas(module: torch.nn.Module, devices: list[torch.device]) -> list:
+    """``module`` on the first of ``devices`` and a copy on each other."""
+    first = module.to(devices[0])
+    return [first] + [copy.deepcopy(first).to(d) for d in devices[1:]]
+
+
 class Synthesizer:
     def __init__(self, model: AcousticModel, config: SynthesizerConfig | None = None,
-                 vocoder=None):
-        self.model = model.eval()
+                 vocoder=None, devices: list | None = None):
+        """``devices``: serve each batch over these (one replica each, the
+        first holding ``model``); None serves on ``model``'s device."""
+        if devices is not None and not devices:
+            raise ValueError("devices must name at least one device")
+        self.devices = ([torch.device(d) for d in devices] if devices is not None
+                        else [next(model.parameters()).device])
+        self.replicas = _replicas(model.eval(), self.devices)
+        model = self.model = self.replicas[0]
         self.config = config or SynthesizerConfig()
         dynamic = {"duration_factor", "pitch_factor", "pitch_delta",
                    "energy_factor", "energy_delta", "speaker"}
@@ -138,8 +164,9 @@ class Synthesizer:
             raise ValueError(f"{sorted(clash)} are per-request controls: pass "
                              "them at call time, not in extra_controls")
         if self.config.weights_dtype is not None:
-            store_float_state(model, self.config.weights_dtype)
-        self.device = next(model.parameters()).device
+            for replica in self.replicas:
+                store_float_state(replica, self.config.weights_dtype)
+        self.device = self.devices[0]
         self._has_speaker = model.speaker_embedding is not None
         if self.config.charset is not None:
             table = CodingTable.from_charset(list(self.config.charset))
@@ -153,34 +180,42 @@ class Synthesizer:
         self.text_provider = TextProvider(table, phonemizer=self.config.phonemizer,
                                           language=self.config.language)
         self.vocoder = None
+        self.vocoders: list = []
         if vocoder is not None:
             self.attach_vocoder(vocoder)
 
     def attach_vocoder(self, vocoder) -> None:
         """Serve waveforms through ``vocoder`` (a ``VocoderModel`` on the
-        model's device)."""
+        model's device; replicated on the others)."""
         dev = next(vocoder.parameters()).device
         if dev != self.device:
             raise ValueError(f"the vocoder is on {dev}, the acoustic model on {self.device}")
-        self.vocoder = vocoder.eval()
+        self.vocoders = _replicas(vocoder.eval(), self.devices)
+        self.vocoder = self.vocoders[0]
         if self.config.weights_dtype is not None:
-            store_float_state(vocoder, self.config.weights_dtype)
+            for replica in self.vocoders:
+                store_float_state(replica, self.config.weights_dtype)
         self._check_vocoder_contract(vocoder)
 
     @classmethod
     def from_pretrained(cls, path: str | Path, config: SynthesizerConfig | None = None,
                         vocoder_path: str | Path | None = None,
-                        device: str | torch.device | None = None) -> "Synthesizer":
+                        device: str | torch.device | None = None,
+                        devices: list | None = None) -> "Synthesizer":
         """Load a ``.ckpt`` (or reference ``.pt``) acoustic checkpoint, and a
         vocoder when given (a ``.ckpt`` or a torch Vocos file), onto
-        ``device`` (CUDA unless named)."""
+        ``device`` (CUDA unless named), or over ``devices``."""
+        if devices is not None:
+            if device is not None:
+                raise ValueError("pass device or devices, not both")
+            device = devices[0]
         model = AcousticModel.from_pretrained(path, device=device)
         vocoder = None
         if vocoder_path is not None:
             from .models.vocoder import VocoderModel
 
             vocoder = VocoderModel.from_pretrained(vocoder_path, device=device)
-        return cls(model, config, vocoder=vocoder)
+        return cls(model, config, vocoder=vocoder, devices=devices)
 
     def prepare(self, texts: list[str], duration_factor: float = 1.0):
         """Token ids padded to the buckets: (tokens (Bb, tb) int32,
@@ -195,6 +230,7 @@ class Synthesizer:
         fb = bucket(min(est_frames, self.config.frame_budgets[-1]),
                     self.config.frame_budgets)
         Bb = batch_bucket(len(texts), self.config.batch_buckets)
+        Bb = -(-Bb // len(self.devices)) * len(self.devices)  # equal shards
         tokens = np.zeros((Bb, tb), np.int32)
         lens = np.ones((Bb,), np.int32)
         for i, e in enumerate(encoded):
@@ -242,11 +278,12 @@ class Synthesizer:
                            "(%s): audio will be speed/pitch-shifted or garbled",
                            "; ".join(problems))
 
-    def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
+    def _vocode(self, mel: torch.Tensor, shard: int = 0) -> torch.Tensor:
         """(Bb, frames, n_mels) padded mel -> (Bb, frames * hop) waveform in
-        [-1, 1]: the neural vocoder, else the matmul Griffin-Lim."""
+        [-1, 1]: the neural vocoder (the replica of card ``shard``), else the
+        matmul Griffin-Lim."""
         if self.vocoder is not None:
-            audio = self.vocoder.infer(mel)
+            audio = self.vocoders[shard].infer(mel)
         else:
             geo = self._audio_geometry()
             audio = mel_to_audio_tpu(mel, geo["sample_rate"], geo["n_fft"],
@@ -264,18 +301,17 @@ class Synthesizer:
         variants = (False, True) if self._has_speaker else (False,)
         for b in batch_sizes:
             b = batch_bucket(b, self.config.batch_buckets)
+            b = -(-b // len(self.devices)) * len(self.devices)
             for tb in self.config.text_buckets:
-                tokens = torch.zeros((b, tb), dtype=torch.long, device=self.device)
-                lens = torch.full((b,), tb, dtype=torch.int32, device=self.device)
+                tokens = np.zeros((b, tb), np.int32)
+                lens = np.full((b,), tb, np.int32)
                 for fb in self.config.frame_budgets:
                     for use_speaker in variants:
-                        spk = (torch.zeros((b,), dtype=torch.long, device=self.device)
-                               if use_speaker else None)
-                        mel, _ = self._infer(tokens, lens, fb, spk, 0)
-                        if audio:
-                            self._vocode(mel)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                        spk = np.zeros((b,), np.int64) if use_speaker else None
+                        self._run(tokens, lens, fb, spk, 0, audio=audio)
+        for d in self.devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         logger.info("synthesizer warm: batch buckets %s, audio %s", batch_sizes, audio)
 
     # -- serving ---------------------------------------------------------------
@@ -323,16 +359,47 @@ class Synthesizer:
         return np.concatenate(pieces)
 
     def _infer(self, tokens: torch.Tensor, lens: torch.Tensor, fb: int,
-               spk: torch.Tensor | None, seed: int, duration_factor: float = 1.0,
+               spk: torch.Tensor | None, noise: torch.Tensor, duration_factor: float = 1.0,
                pitch_factor: float = 1.0, pitch_delta: float = 0.0,
-               energy_factor: float = 1.0, energy_delta: float = 0.0):
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self.model.infer(
+               energy_factor: float = 1.0, energy_delta: float = 0.0, shard: int = 0):
+        """The acoustic model of card ``shard`` on its rows, from the flow
+        noise ``noise``."""
+        return self.replicas[shard].infer(
             tokens, text_lengths=lens, max_dec_len=fb, steps=self.config.steps,
             duration_factor=duration_factor, pitch_factor=pitch_factor,
             pitch_delta=pitch_delta, energy_factor=energy_factor,
-            energy_delta=energy_delta, speaker=spk, generator=gen,
+            energy_delta=energy_delta, speaker=spk, noise=noise,
             **self.config.extra_controls)
+
+    def _noise(self, shape: tuple, seed: int) -> torch.Tensor:
+        """The flow noise of a padded (B, T) batch, (B, T, features), drawn
+        on the first card from ``seed`` as one card's model draws it."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn((*shape, self.model.temporal_adaptor.predictor.output_dim),
+                           generator=gen, device=self.device)
+
+    def _run(self, tokens: np.ndarray, lens: np.ndarray, fb: int, spk: np.ndarray | None,
+             seed: int, audio: bool = False, controls: tuple = ()):
+        """One padded batch at budget ``fb`` over the cards (one card is one
+        shard): (mel, or with ``audio`` the waveform; the rows' frame
+        counts), on the first card. The flow noise of the whole batch is
+        drawn on the first card and split, each card's shard is launched
+        before any is waited for, and the shards are joined."""
+        def put(x, rows, dev):
+            return None if x is None else torch.from_numpy(x[rows]).to(dev)
+
+        noise = self._noise(tokens.shape, seed)
+        per = tokens.shape[0] // len(self.devices)
+        outs, lengths = [], []
+        for i, dev in enumerate(self.devices):
+            rows = slice(i * per, (i + 1) * per)
+            mel, ad = self._infer(put(tokens, rows, dev).long(), put(lens, rows, dev), fb,
+                                  None if spk is None else put(spk, rows, dev).long(),
+                                  noise[rows].to(dev), *controls, shard=i)
+            outs.append(self._vocode(mel, i) if audio else mel)
+            lengths.append(ad.dec_lengths)
+        return (torch.cat([o.to(self.device) for o in outs]),
+                torch.cat([x.to(self.device) for x in lengths]))
 
     def _synthesize_mel(self, text: str | list[str], seed: int = 0,
                         duration_factor: float = 1.0, pitch_factor: float = 1.0,
@@ -353,15 +420,13 @@ class Synthesizer:
             ids = [speaker] * B if np.isscalar(speaker) else list(speaker)
             if len(ids) != B:
                 raise ValueError(f"speaker list length {len(ids)} != batch {B}")
-            spk = torch.zeros((Bb,), dtype=torch.long, device=self.device)
-            spk[:B] = torch.tensor(ids, dtype=torch.long)
-        tokens_t = torch.from_numpy(tokens).long().to(self.device)
-        lens_t = torch.from_numpy(lens).to(self.device)
+            spk = np.zeros((Bb,), np.int64)
+            spk[:B] = ids
+        controls = (duration_factor, pitch_factor, pitch_delta, energy_factor, energy_delta)
         budgets = self.config.frame_budgets
         while True:
-            mel, ad = self._infer(tokens_t, lens_t, fb, spk, seed, duration_factor,
-                                  pitch_factor, pitch_delta, energy_factor, energy_delta)
-            dec_lens = ad.dec_lengths[:B].cpu().numpy()
+            out, dec_lengths = self._run(tokens, lens, fb, spk, seed, audio, controls)
+            dec_lens = dec_lengths[:B].cpu().numpy()
             # dec_lengths == budget means the adaptor clipped the durations
             # at the budget: run again at the next one; the largest budget's
             # saturation is reported, not hidden
@@ -373,4 +438,4 @@ class Synthesizer:
                 break
             fb = bucket(fb + 1, budgets)
             logger.info("frame budget saturated; retrying at %d", fb)
-        return (self._vocode(mel) if audio else mel), dec_lens, B
+        return out, dec_lens, B

@@ -105,7 +105,8 @@ class ExperimentModules:
                           train_dataset=self.train_dataset, eval_dataset=self.eval_dataset,
                           collator=self.collator, evaluator=self.evaluator,
                           experiment_config=self.config, device=self.device, **kwargs)
-        run_dir = Path(trainer.run_dir)
-        run_dir.mkdir(parents=True, exist_ok=True)
-        (run_dir / "config.yaml").write_text(dump(self.config), encoding="utf-8")
+        if trainer.is_main_process:
+            run_dir = Path(trainer.run_dir)
+            run_dir.mkdir(parents=True, exist_ok=True)
+            (run_dir / "config.yaml").write_text(dump(self.config), encoding="utf-8")
         return trainer

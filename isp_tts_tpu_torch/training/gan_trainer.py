@@ -21,6 +21,10 @@ callbacks, strategies, evaluation, checkpoints and resume are the base
 - evaluation through the criterion's ``__call__`` (the generator's
   reconstruction metrics); ``steps_per_call > 1`` trains step by step, with
   a warning, as there.
+
+Over several ranks each branch's gradients are averaged over the data
+group before its clip, as the base trainer's are (JAX
+``tests/test_parallel.py:test_gan_step_data_parallel_matches_single_device``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import logging
 
 import torch
 
+from ..parallel.context import activated
+from ..parallel.mesh import all_reduce_mean, global_grad_norm, reduce_gradients
 from .optimizers import build_optimizer, finite_or_nan, grad_norm, jax_param_name, \
     set_learning_rate
 from .trainer import Trainer
@@ -76,6 +82,7 @@ class GANTrainer(Trainer):
                 cfg.optimization, module, trainable, key_prefix=f"['{key}']")
             if key == "gen":
                 self.schedule = schedule
+            self._distribute(self.optimizers[key])
         if self._restored_base_lr is not None and cfg.restore_lr:
             self.schedule.base_lr = float(self._restored_base_lr)
         if self._restored_opt_state is not None:
@@ -88,14 +95,15 @@ class GANTrainer(Trainer):
                                  f"keys {unknown[:5]}; pass restore_optimizer=false to "
                                  "reinitialize")
             for key, _ in BRANCHES:
-                self.optimizers[key].load_keyed_state(parts[key])
+                self.optimizers[key].load_keyed_state(parts[key], local=self._split_local)
 
     def _set_lr(self, lr: float) -> None:
         for opt in self.optimizers.values():
             set_learning_rate(opt, lr)
 
     def optimizer_keyed_state(self) -> dict:
-        return {k: v for opt in self.optimizers.values() for k, v in opt.keyed_state().items()}
+        return {k: v for opt in self.optimizers.values()
+                for k, v in opt.keyed_state(full=self._split_full).items()}
 
     # -- the step ----------------------------------------------------------------
 
@@ -115,13 +123,23 @@ class GANTrainer(Trainer):
         for p in params:
             if p.grad is None:  # optax decays and steps every parameter
                 p.grad = torch.zeros_like(p)
-        norm = grad_norm([p.grad for p in params])
+        grads = [p.grad for p in params]
+        if opt.parallel is None:
+            norm = grad_norm(grads)
+        else:
+            if opt.accum == 1:  # an accumulation is reduced when applied
+                reduce_gradients(grads, params, self.parallel_ctx)
+            norm = global_grad_norm(grads, params, self.parallel_ctx)
         return finite_or_nan(norm), opt.step(norm)
 
     def _update(self, batch: dict, noise=None, t=None, step: int | None = None):
         """One GAN step: the discriminator's update, then the generator's.
         Returns the JAX trainer's metrics as 0-dim device tensors and
         whether the optimizers updated the parameters."""
+        with activated(self.parallel_ctx):
+            return self._gan_update(batch)
+
+    def _gan_update(self, batch: dict):
         self.model.train()
         inputs = self.model.prepare_inputs(self._to_device(batch))
         audio = inputs["audio"]
@@ -148,7 +166,7 @@ class GANTrainer(Trainer):
                    **{k: v.detach().float() for k, v in d_metrics.items()},
                    **{k: v.detach().float() for k, v in g_metrics.items()},
                    "stats/grad_norm": g_norm, "stats/grad_norm_disc": d_norm}
-        return metrics, emitted
+        return all_reduce_mean(metrics, self.parallel_ctx), emitted
 
     def _forward(self, batch: dict, noise=None, t=None, step: int | None = None):
         inputs = self.model.prepare_inputs(self._to_device(batch))

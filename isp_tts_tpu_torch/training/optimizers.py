@@ -142,13 +142,6 @@ def to_jax_layout(t: torch.Tensor, layout: bool | tuple) -> np.ndarray:
     return np.array(to_jax_array(t.detach().float().cpu().numpy(), layout), order="C")
 
 
-def from_jax_layout(arr, layout: bool | tuple, like: torch.Tensor) -> torch.Tensor:
-    arr = from_jax_array(np.asarray(arr), layout)
-    if tuple(arr.shape) != tuple(like.shape):
-        raise ValueError(f"optimizer leaf shape {arr.shape} does not fit {tuple(like.shape)}")
-    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(like.device, like.dtype)
-
-
 class Optimizer:
     """optax's chain over a model's parameters (see the module docstring).
 
@@ -162,7 +155,12 @@ class Optimizer:
     ``key_prefix`` goes before every key of :meth:`keyed_state`: the JAX
     GANTrainer keeps one optimizer a branch under ``['gen']`` and
     ``['disc']``, each over its submodule's own tree (the port's names
-    relative to the ``model`` passed, the branch)."""
+    relative to the ``model`` passed, the branch).
+
+    ``parallel`` (a ``ParallelContext``, set by the trainer when several
+    ranks run): an accumulation's mean gradient is reduced over the ranks
+    (``parallel.mesh.reduce_gradients``) when it is applied, and the clip
+    reads the global norm (a model-split tensor counted once)."""
 
     def __init__(self, config: OptimizationConfig, model: torch.nn.Module,
                  trainable: set[str] | None = None, key_prefix: str = ""):
@@ -188,6 +186,7 @@ class Optimizer:
         elif cfg.momentum:
             self.trace = zeros
         self.acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else None
+        self.parallel = None
 
     # -- the update ----------------------------------------------------------
 
@@ -205,6 +204,10 @@ class Optimizer:
             self.mini_step = (n + 1) % self.accum
             if n != self.accum - 1:
                 return False
+            if self.parallel is not None:
+                from ..parallel.mesh import reduce_gradients
+
+                reduce_gradients(self.acc, self.params, self.parallel)
             self._inner([self.acc[i] for i in self.trained])
             for a in self.acc:
                 a.zero_()
@@ -221,7 +224,8 @@ class Optimizer:
             self.count += 1
             return
         if self.clip is not None:
-            norm = grad_norm(grads) if norm is None else norm
+            if norm is None:
+                norm = self._norm(grads)
             # optax: g if ||g|| < max else g / ||g|| * max
             scale = torch.where(norm < self.clip, torch.ones_like(norm),
                                 self.clip / norm)
@@ -252,6 +256,14 @@ class Optimizer:
                                     alpha=float(cfg.weight_decay))
         torch._foreach_add_(params, updates, alpha=-self.lr)
 
+    def _norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the trained parameters' ``grads``."""
+        if self.parallel is None:
+            return grad_norm(grads)
+        from ..parallel.mesh import global_grad_norm
+
+        return global_grad_norm(grads, [self.params[i] for i in self.trained], self.parallel)
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
@@ -273,8 +285,11 @@ class Optimizer:
             return {f"{inner}.trace": self.trace}
         return {}
 
-    def keyed_state(self) -> dict[str, np.ndarray]:
-        """Every leaf of optax's state under its tree path, JAX layout."""
+    def keyed_state(self, full=None) -> dict[str, np.ndarray]:
+        """Every leaf of optax's state under its tree path, JAX layout;
+        ``full(param, tensor)`` gives a parameter-shaped tensor's full value
+        (a model split's gather)."""
+        full = full or (lambda _, t: t)
         pre = self._prefix()
         out = {f"{pre}.count": np.asarray(self.count, np.int32),
                f"{pre}.hyperparams['learning_rate']": np.asarray(self.lr, np.float32)}
@@ -284,19 +299,32 @@ class Optimizer:
         for slot, tensors in self._slots().items():
             for i, t in zip(self.trained, tensors):
                 jname, rev = self.layout[self.names[i]]
-                out[slot + keystr(jname)] = to_jax_layout(t, rev)
+                out[slot + keystr(jname)] = to_jax_layout(full(self.params[i], t), rev)
         if self.acc is not None:
             kp = self.key_prefix
             out[kp + ".mini_step"] = np.asarray(self.mini_step, np.int32)
             out[kp + ".gradient_step"] = np.asarray(self.gradient_step, np.int32)
-            for n, t in zip(self.names, self.acc):
+            for n, p, t in zip(self.names, self.params, self.acc):
                 jname, rev = self.layout[n]
-                out[kp + ".acc_grads" + keystr(jname)] = to_jax_layout(t, rev)
+                out[kp + ".acc_grads" + keystr(jname)] = to_jax_layout(full(p, t), rev)
         return out
 
-    def load_keyed_state(self, keyed: dict) -> None:
+    def load_keyed_state(self, keyed: dict, local=None) -> None:
         """Take back a :meth:`keyed_state` dict (the port's or the JAX
-        trainer's); raises when the keys are not exactly this state's."""
+        trainer's); raises when the keys are not exactly this state's.
+        ``local(param, full)`` cuts a full parameter-shaped tensor to this
+        rank's shard (a model split)."""
+        local = local or (lambda _, t: t)
+
+        def take(arr, param, t, layout):
+            full = torch.from_numpy(np.array(from_jax_array(np.asarray(arr), layout),
+                                             dtype=np.float32))
+            got = local(param, full)
+            if tuple(got.shape) != tuple(t.shape):
+                raise ValueError(f"optimizer leaf shape {tuple(full.shape)} does not fit "
+                                 f"{tuple(t.shape)}")
+            t.copy_(got)
+
         want = list(self.keyed_state())
         missing = [k for k in want if k not in keyed]
         unknown = [k for k in keyed if k not in set(want)]
@@ -314,14 +342,14 @@ class Optimizer:
             for slot, tensors in self._slots().items():
                 for i, t in zip(self.trained, tensors):
                     jname, rev = self.layout[self.names[i]]
-                    t.copy_(from_jax_layout(keyed[slot + keystr(jname)], rev, t))
+                    take(keyed[slot + keystr(jname)], self.params[i], t, rev)
             if self.acc is not None:
                 kp = self.key_prefix
                 self.mini_step = int(np.asarray(keyed[kp + ".mini_step"]))
                 self.gradient_step = int(np.asarray(keyed[kp + ".gradient_step"]))
-                for n, t in zip(self.names, self.acc):
+                for n, p, t in zip(self.names, self.params, self.acc):
                     jname, rev = self.layout[n]
-                    t.copy_(from_jax_layout(keyed[kp + ".acc_grads" + keystr(jname)], rev, t))
+                    take(keyed[kp + ".acc_grads" + keystr(jname)], p, t, rev)
 
 
 def build_optimizer(config: OptimizationConfig, model: torch.nn.Module,

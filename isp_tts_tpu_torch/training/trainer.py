@@ -30,6 +30,21 @@ port's own checkpoint also skips the batches of its epoch that were
 already consumed (``epoch_batches_done`` in the saved state, a key the JAX
 loader passes over); the JAX trainer, and the port on a JAX file, replay
 the epoch from its start.
+
+Several cards (one process a card, ``torch.distributed`` initialised by
+the caller: ``python -m isp_tts_tpu_torch.train --distributed`` under
+torchrun) split the data and model axes of ``make_mesh(data=-1,
+model=mesh_model_axis)``, as the JAX trainer's mesh does: each data rank
+loads its contiguous rows of every global batch (fixed-shape collation,
+so every rank pads to one shape); the model axis splits the attention
+heads and the feed-forward inner dim (``parallel.mesh.shard_params``);
+after the backward (after an accumulation) the gradients are averaged
+over the data group in a few flat buckets and the clip reads the global
+norm; every rank's generator is the same stream and each keeps its rows
+of the global draws, so N ranks compute one rank's step. Metrics are
+averaged over the data group; rank 0 alone logs and writes checkpoints,
+with split tensors and their moments gathered, between barriers, so a
+file is one rank's; every rank loads a checkpoint and slices its shards.
 """
 
 from __future__ import annotations
@@ -48,6 +63,10 @@ from ..checkpoint import load_checkpoint, save_checkpoint
 from ..config.registry import config_to_dict
 from ..data.loader import DataLoader
 from ..nn.layers import set_dropout_generator
+from ..parallel.context import ParallelContext, activated
+from ..parallel.mesh import (all_reduce_mean, barrier, full_parameters, gather_split,
+                             global_grad_norm, make_context, make_mesh, reduce_gradients,
+                             replicate, shard_batch, shard_params, slice_split)
 from ..utils.device import resolve_device
 from .callbacks import (CALLBACKS, CallbackHandler, DefaultFlowCallback, ProgressCallback,
                         TrackerCallback, TrainerCallback, TrainerControl, TrainerState,
@@ -129,7 +148,9 @@ class Trainer:
         self.config = config
         self.evaluator = evaluator
         self.experiment_config = experiment_config or {}
-        self.state = TrainerState()
+        self.parallel_ctx = self._make_parallel_context()
+        self.is_main_process = self.parallel_ctx.rank == 0
+        self.state = TrainerState(is_main_process=self.is_main_process)
         self.control = TrainerControl()
         self.run_dir = Path(config.run_dir)
         self._eval_image_batch = None
@@ -150,13 +171,16 @@ class Trainer:
         self._autocast = _AUTOCAST.get(config.precision)
 
         self.collator = collator
-        if (config.steps_per_call > 1 and collator is not None
+        multi = self.parallel_ctx.data_size > 1
+        if ((config.steps_per_call > 1 or multi) and collator is not None
                 and hasattr(getattr(collator, "config", None), "fixed_shape")
                 and not collator.config.fixed_shape):
-            # the K batches of a chunk share one shape
+            # the K batches of a chunk share one shape; the data ranks' rows
+            # of one global batch share one shape
+            why = "multi-process" if multi else f"steps_per_call={config.steps_per_call}"
             if collator.config.max_text_len is None or collator.config.max_mel_len is None:
                 raise ValueError(
-                    f"steps_per_call={config.steps_per_call} training requires fixed-shape "
+                    f"{why} training requires fixed-shape "
                     "collation, which needs collator max_text_len AND max_mel_len set")
             collator.config.fixed_shape = True
         self.train_loader = (self._make_loader(train_dataset, config.batch_size,
@@ -178,6 +202,11 @@ class Trainer:
         self.callbacks = CallbackHandler(cbs)
 
         self._maybe_load_checkpoint()
+        # every rank starts from rank 0's weights (built alike from one seed,
+        # they agree already); the model axis splits the full (loaded)
+        # parameters, and the optimizer is built over the shards
+        replicate(self.model)
+        shard_params(self.model, self.parallel_ctx)
         self._init_optimizer()
         if config.debug_nans:
             torch.autograd.set_detect_anomaly(True)
@@ -189,9 +218,45 @@ class Trainer:
 
     # -- set-up ----------------------------------------------------------------
 
+    def _make_parallel_context(self) -> ParallelContext:
+        """The data × model layout of the process group's ranks (one
+        process, no group: the plain one-device context)."""
+        cfg = self.config
+        if not torch.distributed.is_initialized():
+            if cfg.mesh_model_axis > 1:
+                raise ValueError(f"mesh_model_axis = {cfg.mesh_model_axis} needs one process a "
+                                 "card: run under torchrun with --distributed")
+            return ParallelContext()
+        world = torch.distributed.get_world_size()
+        if cfg.num_devices and cfg.num_devices < world:
+            raise ValueError(f"num_devices = {cfg.num_devices}, but {world} ranks run: one "
+                             "process a card, launch num_devices of them")
+        backend = torch.distributed.get_backend()
+        if (backend == "nccl") != (self.device.type == "cuda"):
+            raise ValueError(f"a {backend} process group trains on its device type, not on "
+                             f"{self.device}")
+        ctx = make_context(make_mesh(data=-1, model=cfg.mesh_model_axis, world_size=world))
+        logger.info("rank %d of %d: data %d/%d, model %d/%d on %s", ctx.rank, world,
+                    ctx.data_rank, ctx.data_size, ctx.model_rank, ctx.model_size, self.device)
+        return ctx
+
     def _make_loader(self, dataset, batch_size, shuffle):
+        ctx = self.parallel_ctx
         return DataLoader(dataset, self.collator, batch_size=batch_size, shuffle=shuffle,
-                          drop_last=self.config.drop_last, seed=self.config.seed)
+                          drop_last=self.config.drop_last, seed=self.config.seed,
+                          num_shards=ctx.data_size, shard_index=ctx.data_rank)
+
+    def _split_local(self, param: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a parameter-shaped full tensor."""
+        split = getattr(param, "tp_split", None)
+        ctx = self.parallel_ctx
+        return full if split is None else slice_split(full, *split, ctx.model_rank,
+                                                      ctx.model_size)
+
+    def _split_full(self, param: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+        """The full tensor of a parameter-shaped shard (every rank calls it)."""
+        split = getattr(param, "tp_split", None)
+        return local if split is None else gather_split(local, split, self.parallel_ctx)
 
     def _init_optimizer(self):
         trainable = None
@@ -206,16 +271,23 @@ class Trainer:
                                                         trainable)
         if self._restored_base_lr is not None and self.config.restore_lr:
             self.schedule.base_lr = float(self._restored_base_lr)
+        self._distribute(self.optimizer)
         if self._restored_opt_state is not None:
-            self.optimizer.load_keyed_state(self._restored_opt_state)
+            self.optimizer.load_keyed_state(self._restored_opt_state, local=self._split_local)
+
+    def _distribute(self, optimizer) -> None:
+        """Hand an optimizer the parallel context (its accumulated gradients'
+        reduction and the clip's global norm) when several ranks run."""
+        if torch.distributed.is_initialized():
+            optimizer.parallel = self.parallel_ctx
 
     def _set_lr(self, lr: float) -> None:
         set_learning_rate(self.optimizer, lr)
 
     def optimizer_keyed_state(self) -> dict:
         """The optimizer's state under optax's tree paths (the checkpoint's
-        ``optimizer.keyed``)."""
-        return self.optimizer.keyed_state()
+        ``optimizer.keyed``), split tensors gathered whole."""
+        return self.optimizer.keyed_state(full=self._split_full)
 
     def _maybe_load_checkpoint(self):
         cfg = self.config
@@ -227,7 +299,14 @@ class Trainer:
         if not path:
             return
         t0 = time.perf_counter()
-        ckpt = load_checkpoint(path)
+        # rank 0 reads first, then the others (the reference's
+        # main_process_first around its load)
+        barrier("checkpoint_load_enter")
+        if self.is_main_process:
+            ckpt = load_checkpoint(path)
+        barrier("checkpoint_load_main_first")
+        if not self.is_main_process:
+            ckpt = load_checkpoint(path)
         ignore = list(cfg.ignore_layers) if cfg.warm_start else []
         state = ckpt["model"]["state"]
         torch_file = ckpt.get("format") == "torch"
@@ -303,14 +382,22 @@ class Trainer:
         self.model.train()
         self._reseed(self._micro_step)
         self.optimizer.zero_grad()
-        loss, losses, _, _ = self._forward(batch, noise, t, step)
-        loss.backward()
-        for p in self.model.parameters():
+        with activated(self.parallel_ctx):
+            loss, losses, _, _ = self._forward(batch, noise, t, step)
+            loss.backward()
+        params = list(self.model.parameters())
+        for p in params:
             if p.grad is None:  # optax decays and steps every parameter
                 p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if self.optimizer.parallel is not None and self.optimizer.accum == 1:
+            # an accumulation is reduced once, when the optimizer applies it
+            reduce_gradients(grads, params, self.parallel_ctx)
         # every gradient's norm: the logged one, and the clip's when nothing
-        # is frozen or accumulated (Optimizer.step)
-        self._grad_norm = grad_norm([p.grad for p in self.model.parameters()])
+        # is frozen or accumulated (Optimizer.step); with several ranks the
+        # global one (a split tensor counted once)
+        self._grad_norm = (grad_norm(grads) if self.optimizer.parallel is None
+                           else global_grad_norm(grads, params, self.parallel_ctx))
         return (loss.detach(), {k: v.detach() for k, v in losses.items()},
                 finite_or_nan(self._grad_norm))
 
@@ -321,8 +408,8 @@ class Trainer:
         optimizer updated the parameters."""
         loss, losses, norm = self.compute_gradients(batch, noise, t, step)
         emitted = self.optimizer.step(self._grad_norm)
-        return {"loss": loss.float(), **{k: v.float() for k, v in losses.items()},
-                "stats/grad_norm": norm}, emitted
+        return all_reduce_mean({"loss": loss.float(), **{k: v.float() for k, v in losses.items()},
+                                "stats/grad_norm": norm}, self.parallel_ctx), emitted
 
     def train_step(self, batch: dict, noise=None, t=None) -> dict[str, torch.Tensor]:
         """One micro-step on ``batch``, counted; the metrics as 0-dim tensors."""
@@ -337,26 +424,33 @@ class Trainer:
         """(model outputs, metrics) in eval mode: no dropout, no update."""
         self.model.eval()
         self._reseed(-1 - salt)
-        loss, losses, outputs, _ = self._forward(batch, noise, t)
-        return outputs, {"loss": loss.float(), **{k: v.float() for k, v in losses.items()}}
+        with activated(self.parallel_ctx):
+            loss, losses, outputs, _ = self._forward(batch, noise, t)
+        return outputs, all_reduce_mean(
+            {"loss": loss.float(), **{k: v.float() for k, v in losses.items()}},
+            self.parallel_ctx)
 
     # -- the loop --------------------------------------------------------------
 
     def train(self, batches: list[dict] | None = None, steps: int | None = None):
         """With ``batches``: ``steps`` micro-steps cycling over them (one
-        pass an epoch), each step's metrics as floats. Without: the run the
-        config describes, over the trainer's datasets, with the final save
-        whatever ends it; under ``eval_mode`` one evaluation pass instead,
-        whose metrics it returns."""
-        if batches is not None:
-            return self._train_on(batches, steps or len(batches))
-        try:
-            return self._train()
-        finally:
-            self._stop_profiler()
-            if self.state.global_step > 0:
-                self._save_checkpoint(LAST_CHECKPOINT)
-                self.state.to_json(self.run_dir / TRAINER_STATE_FILE)
+        pass an epoch; under a data split each rank trains on its rows of
+        these global batches), each step's metrics as floats. Without: the
+        run the config describes, over the trainer's datasets, with the
+        final save whatever ends it; under ``eval_mode`` one evaluation pass
+        instead, whose metrics it returns."""
+        with activated(self.parallel_ctx):
+            if batches is not None:
+                return self._train_on([shard_batch(b, self.parallel_ctx) for b in batches],
+                                      steps or len(batches))
+            try:
+                return self._train()
+            finally:
+                self._stop_profiler()
+                if self.state.global_step > 0:
+                    self._save_checkpoint(LAST_CHECKPOINT)
+                    if self.is_main_process:
+                        self.state.to_json(self.run_dir / TRAINER_STATE_FILE)
 
     def _train_on(self, batches: list[dict], steps: int) -> list[dict[str, float]]:
         history = []
@@ -447,7 +541,8 @@ class Trainer:
         outputs, metrics = self.eval_step(host_batch, salt=self.state.global_step * 4096 + index)
         if self.evaluator is not None:
             inputs = self.model.prepare_inputs(self._to_device(host_batch))
-            metrics = {**metrics, **self.evaluator(inputs, outputs)}
+            metrics = {**metrics, **all_reduce_mean(self.evaluator(inputs, outputs),
+                                                    self.parallel_ctx)}
             if self._eval_image_batch is None:
                 self._eval_image_batch = (host_batch, outputs)
         model_time = time.perf_counter() - model_t0
@@ -563,7 +658,7 @@ class Trainer:
 
     def _maybe_profile(self):
         window = self.config.profile_steps
-        if not window:
+        if not window or not self.is_main_process:
             return
         start, end = int(window[0]), int(window[1])
         if self.state.global_step == start and self._profiler is None:
@@ -606,7 +701,8 @@ class Trainer:
 
     def evaluate(self, eval_dataset=None) -> dict:
         """One evaluation pass; ``eval_dataset`` replaces the configured
-        split for this call."""
+        split for this call. Under a data split each rank evaluates its
+        rows and the metrics are averaged over the data group."""
         loader = (self._make_loader(eval_dataset, self.config.eval_batch_size, shuffle=False)
                   if eval_dataset is not None else self.eval_loader)
         if loader is None:
@@ -615,7 +711,8 @@ class Trainer:
         was_train, prev_epoch_step = self.control.is_train, self.state.epoch_step
         self.control.is_train = False
         try:
-            means = self.run_epoch(loader, is_train=False)
+            with activated(self.parallel_ctx):
+                means = self.run_epoch(loader, is_train=False)
         finally:
             self.control.is_train = was_train
             self.state.epoch_step = prev_epoch_step
@@ -660,7 +757,8 @@ class Trainer:
         name = (f"{CHECKPOINT_PREFIX}_s{self.state.global_step}.ckpt"
                 if cfg.save_strategy == "steps"
                 else f"{CHECKPOINT_PREFIX}_e{int(self.state.epoch)}.ckpt")
-        if cfg.save_rewrite_checkpoint and self.state.last_model_checkpoint:
+        if (cfg.save_rewrite_checkpoint and self.state.last_model_checkpoint
+                and self.is_main_process):
             prev = Path(self.state.last_model_checkpoint)
             if prev.exists() and prev.name.startswith((CHECKPOINT_PREFIX + "_s",
                                                        CHECKPOINT_PREFIX + "_e")):
@@ -668,7 +766,11 @@ class Trainer:
         self._save_checkpoint(name)
 
     def checkpoint_payload(self) -> dict:
-        """What a checkpoint holds: the ``isp_tts_tpu.v1`` payload."""
+        """What a checkpoint holds: the ``isp_tts_tpu.v1`` payload, split
+        tensors gathered whole (a collective: every rank of a model split
+        calls it)."""
+        with full_parameters(self.model, self.parallel_ctx):
+            model_state = self.model.jax_state()
         payload = {
             "format": "isp_tts_tpu.v1",
             "experiment": {"config": _plain_config(self.experiment_config),
@@ -679,7 +781,7 @@ class Trainer:
                                      "epoch_batches_done": self.state.epoch_step}},
             "model": {"class": type(self.model).__name__,
                       "config": config_to_dict(self.model.config),
-                      "state": self.model.jax_state()},
+                      "state": model_state},
         }
         if self.config.save_optimizer:
             payload["optimizer"] = {"keyed": self.optimizer_keyed_state(),
@@ -687,10 +789,17 @@ class Trainer:
         return payload
 
     def _save_checkpoint(self, name: str):
+        """Rank 0 writes the file (split tensors gathered on every rank);
+        no rank goes on, or reads it, before the write ends."""
         t0 = time.perf_counter()
         path = self.run_dir / name
-        save_checkpoint(path, self.checkpoint_payload())
+        if self.is_main_process or self.parallel_ctx.model_size > 1:
+            payload = self.checkpoint_payload()
+        if self.is_main_process:
+            save_checkpoint(path, payload)
         self.state.last_model_checkpoint = str(path)
+        barrier(f"save_{name}")
         self.save_seconds.append(time.perf_counter() - t0)
-        self.callbacks.on_save(self.config, self.state, self.control)
-        logger.info("saved checkpoint %s", path)
+        if self.is_main_process:
+            self.callbacks.on_save(self.config, self.state, self.control)
+            logger.info("saved checkpoint %s", path)

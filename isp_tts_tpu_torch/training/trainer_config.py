@@ -3,9 +3,11 @@
 
 ``precision`` is the compute dtype under autocast over float32 master
 weights: bf16, fp16 (no loss scaling, as in the JAX package) or fp32.
-The mesh axes exist for one device only: a value above 1 raises, as the
-port does for everything it does not compute. The JAX settings with no
-counterpart on one device (``IGNORED_KEYS``) are accepted and change
+The data axis spans the ranks the model axis leaves (``mesh_model_axis``
+splits heads and feed-forward dims over that many ranks; both need a
+process group, ``--distributed``); ``num_devices`` caps the ranks. The
+seq and pipeline axes are not ported yet: a value above 1 raises. The JAX
+settings with no counterpart (``IGNORED_KEYS``) are accepted and change
 nothing.
 """
 
@@ -15,6 +17,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import ClassVar
 
+from ..parallel.context import SEQ_STAGE_NOT_PORTED
 from .optimizers import OptimizationConfig
 
 #: precision names the trainer computes
@@ -23,11 +26,10 @@ PRECISIONS = ("bf16", "bfloat16", "fp16", "float16", "fp32", "float32")
 
 @dataclass
 class TrainerConfig:
-    #: JAX settings of its mesh, PRNG and compiler: pipeline microbatches
-    #: (with no pipeline axis), the device cap, the 'rbg' PRNG switch and
-    #: XLA's compilation cache
+    #: JAX settings of its PRNG and compiler: pipeline microbatches (with
+    #: no pipeline axis), the 'rbg' PRNG switch and XLA's compilation cache
     IGNORED_KEYS: ClassVar[frozenset] = frozenset({
-        "pipeline_microbatches", "num_devices", "fast_rng", "compilation_cache"})
+        "pipeline_microbatches", "fast_rng", "compilation_cache"})
 
     # what to run
     do_train: bool = True
@@ -88,10 +90,13 @@ class TrainerConfig:
     # callbacks: {name: {kwargs}} added to the defaults
     callbacks: dict = field(default_factory=dict)
 
-    # mesh (one device: every axis must be 1)
+    # mesh: data × model over the process group's ranks (seq and pipeline
+    # must stay 1)
     mesh_model_axis: int = 1
     mesh_seq_axis: int = 1
     mesh_pipeline_axis: int = 1
+    #: at most this many ranks (None: every rank of the process group)
+    num_devices: int | None = None
 
     # observability
     profile_steps: tuple | None = None  # (start_step, end_step): torch.profiler trace
@@ -105,11 +110,11 @@ class TrainerConfig:
     def __post_init__(self):
         if self.precision not in PRECISIONS:
             raise ValueError(f"unknown precision {self.precision!r}; one of {PRECISIONS}")
-        for axis in ("mesh_model_axis", "mesh_seq_axis", "mesh_pipeline_axis"):
+        if int(self.mesh_model_axis) < 1:
+            raise ValueError("mesh_model_axis must be >= 1")
+        for axis in ("mesh_seq_axis", "mesh_pipeline_axis"):
             if getattr(self, axis) != 1:
-                raise NotImplementedError(
-                    f"{axis} = {getattr(self, axis)}: the port trains on one device "
-                    "(multi-GPU is ROADMAP Queue 1 item 5)")
+                raise NotImplementedError(f"{axis} = {getattr(self, axis)}: {SEQ_STAGE_NOT_PORTED}")
         if int(self.steps_per_call) < 1:
             raise ValueError("steps_per_call must be >= 1")
         self.do_train = self.do_train and not self.eval_mode

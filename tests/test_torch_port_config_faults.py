@@ -2,7 +2,8 @@
 and the bf16 residual stream, on the CPU.
 
 - ``build_config`` raises on a key its dataclass does not declare, and a
-  declared option the port does not compute (mesh axes above 1,
+  declared option the port does not compute (seq and pipeline mesh axes
+  above 1, also beside a model axis the port computes,
   ``context_dim``, a head dim other than 64 with ``flash`` on) raises at
   any value but the JAX default. Keys that cannot change what the port computes are listed per
   dataclass (``IGNORED_KEYS``); the committed checkpoint's embedded config
@@ -42,7 +43,7 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
 
 
 @pytest.mark.parametrize("cls,cfg,error", [
-    (TrainerConfig, {"mesh_model_axis": 2}, NotImplementedError),
+    (TrainerConfig, {"mesh_model_axis": 2, "mesh_seq_axis": 2}, NotImplementedError),
     (TrainerConfig, {"mesh_seq_axis": 2}, NotImplementedError),
     (TrainerConfig, {"mesh_pipeline_axis": 4}, NotImplementedError),
     (TrainerConfig, {"precision": "int8"}, ValueError),

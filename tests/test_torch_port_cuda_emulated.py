@@ -2,7 +2,8 @@
 ``tools/cuda_emu`` and held against their plain versions, on the CPU, at
 the bounds the card is held to:
 - the attention kernels (K1, K5a forwards; K2, K5b backwards): fragment
-  layouts, tile indexing, masks, dropout hashes and row splits. The
+  layouts, tile indexing, masks, dropout hashes (also a shard's, placed
+  in a global call by its first row and head) and row splits. The
   emulation sums each MMA in double and rounds once (f32 1e-4, bf16 2e-2 of
   the plain version's max-abs);
 - the aligner's DP kernels, K3 (MAS, equal to its plain version) and K4
@@ -54,6 +55,17 @@ def test_forward_kernel_matches_plain_version(libs, case):
 ], ids=lambda c: "-".join(map(str, c)).replace("torch.", ""))
 def test_backward_kernel_matches_plain_version(libs, case):
     errs = emu.backward(libs, *case)
+    assert max(errs) <= _bound(case[5]), errs
+
+
+@pytest.mark.parametrize("case,origin", emu.ORIGIN_CASES,
+                         ids=lambda c: "-".join(map(str, c)).replace("torch.", ""))
+def test_kernels_hash_a_shard_of_a_global_call(libs, case, origin):
+    """A data or model rank's call (first batch row, first head, global
+    head count): forward and backward against the plain versions at the
+    same origin, whose masks are the global call's slice."""
+    errs = (emu.forward(libs, *case[:-1], origin=origin) if case[-1] == 1 else []) + \
+        emu.backward(libs, *case, origin=origin)
     assert max(errs) <= _bound(case[5]), errs
 
 

@@ -62,7 +62,8 @@ def test_port_and_chip_smoke_import_without_jax_flax_msgpack_yaml():
                  "models.acoustic.evaluator", "utils.plotting", "train",
                  "data.text.phonemes", "data.text.word_level", "data.text.processor",
                  "native", "data.vocoder", "models.vocoder.discriminator",
-                 "models.vocoder.loss", "models.vocoder.evaluator", "training.gan_trainer"):
+                 "models.vocoder.loss", "models.vocoder.evaluator", "training.gan_trainer",
+                 "parallel", "parallel.context", "parallel.mesh"):
         assert f"isp_tts_tpu_torch.{name}" in out["modules"]
 
 

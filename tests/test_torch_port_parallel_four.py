@@ -1,0 +1,90 @@
+"""Four gloo ranks on the CPU, data 2 × model 2, against one rank and
+against the JAX trainer's step on a data 2 × model 2 mesh.
+
+The ranks (``torch_port_parallel_workers.py``) start once for the module
+through a ``file://`` store and run both cases:
+
+- 3 steps of ``PAR`` (float32, live dropout 0.1) against one rank: the
+  loss terms and gradient norm of each step within rel 1e-4, the first
+  step's gradients within 1e-5 of each tensor's max-abs or twice its
+  float32 floor (``test_torch_port_parallel_two.py`` says why);
+- one step without dropout, from the JAX model's weights and with the flow
+  draws the JAX model makes from its key, against the JAX step's loss over
+  ``make_mesh(data=2, model=2)`` of the conftest's virtual CPU devices
+  (``shard_params`` by its TP rules, the batch over "data"): every loss
+  term within rel 1e-4, the bound of ``test_torch_port_train_step.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from flax import nnx
+
+import torch_port_parallel_workers as W
+from isp_tts_tpu.config import build_config as jax_build_config
+from isp_tts_tpu.models import AcousticModel as JAcousticModel
+from isp_tts_tpu.models.acoustic import loss as jloss
+from isp_tts_tpu.models.acoustic.model import AcousticModelConfig as JAcousticModelConfig
+from isp_tts_tpu.parallel.mesh import make_mesh, shard_batch, shard_params
+from test_torch_port_parallel_two import _grads_close, _metrics_close
+from torch_port_common import flow_draws, perturb
+
+CASES = ["data_model", "jax_step"]
+
+
+def jax_mesh_loss(jm, batch: dict, key) -> dict[str, float]:
+    """The JAX model's loss terms over a data 2 × model 2 mesh."""
+    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    nnx.update(jm, shard_params(nnx.state(jm), mesh))
+    inputs = {"text": batch["text_vector"], "text_len": batch["text_vector_len"],
+              "mel": batch["mel"], "mel_len": batch["mel_len"], "pitch": batch["pitch"],
+              "energy": batch["energy"], "speaker": batch["speaker"]}
+    sharded = shard_batch(inputs, mesh)
+    crit = jloss.AcousticModelLoss()
+
+    @nnx.jit
+    def loss_fn(m, x):
+        loss, losses = crit(x, m(**x, key=key), 0)
+        return loss, losses
+
+    loss, losses = loss_fn(jm, sharded)
+    return {"loss": float(loss), **{k: float(v) for k, v in losses.items()}}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ranks4")
+    jm = JAcousticModel(jax_build_config(JAcousticModelConfig, W.without_dropout(W.PAR)),
+                        rngs=nnx.Rngs(0))
+    flat = perturb(jm, 12)
+    batch = W.global_batch()
+    key = jax.random.PRNGKey(21)
+    x0, t = flow_draws(key, *batch["text_vector"].shape)
+    W.save_inputs(tmp / "inputs.npz", flat, batch, x0=x0, t=t)
+    procs = W.spawn(4, tmp / "inputs.npz", tmp, CASES, tmp)
+    try:
+        inputs = dict(np.load(tmp / "inputs.npz"))
+        one = W.one_thread(W.case_steps, inputs, tmp / "one", model_axis=1)
+        floor = W.one_thread(W.gradient_floor, inputs, tmp / "floor", one)
+        jax_loss = jax_mesh_loss(jm, batch, key)
+    finally:
+        W.join(procs, tmp)
+    return {"one": one, "floor": floor, "jax": jax_loss,
+            **{case: dict(np.load(tmp / f"{case}.npz")) for case in CASES}}
+
+
+def test_three_steps_at_data_2_model_2_equal_one_rank(runs):
+    assert runs["data_model"]["m::loss"].shape == (3,)
+    _metrics_close(runs["data_model"], runs["one"], 1e-4)
+
+
+def test_first_step_gradients_at_data_2_model_2_equal_one_rank(runs):
+    _grads_close(runs["data_model"], runs["one"], 1e-5, runs["floor"])
+
+
+def test_data_2_model_2_step_equals_jax_mesh_step(runs):
+    got, ref = runs["jax_step"], runs["jax"]
+    assert set(ref) <= {k[3:] for k in got}
+    for k, v in ref.items():
+        np.testing.assert_allclose(float(got[f"m::{k}"]), v, rtol=1e-4, err_msg=k)

@@ -287,10 +287,11 @@ def test_warmup_runs_every_bucket_and_speaker_variant(monkeypatch):
                                                  steps=1))
     calls = []
     real_infer, real_vocode = synth._infer, synth._vocode
-    monkeypatch.setattr(synth, "_infer", lambda tok, lens, fb, spk, seed, *a: calls.append(
-        ("infer", tuple(tok.shape), fb, spk is not None)) or real_infer(tok, lens, fb, spk, seed))
-    monkeypatch.setattr(synth, "_vocode", lambda mel: calls.append(
-        ("vocode", tuple(mel.shape))) or real_vocode(mel))
+    monkeypatch.setattr(synth, "_infer", lambda tok, lens, fb, spk, noise, *a, **k:
+                        calls.append(("infer", tuple(tok.shape), fb, spk is not None))
+                        or real_infer(tok, lens, fb, spk, noise, *a, **k))
+    monkeypatch.setattr(synth, "_vocode", lambda mel, *a: calls.append(
+        ("vocode", tuple(mel.shape))) or real_vocode(mel, *a))
     synth.warmup(batch_sizes=(1, 3))
     infers = {c[1:] for c in calls if c[0] == "infer"}
     assert infers == {((b, tb), fb, s) for b in (1, 4) for tb in (8, 16) for fb in (32, 64)

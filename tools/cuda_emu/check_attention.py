@@ -35,7 +35,7 @@ sys.path.insert(0, str(HERE))
 import emubuild  # noqa: E402
 from isp_tts_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 SCALE = 0.125
 
 
@@ -61,43 +61,48 @@ def rel(a, b, scale=None):
     return (d / (b if scale is None else scale).float().abs().max().clamp_min(1e-30)).item()
 
 
-def forward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate):
+def forward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, origin=(0, 0, None)):
+    """Kernel against plain version; ``origin`` = (batch0, head0,
+    heads_total) places the call in a global one's dropout hash."""
     q, k, v, _, sl, kl, ql = inputs(B, N, M, H, Hkv, dtype)
     sd = torch.tensor([77], dtype=torch.int32)
     thresh, inv = fa.drop_params(rate) or (256, 1.0)
+    hh, shift = fa.hash_origin(Hkv is None, N, M, H, *origin)
     o = torch.empty_like(q)
     ptrs = [x.data_ptr() for x in (q, k, v, sl, kl, ql, sd, o)]
     code = 0 if dtype == torch.float32 else 1
     if Hkv is None:
         lse = torch.empty(B, N * H)
         fn = libs["mqa_fwd"].isp_mqa_fwd
-        fn.argtypes = [P] * 9 + [I] * 6 + [F, I, F, I, P]
+        fn.argtypes = [P] * 9 + [I] * 6 + [F, I, F, I, U, I, P]
         err = fn(*ptrs, lse.data_ptr(), B, N, M, H, offset, int(causal), SCALE, thresh, inv,
-                 code, None)
+                 hh, shift, code, None)
         ref, lref = fa.mqa_attention_reference(q, k, v, sl, kl, SCALE, offset, ql, causal, rate,
-                                               sd)
+                                               sd, *origin)
     else:
         lse = torch.empty(B, H, N)
         fn = libs["flash_fwd"].isp_flash_fwd
-        fn.argtypes = [P] * 9 + [I] * 7 + [F, I, F, I, P]
+        fn.argtypes = [P] * 9 + [I] * 7 + [F, I, F, I, U, I, P]
         err = fn(*ptrs, lse.data_ptr(), B, N, M, H, Hkv, offset, int(causal), SCALE, thresh,
-                 inv, code, None)
+                 inv, hh, shift, code, None)
         ref, lref = fa.flash_attention_reference(q, k, v, sl, kl, SCALE, offset, ql, causal,
-                                                 rate, sd)
+                                                 rate, sd, *origin)
     assert err == 0, err
     live = torch.isfinite(lref)
     assert torch.equal(torch.isfinite(lse), live), "dead rows differ"
     return [rel(o, ref), rel(lse[live], lref[live]) if live.any() else 0.0]
 
 
-def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1):
+def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1,
+             origin=(0, 0, None)):
     q, k, v, do, sl, kl, ql = inputs(B, N, M, H, Hkv, dtype)
     sd = torch.tensor([77], dtype=torch.int32)
     thresh, inv = fa.drop_params(rate) or (256, 1.0)
+    hh, shift = fa.hash_origin(Hkv is None, N, M, H, *origin)
     plain_fwd, plain_bwd = ((fa.mqa_attention_reference, fa.mqa_bwd_reference) if Hkv is None
                             else (fa.flash_attention_reference, fa.flash_bwd_reference))
-    o, lse = plain_fwd(q, k, v, sl, kl, SCALE, offset, ql, causal, rate, sd)
-    ref = plain_bwd(q, k, v, sl, kl, ql, sd, o, lse, do, SCALE, offset, causal, rate)
+    o, lse = plain_fwd(q, k, v, sl, kl, SCALE, offset, ql, causal, rate, sd, *origin)
+    ref = plain_bwd(q, k, v, sl, kl, ql, sd, o, lse, do, SCALE, offset, causal, rate, *origin)
     nan = float("nan")
     dq, dk, dv = (torch.full_like(x, nan) for x in (q, k, v))
     dsl, delta = torch.zeros(2, H), torch.full(lse.shape, nan)
@@ -107,13 +112,14 @@ def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1):
     code = 0 if dtype == torch.float32 else 1
     if Hkv is None:
         fn = libs["mqa_bwd"].isp_mqa_bwd
-        fn.argtypes = [P] * 16 + [I] * 6 + [F, I, F, I, I, P]
-        err = fn(*ptrs, B, N, M, H, offset, int(causal), SCALE, thresh, inv, splits, code, None)
+        fn.argtypes = [P] * 16 + [I] * 6 + [F, I, F, I, I, U, I, P]
+        err = fn(*ptrs, B, N, M, H, offset, int(causal), SCALE, thresh, inv, splits, hh, shift,
+                 code, None)
     else:
         fn = libs["flash_bwd"].isp_flash_bwd
-        fn.argtypes = [P] * 16 + [I] * 7 + [F, I, F, I, I, P]
-        err = fn(*ptrs, B, N, M, H, Hkv, offset, int(causal), SCALE, thresh, inv, splits, code,
-                 None)
+        fn.argtypes = [P] * 16 + [I] * 7 + [F, I, F, I, I, U, I, P]
+        err = fn(*ptrs, B, N, M, H, Hkv, offset, int(causal), SCALE, thresh, inv, splits, hh,
+                 shift, code, None)
     assert err == 0, err
     one_key = M == 1
     dv_scale, far = ref[2], N + abs(offset)
@@ -129,6 +135,16 @@ CASES = [  # B, N, M, H, Hkv (None: folded MQA), dtype, causal, offset, rate, sp
     (3, 66, 33, 3, 1, torch.float32, False, 7, 0.1, 2),
     (2, 40, 130, 2, 2, torch.bfloat16, True, 70, 0.1, 1),
     (3, 65, 64, 2, 1, torch.bfloat16, False, 0, 0.0, 1),
+]
+
+
+#: a data rank's or model rank's share of a global call: (case, (batch0,
+#: head0, heads_total)); the kernel's global hash against the plain version's
+ORIGIN_CASES = [
+    ((2, 20, 33, 2, None, torch.float32, False, 0, 0.1, 1), (3, 2, 6)),
+    ((2, 70, 40, 3, None, torch.bfloat16, True, -5, 0.1, 2), (1, 3, 6)),
+    ((2, 20, 33, 2, 2, torch.float32, False, 0, 0.1, 1), (1, 4, 6)),
+    ((3, 66, 33, 2, 1, torch.bfloat16, False, 7, 0.1, 2), (6, 2, 4)),
 ]
 
 
@@ -161,6 +177,14 @@ def main() -> int:
                       f"{str(dtype).replace('torch.', '')} causal={int(causal)} offset={offset} "
                       f"dropout={rate} splits={splits} {what}: "
                       + " ".join(f"{e:.1e}" for e in errs), flush=True)
+        for case, origin in ORIGIN_CASES:
+            bound = 1e-4 if case[5] == torch.float32 else 2e-2
+            errs = (forward(libs, *case[:-1], origin=origin) if case[-1] == 1 else []) + \
+                backward(libs, *case, origin=origin)
+            ok = all(e <= bound for e in errs)
+            bad += [] if ok else [(case, origin, errs)]
+            print(f"{'ok  ' if ok else 'FAIL'} {case} origin={origin}: "
+                  + " ".join(f"{e:.1e}" for e in errs), flush=True)
     print(f"{len(bad)} failing" if bad else "all within bounds")
     return 1 if bad else 0
 

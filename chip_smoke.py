@@ -130,6 +130,26 @@ how far it got:
              group's bucketed all-reduce, rank 0's barriered save) against
              the plain trainer's 3 steps: bit-equal, or within rel 1e-6;
              the same K1-K4 launches; the two checkpoints' bytes.
+15b. seq-stage - the seq and stage axes on one card: ring attention on a
+             seq axis of size 1 against K1 on the same inputs at the
+             fine-tuning shape (f32 and bf16, each with its bound, timed); the
+             virtual ring of 2 and 4 ranks against the ring of one with
+             dropout; the decoder stacked (pipeline: true) from the committed
+             checkpoint, saved, reloaded stacked and translated back per layer
+             bit-equal, served through ``Synthesizer.from_pretrained`` against
+             the per-layer checkpoint (warm ms of each); 3 f32 steps with
+             ``flash: ring`` on a size-1 seq axis against the kernel path
+             (attention dropout off: the ring hashes another index than K1),
+             loss and gradient norm within 5e-4 and step 1's gradients within
+             3e-4 of each tensor's max-abs, and a planted ring whose slope
+             gradient is dropped, which the gates must catch; then each recipe's
+             setting (core, core_sp, core_pp on size-1 axes): one step's K1-K4
+             launches, counts zeroed just before and read just after, host ms
+             per bf16 step and peak memory.
+15c. tf32  - ``precision: fp32`` from PyTorch's defaults: TF32 off and
+             cuDNN deterministic inside the step, the defaults restored after
+             it, two runs bit-equal; f32 ms per step in that scope, with
+             TF32 off alone and with the defaults, interleaved.
 16. train  - the same for the multi-KV-head model on K5a/K5b, and, in f32
              with dropout off, its ``to_kv`` gradient summed over the heads
              against the one-KV-head model's, both models on the same K and
@@ -2534,6 +2554,339 @@ def phase_dist_one(t0, experiment, batch):
         + ", ".join(f"{h['loss']:.6f}" for h in h1))
 
 
+#: f32 fine-tuning steps with flash: ring on a size-1 seq axis against the
+#: kernel path, loss and gradient norm relative: above the sound runs'
+#: largest reading (7.6e-5 on the card); a ring whose slope gradient is
+#: dropped reads 9.2e-5 there, so the gradient gate below is the one that
+#: catches it (the planted run prints both)
+RING_STEP_BOUND = 5e-4
+#: the first of those steps' gradients, each tensor's gap relative to its
+#: max-abs on the kernel path: the sound ring reads 3.5e-5 on the card, the
+#: planted one 1.0 on the slopes
+RING_GRAD_BOUND = 3e-4
+SEQ_STAGE_STEPS = 3
+#: the virtual ring of 2 and 4 ranks against the ring of one, f32, with dropout
+VIRTUAL_RING_BOUND = 1e-5
+SEQ_STAGE_TIMED = 5
+#: the bf16 ring against K1: 2 bf16 ulps (2 x 2^-8) of the output's max-abs
+RING_BF16_ULPS = 2 * 2.0 ** -8
+
+
+def stacked_config(config: dict) -> dict:
+    """A model config with the decoder's layer stack stored stacked."""
+    return dict(config, decoder=dict(config["decoder"], pipeline=True))
+
+
+def stacked_model(path=None):
+    """The committed checkpoint (or ``path``'s) with a stacked decoder, its
+    per-layer weights translated, on the card in train mode."""
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
+
+    blob = load_checkpoint(path or CKPT)["model"]
+    model = AcousticModel(build_config(AcousticModelConfig, stacked_config(blob["config"])))
+    model.load_jax_state(blob["state"])
+    return model.cuda()
+
+
+def recipe_trainer_on(model, experiment: dict, precision: str | None = None, seed: int = 7,
+                      **ctx):
+    """The fine-tuning trainer over ``model`` (``ctx``: parallel-context
+    fields of its one-process layout, such as a size-1 seq axis)."""
+    import dataclasses
+
+    import torch
+
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticLossConfig, AcousticModelLoss
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    cfg = build_config(TrainerConfig, experiment["trainer"])
+    if precision is not None:
+        cfg.precision = precision
+    trainer = Trainer(model, AcousticModelLoss(build_config(AcousticLossConfig,
+                                                            experiment["criterion"])), cfg,
+                      generator=torch.Generator(device="cuda").manual_seed(seed))
+    if ctx:
+        trainer.parallel_ctx = dataclasses.replace(trainer.parallel_ctx, **ctx)
+    return trainer
+
+
+def ring_model():
+    """The committed checkpoint with ``flash: ring`` in the encoder and the
+    decoder (acoustic/core_sp's setting)."""
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+
+    model = AcousticModel.from_pretrained(CKPT)
+    set_flash(model.encoder, "ring")
+    set_flash(model.decoder, "ring")
+    return model
+
+
+@contextlib.contextmanager
+def planted_slope_fault(on: bool):
+    """With ``on``, every ring attention runs with its ALiBi slopes
+    detached: a ring whose slope gradient is lost, for the gates to catch."""
+    import isp_tts_tpu_torch.nn.attention as attention
+
+    ring = attention.ring_attention
+    if on:
+        attention.ring_attention = (lambda q, k, v, slopes, *a, **kw:
+                                    ring(q, k, v, slopes.detach(), *a, **kw))
+    try:
+        yield
+    finally:
+        attention.ring_attention = ring
+
+
+def phase_seq_stage(t0, experiment, batch):
+    """The seq and stage axes on one card: the ring on a size-1 seq axis
+    against K1, the virtual ring, the stacked decoder and its checkpoint,
+    f32 ring steps against the kernel path, and each recipe setting's
+    launches, host ms per step and peak memory."""
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+    from isp_tts_tpu_torch.nn.attention import Attention
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+    from isp_tts_tpu_torch.ops.ring_attention import ring_attention, ring_attention_virtual
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    B, N, H, scale = BATCH, MEL_LEN, 6, 64 ** -0.5
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, slopes, key_lens, q_lens = mqa_inputs(B, N, N, H, getattr(torch, dtype),
+                                                        False, gen)
+        k3, v3 = k[:, :, None], v[:, :, None]
+
+        def ring():
+            return ring_attention(q, k3, v3, slopes, key_lens, scale, q_lens=q_lens)
+
+        def k1():
+            return fa.mqa_fwd(q, k, v, slopes, key_lens, scale, 0, q_lens, False, 0.0,
+                              seed_tensor(0))[0]
+
+        ref = k1().float()
+        err = (ring().float() - ref).abs().max().item()
+        # bf16: both round o to bf16 after their own sums, up to 2 bf16
+        # ulps apart at the largest output
+        bound = F32_BOUND if dtype == "float32" else RING_BF16_ULPS * ref.abs().max().item()
+        ring_ms, k1_ms = cuda_ms(ring, iters=10), cuda_ms(k1, iters=10)
+        say("seq-stage", t0, f"ring attention on a seq axis of size 1 against K1, B {B} x N "
+            f"{N} x {H} heads, {dtype}: o max err {err:.3e} (bound {bound:.2e}); ring "
+            f"{ring_ms:.4f} ms (einsum chunk products), K1 {k1_ms:.4f} ms")
+        if not err <= bound:
+            raise AssertionError(f"the ring against K1 in {dtype}: {err:.3e}")
+    q, k, v, slopes, key_lens, q_lens = mqa_inputs(B, N, N, H, torch.float32, False, gen)
+    k3, v3 = k[:, :, None], v[:, :, None]
+    drop = dict(q_lens=q_lens, dropout_rate=0.1, seed=seed_tensor(5), remat=False)
+    one = ring_attention(q, k3, v3, slopes, key_lens, scale, **drop)
+    errs = {S: (ring_attention_virtual(q, k3, v3, slopes, key_lens, scale, shards=S, **drop)
+                - one).abs().max().item() / one.abs().max().item() for S in (2, 4)}
+    say("seq-stage", t0, f"virtual ring of 2 and 4 ranks against the ring of one, f32, "
+        f"dropout 0.1: rel err {errs} (bound {VIRTUAL_RING_BOUND:.0e})")
+    if max(errs.values()) > VIRTUAL_RING_BOUND:
+        raise AssertionError(f"the virtual ring moved: {errs}")
+    del q, k, v, k3, v3, one
+
+    work = Path(tempfile.mkdtemp(dir=ROOT, prefix="_smoke_stack_"))
+    try:
+        stacked = stacked_model().eval()
+        path = work / "stacked.ckpt"
+        stacked.save_pretrained(path)
+        saved = load_checkpoint(path)["model"]["state"]
+        committed = load_checkpoint(CKPT)["model"]["state"]
+        per_layer = AcousticModel.from_pretrained(CKPT)
+        per_layer.load_jax_state(saved)
+        back = per_layer.jax_state()
+        reloaded = AcousticModel.from_pretrained(path).jax_state()
+        ok = (set(back) == set(committed) and all(np.array_equal(back[n], committed[n])
+                                                  for n in committed)
+              and all(np.array_equal(reloaded[n], saved[n]) for n in saved))
+        synths = [Synthesizer.from_pretrained(p) for p in (CKPT, path)]
+        mels = [synth(SENTENCES) for synth in synths]
+        if [m.shape for m in mels[0]] != [m.shape for m in mels[1]]:
+            raise AssertionError("the stacked checkpoint serves other frame counts")
+        mel_err = max(float(np.abs(b - a).max() / np.abs(a).max()) for a, b in zip(*mels))
+        warm = []
+        for synth in synths:  # warm: each has served the sentences once above
+            t = time.perf_counter()
+            synth(SENTENCES)
+            warm.append(1e3 * (time.perf_counter() - t))
+        say("seq-stage", t0, f"stacked decoder checkpoint ({sum('.stack.' in n for n in saved)} "
+            f"stacked tensors) saved, reloaded stacked and translated per-layer: bit-equal "
+            f"{ok}; Synthesizer.from_pretrained on it (the local stacked path) against the "
+            f"per-layer checkpoint on {len(SENTENCES)} sentences: mel rel err {mel_err:.3e} "
+            f"(bound {MEL_BOUND:.0e}); warm ms stacked {warm[1]:.2f}, per-layer {warm[0]:.2f}")
+        if not ok or mel_err > MEL_BOUND:
+            raise AssertionError("the stacked checkpoint does not carry the per-layer one")
+        del stacked, per_layer, mels, synths
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    hist, grads = {}, {}
+    for name, model, ctx in (("kernels", AcousticModel.from_pretrained(CKPT), {}),
+                             ("ring", ring_model(), {"seq_axis": "seq"}),
+                             ("planted", ring_model(), {"seq_axis": "seq"})):
+        for m in model.modules():  # the ring hashes another index than K1: no attention dropout
+            if isinstance(m, Attention):
+                m.dropout.rate = 0.0
+        trainer = recipe_trainer_on(model.train(), experiment, "fp32", **ctx)
+        with planted_slope_fault(name == "planted"):
+            hist[name] = trainer.train([batch], 1)
+            grads[name] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                           if p.grad is not None}
+            hist[name] += trainer.train([batch], SEQ_STAGE_STEPS - 1)
+        del trainer, model
+
+    def step_gaps(run):
+        return [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    for k in ("loss", "stats/grad_norm"))
+                for a, b in zip(hist[run], hist["kernels"])]
+
+    def grad_gap(run):
+        return max((((grads[run][n] - g).abs().max()
+                     / g.abs().max().clamp_min(1e-30)).item(), n)
+                   for n, g in grads["kernels"].items())
+
+    gaps, grad_err = step_gaps("ring"), grad_gap("ring")
+    fault_gaps, fault_grad = step_gaps("planted"), grad_gap("planted")
+    say("seq-stage", t0, f"{SEQ_STAGE_STEPS} f32 fine-tuning steps, attention dropout off, "
+        f"flash: ring on a size-1 seq axis (encoder and decoder) against the kernel path: "
+        f"largest relative loss / gradient-norm gap per step {[f'{g:.3e}' for g in gaps]} "
+        f"(bound {RING_STEP_BOUND:.0e}); step 1's largest gradient gap {grad_err[0]:.3e} of "
+        f"its tensor's max-abs ({grad_err[1]}; bound {RING_GRAD_BOUND:.0e}); losses ring "
+        + ", ".join(f"{h['loss']:.6f}" for h in hist["ring"]) + ", kernels "
+        + ", ".join(f"{h['loss']:.6f}" for h in hist["kernels"]))
+    say("seq-stage", t0, f"planted fault, the ring's slope gradient dropped: loss / gradient-"
+        f"norm gap per step {[f'{g:.3e}' for g in fault_gaps]}, step 1's largest gradient gap "
+        f"{fault_grad[0]:.3e} ({fault_grad[1]}): caught "
+        f"{max(fault_gaps) > RING_STEP_BOUND or fault_grad[0] > RING_GRAD_BOUND}")
+    if max(gaps) > RING_STEP_BOUND or grad_err[0] > RING_GRAD_BOUND:
+        raise AssertionError(f"ring steps against the kernel path: {gaps}, {grad_err}")
+    if not fault_grad[0] > RING_GRAD_BOUND:
+        raise AssertionError(f"the gradient gate misses a dropped slope gradient: {fault_grad}")
+
+    settings = (("acoustic/core", lambda: AcousticModel.from_pretrained(CKPT).train(), {}),
+                ("acoustic/core_sp", lambda: ring_model().train(), {"seq_axis": "seq"}),
+                ("acoustic/core_pp", lambda: stacked_model().train(),
+                 {"stage_axis": "stage", "n_micro": 4}))
+    readings = {}
+    for recipe, build, ctx in settings:
+        trainer = recipe_trainer_on(build(), experiment, **ctx)
+        trainer.train([batch], 2)
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        trainer.train([batch], 1)
+        launches = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(SEQ_STAGE_TIMED):
+            t = time.perf_counter()
+            trainer.train([batch], 1)  # the metrics come back as floats: synced
+            ms.append(1e3 * (time.perf_counter() - t))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        readings[recipe] = {"launches": launches, "ms": ms, "peak_mib": peak}
+        say("seq-stage", t0, f"{recipe}'s attention and layer-stack setting on one card "
+            f"({ctx or 'no axes'}), bf16 step of the fine-tuning batch: launches in one step "
+            f"{launches}; host ms per step {[round(x, 2) for x in ms]} (median "
+            f"{np.median(ms):.2f}); peak memory {peak:.0f} MiB")
+        path = ("K1 mqa_fwd", "K2 mqa_bwd", "K3 mas", "K4 ctc_fwd", "K4 ctc_bwd")
+        if min(launches[k] for k in path) == 0:
+            raise AssertionError(f"{recipe}: a kernel of the path did not launch: {launches}")
+        del trainer
+        torch.cuda.empty_cache()
+    return readings
+
+
+#: fp32 steps run with TF32 off and cuDNN's deterministic algorithms
+#: (Trainer.precision_scope): two runs of the same steps are bit-equal on the
+#: card, and the process's settings come back after
+TF32_STEPS = 2
+
+
+def tf32_settings() -> tuple:
+    import torch
+
+    b = torch.backends
+    return b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic
+
+
+def phase_tf32(t0, experiment, batch):
+    """``precision: fp32`` on the card, from PyTorch's defaults (cuDNN's
+    TF32 on, cuBLAS's off, cuDNN free to pick any algorithm): TF32 off and
+    deterministic cuDNN inside the step, the defaults back after it, two
+    runs bit-equal; f32 ms per step in the fp32 scope, with TF32 off alone
+    and with the defaults, interleaved."""
+    import torch
+
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+
+    backends = torch.backends
+    smoke_settings = tf32_settings()
+    defaults = (True, False, False)
+    seen: list = []
+    runs = []
+    try:
+        (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+         backends.cudnn.deterministic) = defaults
+        for _ in range(2):
+            trainer = recipe_trainer_on(AcousticModel.from_pretrained(CKPT).train(),
+                                        experiment, "fp32")
+            hook = trainer.model.register_forward_pre_hook(
+                lambda m, a: seen.append(tf32_settings()))
+            history = trainer.train([batch], TF32_STEPS)
+            hook.remove()
+            runs.append((history, {n: p.detach().clone()
+                                   for n, p in trainer.model.named_parameters()}))
+            del trainer
+        after = tf32_settings()
+        equal = runs[0][0] == runs[1][0] and all(torch.equal(runs[0][1][n], runs[1][1][n])
+                                                 for n in runs[0][1])
+        gap = max(rel_err(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
+        @contextlib.contextmanager
+        def tf32_off_only():
+            saved = tf32_settings()
+            backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+            try:
+                yield
+            finally:
+                (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+                 backends.cudnn.deterministic) = saved
+
+        trainers = {}
+        for label, scope in (("fp32 scope", None), ("TF32 off only", tf32_off_only),
+                             ("defaults", contextlib.nullcontext)):
+            trainer = recipe_trainer_on(AcousticModel.from_pretrained(CKPT).train(),
+                                        experiment, "fp32")
+            if scope is not None:
+                trainer.precision_scope = scope
+            trainer.train([batch], 2)
+            trainers[label] = trainer
+        times = {label: [] for label in trainers}
+        for _ in range(SEQ_STAGE_TIMED):  # interleaved: the host's drift falls on each alike
+            for label, trainer in trainers.items():
+                t = time.perf_counter()
+                trainer.train([batch], 1)
+                times[label].append(1e3 * (time.perf_counter() - t))
+        del trainers, trainer
+    finally:
+        (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+         backends.cudnn.deterministic) = smoke_settings
+    say("tf32", t0, f"precision fp32 from PyTorch's defaults {defaults} (cuDNN TF32, cuBLAS "
+        f"TF32, cuDNN deterministic): inside the step {sorted(set(seen))}, after {after}; two "
+        f"runs of {TF32_STEPS} steps bit-equal {equal} (parameters rel {gap:.3e}); f32 host ms "
+        f"per step, interleaved: "
+        + "; ".join(f"{label} {[round(x, 2) for x in ms]} (median {np.median(ms):.2f})"
+                    for label, ms in times.items()))
+    if set(seen) != {(False, False, True)} or after != defaults or not equal:
+        raise AssertionError("fp32 steps: TF32 not off inside, not restored, or not repeatable")
+    return times
+
+
 #: the multi-KV-head step's to_kv gradient, summed over its head blocks,
 #: against the one-KV-head step's: f32 sums in another order (K5b sums dk/dv
 #: per head then over heads, K2 over folded rows and splits). With both
@@ -3717,6 +4070,8 @@ def main() -> int:
     phase_profile(t0, lambda: trainer.train([batch], 1), "one training step")
     del trainer
     phase_dist_one(t0, experiment, batch)
+    phase_seq_stage(t0, experiment, batch)
+    phase_tf32(t0, experiment, batch)
     mha_trainer, mha_launches = phase_train(t0, experiment, batch, durations, mha=True)
     phase_profile(t0, lambda: mha_trainer.train([batch], 1),
                   "one training step, multi-KV-head")

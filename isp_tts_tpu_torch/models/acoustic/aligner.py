@@ -1,8 +1,11 @@
 """Text-to-mel aligner: conv key/query projections, diagonal prior, MAS.
 
 Counterpart of ``isp_tts_tpu/models/acoustic/aligner.py`` (the local path,
-``Aligner._attention_local`` and ``__call__``; the JAX-only shard_map
-branch has no counterpart here). Channel-last (B, T, C) at the module's
+``Aligner._attention_local`` and ``__call__``). The JAX package splits
+the aligner's batch over every live mesh axis (``_attention_manual``)
+when the model axis is 1 and dropout is off; here each seq or stage peer
+computes it whole on its data rank's rows (the same values; the peers'
+gradients of it are equal, so nothing sums them). Channel-last (B, T, C) at the module's
 edges, as in the JAX package; the convolutions run channel-first inside.
 Hard alignment is kernel K3 (``ops/mas.py``) on CUDA tensors with
 ``mas_impl`` "auto" or "pallas", and the plain DP with "scan".

@@ -5,8 +5,10 @@ MCD: an ortho DCT-II of the log-mel to 13 cepstra, c0 dropped, the per-frame
 L2 distance times 10 * sqrt(2) / ln(10), summed over valid frames over the
 length, averaged over the batch. Alignment length: the argmax track's path
 length over the diagonal's; strength: the mean of the per-frame maximum
-attention. The evaluation dashboards draw with matplotlib where it is
-installed and are skipped where it is not.
+attention, one ratio over the global batch under a data split (its sums
+taken over the data group, as JAX's over its global batch). The
+evaluation dashboards draw with matplotlib where it is installed and are
+skipped where it is not.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import logging
 import numpy as np
 import torch
 
+from ...parallel.mesh import data_sum
 from ...utils.masks import get_mask_from_lengths
 
 logger = logging.getLogger("isp_tts_tpu_torch")
@@ -58,7 +61,7 @@ def alignment_metrics(attn_soft: torch.Tensor, mel_lens: torch.Tensor,
     diag_len = torch.sqrt(text_lens.float() ** 2 + mel_lens.float() ** 2)
     alignment_length = (steps.sum(dim=1) / diag_len).mean()
     max_attn = attn_soft.max(dim=2).values * get_mask_from_lengths(mel_lens, M)
-    return alignment_length, max_attn.sum() / mel_lens.sum()
+    return alignment_length, data_sum(max_attn.sum()) / data_sum(mel_lens.sum().float())
 
 
 class AcousticModelEvaluator:

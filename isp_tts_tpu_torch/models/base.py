@@ -11,7 +11,10 @@ to the port parameter's dtype, as ``load_params`` casts to the live one.
 :meth:`Model.jax_state` is the inverse, the JAX flat names and layouts a
 checkpoint stores; :meth:`Model.load_params` is the JAX package's partial
 load (``ignore_layers``, shape-mismatched tensors skipped) for resume and
-warm start; :meth:`Model.from_pretrained` also reads a reference ``.pt``
+warm start; both loads move a transformer's layer stack between the
+per-layer (``layers.<i>.*``) and the stacked (``stack.*``, ``pipeline:
+true``) layouts (:func:`translate_layer_stacking`);
+:meth:`Model.from_pretrained` also reads a reference ``.pt``
 through the class's ``convert_torch_checkpoint``; :meth:`Model.freeze` records the fine-tuning prefixes the
 trainer's freeze mask reads.
 """
@@ -19,6 +22,7 @@ trainer's freeze mask reads.
 from __future__ import annotations
 
 import logging
+import re
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +44,44 @@ def torch_name(jax_name: str) -> tuple[str, bool]:
     if leaf in ("scale", "embedding"):
         return f"{prefix}.weight", False
     return jax_name, False
+
+
+def translate_layer_stacking(flat: dict, current: dict) -> dict:
+    """``flat`` (a checkpoint's flat state) with a transformer's layer stack
+    moved to the layout of ``current`` (the live model's flat state, or
+    arrays of its shapes): per-layer ``X.layers.<i>.Y`` stacked into
+    ``X.stack.Y`` (a leading depth axis) or stacked ones cut into layers.
+    Only keys the model expects and the checkpoint lacks are made, and the
+    source keys used are dropped. The port of
+    ``isp_tts_tpu/models/base.py:_translate_layer_stacking``, on either
+    package's flat names."""
+    out = dict(flat)
+    consumed: set[str] = set()
+    for key, cur in current.items():
+        if key in out:
+            continue
+        if ".stack." in key:
+            prefix, suffix = key.split(".stack.", 1)
+            depth = int(np.shape(cur)[0])
+            sources = [f"{prefix}.layers.{i}.{suffix}" for i in range(depth)]
+            if all(s in out for s in sources):
+                out[key] = np.stack([np.asarray(out[s]) for s in sources])
+                consumed.update(sources)
+            continue
+        m = re.match(r"(.*)\.layers\.(\d+)\.(.*)", key)
+        if m:
+            src = f"{m.group(1)}.stack.{m.group(3)}"
+            i = int(m.group(2))
+            if (src in out and np.ndim(out[src]) == np.ndim(cur) + 1
+                    and i < np.shape(out[src])[0]):
+                out[key] = np.asarray(out[src])[i]
+                consumed.add(src)
+    for s in consumed:
+        out.pop(s, None)
+    if consumed:
+        logger.info("load_params: translated %d transformer layer-stack tensors between "
+                    "per-layer and stacked layouts", len(consumed))
+    return out
 
 
 class Model(nn.Module):
@@ -79,6 +121,16 @@ class Model(nn.Module):
         return {n: (jax_param_name(self, n) if n in params else (n, False))
                 for n in self.state_dict()}
 
+    def jax_shapes(self) -> dict[str, np.ndarray]:
+        """Arrays of the JAX flat state's shapes (zero-stride views, no
+        copies), for :func:`translate_layer_stacking`."""
+        from ..training.optimizers import to_jax_array
+
+        own = self.state_dict()
+        return {jname: to_jax_array(np.broadcast_to(np.float32(0), tuple(own[name].shape)),
+                                    layout)
+                for name, (jname, layout) in self.jax_names().items()}
+
     def jax_state(self) -> dict[str, np.ndarray]:
         """Parameters and buffers as the JAX package's flat state: its
         names, its layouts, float32."""
@@ -102,6 +154,8 @@ class Model(nn.Module):
         from ..training.optimizers import from_jax_array
 
         own = self.state_dict()
+        if not port_names:
+            flat = translate_layer_stacking(flat, self.jax_shapes())
         names = ({name: (name, False) for name in own} if port_names else
                  {jname: (name, rev) for name, (jname, rev) in self.jax_names().items()})
         accepted = {}
@@ -139,6 +193,7 @@ class Model(nn.Module):
         from ..training.optimizers import from_jax_array
 
         names = {jname: (name, layout) for name, (jname, layout) in self.jax_names().items()}
+        flat = translate_layer_stacking(flat, self.jax_shapes())
         unexpected = sorted(set(flat) - set(names))
         if unexpected:
             raise KeyError(f"unexpected JAX tensors {unexpected}")

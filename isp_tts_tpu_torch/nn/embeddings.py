@@ -10,7 +10,7 @@ import math
 import torch
 from torch import nn
 
-from ..parallel.mesh import copy_to_model, reduce_from_model
+from ..parallel.mesh import copy_to, reduce_from
 from .layers import choose_activation
 
 
@@ -99,6 +99,6 @@ class TimePositionalEmbedding(nn.Module):
             emb = torch.cat([t.float()[..., None], emb], dim=-1)
         if self.tp is None:
             return self.fc2(self.act(self.fc1(emb)))
-        h = self.act(self.fc1(copy_to_model(emb, self.tp)))
-        return reduce_from_model(nn.functional.linear(h, self.fc2.weight), self.tp) + \
+        h = self.act(self.fc1(copy_to(emb, self.tp.group)))
+        return reduce_from(nn.functional.linear(h, self.fc2.weight), self.tp.group) + \
             self.fc2.bias

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import copy_to_model, reduce_from_model
+from ..parallel.mesh import copy_to, reduce_from
 from .layers import FastDropout, choose_activation
 
 
@@ -43,7 +43,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp is not None:
-            x = copy_to_model(x, self.tp)
+            x = copy_to(x, self.tp.group)
         h = self.fc1(x)
         if self.glu:
             h, gate = h.chunk(2, dim=-1)
@@ -53,5 +53,5 @@ class FeedForward(nn.Module):
         h = self.dropout(h)
         if self.tp is None:
             return self.fc2(h)
-        out = reduce_from_model(F.linear(h, self.fc2.weight), self.tp)
+        out = reduce_from(F.linear(h, self.fc2.weight), self.tp.group)
         return out if self.fc2.bias is None else out + self.fc2.bias

@@ -1,20 +1,52 @@
 """Transformer layer and stack (counterpart of ``isp_tts_tpu/nn/transformer.py``).
 
-The per-layer path only: the stacked pipeline-parallel layout waits.
+Two layouts of the layer stack, as there:
+
+- per layer (``layers.<i>.*``), the default;
+- stacked (``pipeline: true``): one :class:`TransformerLayer` under
+  ``stack.*`` whose every parameter carries a leading depth axis (the JAX
+  state path ``stack.*``), run layer by layer through
+  ``torch.func.functional_call`` on each layer's slice. Under a live stage
+  axis (the parallel context's ``stage_axis``) each rank holds only its
+  ``depth / S`` layers (``parallel.mesh.shard_stages``) and the stack runs
+  the GPipe schedule (``parallel.pipeline.pipeline_apply``) over
+  ``n_micro`` microbatches; with no stage axis the whole batch runs as
+  one microbatch layer by layer here (the same schedule at one stage), so
+  a pipeline-trained checkpoint serves on one card. A batch that
+  ``n_micro`` does not divide raises under a live stage axis of more than
+  one rank and runs as one microbatch at one.
+
+Dropout inside a stacked stack cannot follow JAX's
+``fold_in(base, layer * n_micro + mb)`` keys, which torch cannot
+reproduce. It has its own scheme: a per-step base seed taken from the
+model's shared generator (hashed from its host-side state, so the host
+never waits on the device for it), and for layer g a generator seeded from (base,
+g) that draws at the global batch's rows, of which each microbatch keeps
+its own (``parallel.context.row_window``; the attention kernels' hash is
+placed at the microbatch's first global row). So what a stacked stack
+drops depends on the step, the layer and the global row alone: not on the
+microbatch count, the stage count or the data split.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 
 import torch
 from torch import nn
 
 from ..config import as_dict, build_config
+from ..ops.flash_attention import drop_params
+from ..parallel.context import batch_origin, get_parallel_context, row_window
+from ..parallel.pipeline import microbatch, pipeline_apply
 from .attention import Attention, AttentionConfig
 from .embeddings import fixed_positional_embedding
 from .feedforward import FeedForward, FeedForwardConfig
+from .layers import FastDropout, set_dropout_generator
 from .norms import AdaptiveLayerNorm, LayerNorm
+
+_M63 = 2**63 - 1
 
 
 @dataclass
@@ -80,21 +112,52 @@ class TransformerConfig:
     use_abs_pos_emb: bool = True
     adaptive_norm: bool = False
     condition_dim: int | None = None
+    #: stacked layer storage (``stack.*``, a leading depth axis) run as a
+    #: GPipe schedule over a live stage axis, locally otherwise
     pipeline: bool = False
+
+
+def _stacked_layer(layers: list[nn.Module]) -> nn.Module:
+    """The first of ``layers`` with each parameter replaced by every
+    layer's value of it stacked along a new leading axis."""
+    stack = layers[0]
+    per_layer = [dict(layer.named_parameters()) for layer in layers]
+    for name in list(per_layer[0]):
+        prefix, _, leaf = name.rpartition(".")
+        owner = stack.get_submodule(prefix) if prefix else stack
+        owner._parameters[leaf] = nn.Parameter(
+            torch.stack([p[name].detach() for p in per_layer]))
+    return stack
 
 
 class Transformer(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         cfg = config
-        if cfg.pipeline:
-            raise NotImplementedError("the stacked (pipeline) layer layout is not ported yet")
         self.emb_dim = cfg.emb_dim or cfg.dim
+        self.depth = cfg.depth
         layer_cfg = build_config(
             TransformerLayerConfig, as_dict(cfg.transformer_layer), dim=cfg.dim,
             adaptive_norm=cfg.adaptive_norm, condition_dim=cfg.condition_dim)
-        self.layers = nn.ModuleList(TransformerLayer(layer_cfg) for _ in range(cfg.depth))
-        has_rel_pos = self.layers[0].attention.rel_pos is not None
+        layers = [TransformerLayer(layer_cfg) for _ in range(cfg.depth)]
+        if cfg.pipeline:
+            if cfg.adaptive_norm:
+                raise ValueError("pipeline=True transformers take self-attention with a "
+                                 "padding mask only (no AdaLN)")
+            self.layers = None
+            self.stack = _stacked_layer(layers)
+            #: (first global layer, layers) this rank holds (shard_stages)
+            self.stage_layers = (0, cfg.depth)
+            #: draws the per-step base seed of the stack's dropout from the
+            #: model's shared generator (set_dropout_generator reaches it)
+            self.step_dropout = FastDropout(0.0)
+            self._layer_gens: dict = {}
+            first_layer = self.stack
+        else:
+            self.layers = nn.ModuleList(layers)
+            self.stack = None
+            first_layer = self.layers[0]
+        has_rel_pos = first_layer.attention.rel_pos is not None
         self.use_abs_pos_emb = cfg.use_abs_pos_emb and not has_rel_pos
         self.project_emb = (nn.Linear(self.emb_dim, cfg.dim)
                             if self.emb_dim != cfg.dim else None)
@@ -114,10 +177,88 @@ class Transformer(nn.Module):
             # package's ``stream_dtype``: its adds are bf16 under bf16 autocast
             # (the norms still take their statistics in f32)
             x = x.to(torch.get_autocast_dtype(dev))
-        for layer in self.layers:
-            x = layer(x, mask=mask, adaptive_condition=adaptive_condition)
+        if self.stack is not None:
+            if adaptive_condition is not None:
+                raise ValueError("pipeline=True transformers take self-attention with a "
+                                 "padding mask only (no AdaLN)")
+            x = self._stacked_forward(x, mask)
+        else:
+            for layer in self.layers:
+                x = layer(x, mask=mask, adaptive_condition=adaptive_condition)
         if self.norm is not None:
             x = self.norm(x.float())
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
         return x
+
+    # -- the stacked layer stack -------------------------------------------------
+
+    def _dropout_on(self) -> bool:
+        return self.training and any(
+            isinstance(m, FastDropout) and drop_params(m.rate) is not None
+            for m in self.stack.modules())
+
+    def _layer_generator(self, device: torch.device) -> torch.Generator:
+        key = str(device)
+        if key not in self._layer_gens:
+            self._layer_gens[key] = torch.Generator(device=device)
+        return self._layer_gens[key]
+
+    def _step_base(self, device: torch.device) -> int:
+        """The per-step base seed of the stack's dropout, with no device
+        sync: the shared generator is advanced by one draw, then its state
+        (host-side for every device's generator) is hashed on the host."""
+        self.step_dropout.draw_seed(device)
+        gen = self.step_dropout.generator
+        if gen is None:
+            gen = (torch.cuda.default_generators[device.index or 0]
+                   if device.type == "cuda" else torch.default_generator)
+        return zlib.crc32(gen.get_state().numpy().tobytes())
+
+    def _stacked_forward(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+        """The stacked layers: the GPipe schedule over the stage group when
+        the context names a stage axis, else the whole batch as one
+        microbatch layer by layer on this device (the schedule of one
+        stage)."""
+        ctx = get_parallel_context()
+        B = x.shape[0]
+        piped = ctx.stage_axis is not None
+        group = ctx.axis_group("stage") if piped else None
+        S = ctx.stage_size if piped else 1
+        first, per = self.stage_layers
+        if per * S != self.depth:
+            raise RuntimeError(f"a stage of {S} holds {per} of {self.depth} layers: cut the "
+                               "stack with parallel.mesh.shard_stages")
+        if not piped:
+            n_micro = 1
+        elif ctx.n_micro > 0 and B % ctx.n_micro == 0:
+            n_micro = ctx.n_micro
+        elif S > 1:
+            raise ValueError(f"pipeline batch {B} not divisible by pipeline_microbatches="
+                             f"{ctx.n_micro}")
+        else:
+            n_micro = 1
+        Bm = B // n_micro
+        drop = self._dropout_on()
+        gen = self._layer_generator(x.device) if drop else None
+        base = self._step_base(x.device) if drop else 0
+        total, row0 = B * ctx.data_size, batch_origin(B)
+        params = dict(self.stack.named_parameters())
+        masks = microbatch(mask, n_micro) if mask is not None else None
+
+        def run_layer(j: int, h: torch.Tensor, mb: int) -> torch.Tensor:
+            if drop:
+                gen.manual_seed((base * 1_000_003 + (first + j) * 7919 + 1) & _M63)
+                set_dropout_generator(self.stack, gen)
+            with row_window(total, row0 + mb * Bm):
+                return torch.func.functional_call(
+                    self.stack, {n: p[j] for n, p in params.items()}, (h,),
+                    {"mask": masks[mb] if masks is not None else None})
+
+        def stage_fn(h: torch.Tensor, mb: int) -> torch.Tensor:
+            for j in range(per):
+                h = run_layer(j, h, mb)
+            return h
+
+        out = pipeline_apply(stage_fn, microbatch(x, n_micro), group=group, remat=piped)
+        return out.reshape(x.shape)

@@ -9,6 +9,14 @@ named by the caller), and the collectives are explicit:
 - :func:`make_mesh` lays the ranks out as data × model × seq × stage
   (``data=-1``: every remaining rank) and :func:`make_context` builds one
   process group per axis and per line of ranks along it;
+- the collectives with a gradient that the seq and stage axes run on:
+  :func:`rotate` (``ppermute`` with ``perm = [(i, i + shift mod S)]``; its
+  backward rotates the gradient back), :func:`split_seq` /
+  :func:`gather_seq` (keep this rank's rows, all-gather the gradient; and
+  the reverse), :func:`copy_to` / :func:`reduce_from` (identity forward
+  and a sum over the group backward; and the reverse), for any group;
+  :func:`shard_stages` keeps this stage's layers of every stacked layer
+  stack;
 - :func:`shard_batch` keeps this data rank's contiguous rows of a global
   batch (padded to the global batch's lengths, so every rank runs one
   shape and the dropout hash sees the global N and M);
@@ -16,18 +24,20 @@ named by the caller), and the collectives are explicit:
   inner dim and the attention heads over the model axis, Megatron-style:
   ``fc1`` and ``to_q`` by output rows (a GLU's value and gate halves split
   alike), ``fc2`` and ``to_out`` by input columns with a sum over the model
-  group after them (:func:`reduce_from_model`); the module's input enters
-  through :func:`copy_to_model`, whose backward sums the input gradient.
+  group after them (:func:`reduce_from`); the module's input enters
+  through :func:`copy_to`, whose backward sums the input gradient.
   The one-KV-head ``to_kv`` and the ALiBi slopes stay replicated: inside a
   split layer each rank's gradient of them is partial, and
   :func:`reduce_gradients` sums it over the model group before the data
   mean;
 - :func:`reduce_gradients` and :func:`global_grad_norm`: the data mean of
   every gradient in a few flat buckets, and the global norm that counts a
-  split tensor once from all its shards;
+  split tensor once from all its shards (a stage's layers once across the
+  stage group, a replicated tensor once, never summed over seq peers,
+  whose gradients are identical);
 - :func:`full_parameters` / :func:`gather_split` / :func:`slice_split`:
-  split tensors gathered for a checkpoint (a file equal to one rank's) and
-  sliced again on load;
+  split tensors (model shards, a stage's layers) gathered for a
+  checkpoint (a file equal to one rank's) and sliced again on load;
 - :func:`barrier`, :func:`gather_to_host`, :func:`init_distributed`,
   :func:`process_local_mesh_info`.
 
@@ -110,34 +120,40 @@ def make_mesh(data: int = -1, model: int = 1, seq: int = 1, stage: int = 1,
     return RankMesh(np.arange(n).reshape(data, model, seq, stage))
 
 
-def make_context(mesh: RankMesh) -> ParallelContext:
+def make_context(mesh: RankMesh, n_micro: int = 4) -> ParallelContext:
     """This process's :class:`ParallelContext` over ``mesh``: one process
     group per line of ranks along each axis of size above 1 (and along the
-    data axis always, so a one-rank run still reduces through its group).
-    Every rank must call it, in the same order, since each group is made
-    by all ranks. Without a process group the mesh must be one rank."""
+    data axis always, so a one-rank run still reduces through its group);
+    a seq or stage axis above 1 is named (``seq_axis``, ``stage_axis``),
+    and ``n_micro`` is the stacked layer stacks' microbatch count. Every
+    rank must call it, in the same order, since each group is made by all
+    ranks. Without a process group the mesh must be one rank."""
+    named = {f"{axis}_axis": axis for axis in ("seq", "stage") if mesh.shape[axis] > 1}
     if not dist.is_initialized():
         if mesh.size != 1:
             raise RuntimeError(f"a mesh of {mesh.size} ranks needs torch.distributed "
                                "initialized (init_distributed)")
-        return ParallelContext(layout=mesh, rank=0, groups={})
+        return ParallelContext(layout=mesh, rank=0, groups={}, n_micro=n_micro)
     if mesh.size != dist.get_world_size():
         raise ValueError(f"mesh of {mesh.size} ranks, process group of "
                          f"{dist.get_world_size()}")
     rank = dist.get_rank()
     groups = {}
-    for axis in ("data", "model"):
-        if axis == "model" and mesh.shape[axis] == 1:
+    for axis in AXES:
+        if axis != "data" and mesh.shape[axis] == 1:
             continue
         for line in mesh.lines(axis):
             group = dist.new_group(line)
             if rank in line:
                 groups[axis] = group
-    return ParallelContext(layout=mesh, rank=rank, groups=groups)
+    return ParallelContext(layout=mesh, rank=rank, groups=groups, n_micro=n_micro, **named)
 
 
 def process_local_mesh_info() -> tuple[int, int]:
-    """(number of processes, this process's rank) for data-loader sharding."""
+    """(number of processes, this process's global rank): who writes a
+    file once. Loaders shard by the data coordinate
+    (:attr:`ParallelContext.data_rank`), never by this rank, since ranks
+    that differ along the model, seq or stage axes read the same rows."""
     if not dist.is_initialized():
         return 1, 0
     return dist.get_world_size(), dist.get_rank()
@@ -220,9 +236,10 @@ class TensorSplit:
     group: object
 
 
-class _CopyToModel(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     """Identity forward; the backward sums the input gradient over the
-    model group (the split layer's ranks each hold part of it)."""
+    group (each of its ranks holds part of it: a model split's heads, a
+    seq split's rows, the pipeline's first stage)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -236,9 +253,10 @@ class _CopyToModel(torch.autograd.Function):
         return grad, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    """Sum over the model group forward (after a column-split product);
-    identity backward."""
+class _ReduceFrom(torch.autograd.Function):
+    """Sum over the group forward (after a column-split product, or the
+    pipeline's last stage's output against the others' zeros); identity
+    backward."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -251,12 +269,111 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
-def copy_to_model(x: torch.Tensor, tp: TensorSplit) -> torch.Tensor:
-    return _CopyToModel.apply(x, tp.group)
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, the gradient summed over ``group`` backward (the
+    identity when ``group`` is None: one rank)."""
+    return x if group is None else _CopyTo.apply(x, group)
 
 
-def reduce_from_model(x: torch.Tensor, tp: TensorSplit) -> torch.Tensor:
-    return _ReduceFromModel.apply(x, tp.group)
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` forward, identity backward (the identity
+    when ``group`` is None)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+# -- the seq and stage axes' collectives ------------------------------------------------
+
+
+def _peers(group) -> list[int]:
+    return dist.get_process_group_ranks(group)
+
+
+def _rotate(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Send ``x`` to the rank ``shift`` places on along ``group``, receive
+    from the rank as far back (a ring of the group's ranks)."""
+    peers = _peers(group)
+    size = len(peers)
+    if size == 1 or shift % size == 0:
+        return x
+    me = peers.index(dist.get_rank())
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, peers[(me + shift) % size], group),
+           dist.P2POp(dist.irecv, out, peers[(me - shift) % size], group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, token, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _rotate(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rotate(grad, ctx.group, -ctx.shift), None, None, None
+
+
+def rotate(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``jax.lax.ppermute`` with ``perm = [(i, (i + shift) % S)]`` over
+    ``group`` (S ranks, in the group's order): every rank sends ``x`` on
+    and receives its predecessor's, over ``dist.batch_isend_irecv`` (NCCL
+    on the card, gloo on the CPU). The backward rotates the gradient the
+    other way. While autograd records, the result always requires a
+    gradient, so every rank's rotation has a backward and every send in
+    the backward meets its receive. The identity when ``group`` is None."""
+    if group is None:
+        return x
+    token = (torch.ones((), requires_grad=True) if torch.is_grad_enabled()
+             and not x.requires_grad else None)
+    return _Rotate.apply(x, token, group, shift)
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        return x.chunk(size, dim=dim)[rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.group, ctx.dim), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        size, rank = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return grad.chunk(size, dim=ctx.dim)[rank].contiguous(), None, None
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def split_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """This rank's contiguous share of ``x`` along ``dim`` (rank i of S holds
+    rows [i N/S, (i + 1) N/S)); the backward all-gathers the gradient, so
+    every rank holds the whole one. The identity when ``group`` is None."""
+    return x if group is None else _SplitSeq.apply(x, group, dim)
+
+
+def gather_seq(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's share of ``dim`` gathered in rank order; the backward
+    keeps this rank's slice of the (replicated) gradient. The identity
+    when ``group`` is None."""
+    return x if group is None else _GatherSeq.apply(x, group, dim)
 
 
 def _split_units(module) -> dict[str, tuple[int, int]] | None:
@@ -314,8 +431,8 @@ def shard_params(model: torch.nn.Module, ctx: ParallelContext | None = None,
     tp = TensorSplit(ctx.model_rank, size, ctx.group("model"))
     for mname, mod in model.named_modules():
         units = _split_units(mod)
-        if units is None:
-            continue
+        if units is None or "stack" in mname.split("."):
+            continue  # a stacked layer stack's layers stay whole
         params = dict(mod.named_parameters())
         plan = {}
         for pname, (granule, halves) in units.items():
@@ -353,19 +470,80 @@ def gather_split(t: torch.Tensor, split: tuple[int, int],
     return join_split(shards, *split)
 
 
+def shard_stages(model: torch.nn.Module, ctx: ParallelContext | None = None) -> list[str]:
+    """Keep this stage's layers of every stacked layer stack of ``model``
+    (each ``Transformer(pipeline=True)``'s ``stack`` parameters, whose
+    leading axis is the depth) in place; return the names cut. A cut
+    parameter carries ``stage_split`` (the stage count). Depth not
+    divisible by the stage count raises. With one stage nothing changes."""
+    from ..nn.transformer import Transformer
+
+    ctx = ctx or get_parallel_context()
+    S, s = ctx.stage_size, ctx.stage_rank
+    cut: list[str] = []
+    if S == 1:
+        return cut
+    for mname, mod in model.named_modules():
+        if not isinstance(mod, Transformer) or mod.stack is None:
+            continue
+        if mod.depth % S:
+            raise ValueError(f"{mname}: depth {mod.depth} not divisible by stage axis {S}")
+        per = mod.depth // S
+        with torch.no_grad():
+            for pname, p in mod.stack.named_parameters():
+                p.data = p.data[s * per:(s + 1) * per].contiguous()
+                p.stage_split = S
+                cut.append(f"{mname}.stack.{pname}")
+        mod.stage_layers = (s * per, per)
+    return cut
+
+
+def gather_stages(t: torch.Tensor, ctx: ParallelContext | None = None) -> torch.Tensor:
+    """Every stage's layers of a stage-cut tensor, in stage order
+    (collective over the stage group)."""
+    ctx = ctx or get_parallel_context()
+    return _all_gather(t, ctx.group("stage"), 0)
+
+
+def local_part(param: torch.Tensor, full: torch.Tensor,
+               ctx: ParallelContext | None = None) -> torch.Tensor:
+    """This rank's part of a parameter-shaped full tensor: its model shard
+    or its stage's layers (the full tensor when ``param`` is whole)."""
+    ctx = ctx or get_parallel_context()
+    split = getattr(param, "tp_split", None)
+    if split is not None:
+        return slice_split(full, *split, ctx.model_rank, ctx.model_size)
+    if getattr(param, "stage_split", None):
+        per = full.shape[0] // ctx.stage_size
+        return full[ctx.stage_rank * per:(ctx.stage_rank + 1) * per]
+    return full
+
+
+def full_part(param: torch.Tensor, local: torch.Tensor,
+              ctx: ParallelContext | None = None) -> torch.Tensor:
+    """The full tensor of a parameter-shaped part (every rank of the split
+    calls it: a collective over the model or the stage group)."""
+    ctx = ctx or get_parallel_context()
+    split = getattr(param, "tp_split", None)
+    if split is not None:
+        return gather_split(local, split, ctx)
+    if getattr(param, "stage_split", None):
+        return gather_stages(local, ctx)
+    return local
+
+
 @contextmanager
 def full_parameters(model: torch.nn.Module, ctx: ParallelContext | None = None):
-    """Within the block every split parameter of ``model`` holds its full
-    tensor (gathered over the model group on every rank), so a checkpoint
-    written there is one rank's; the shards come back on exit."""
+    """Within the block every split parameter of ``model`` (a model shard,
+    a stage's layers) holds its full tensor (gathered on every rank), so a
+    checkpoint written there is one rank's; the parts come back on exit."""
     ctx = ctx or get_parallel_context()
     saved = []
     try:
         for p in model.parameters():
-            split = getattr(p, "tp_split", None)
-            if split is not None:
+            if getattr(p, "tp_split", None) is not None or getattr(p, "stage_split", None):
                 saved.append((p, p.data))
-                p.data = gather_split(p.data, split, ctx)
+                p.data = full_part(p, p.data, ctx)
         yield model
     finally:
         for p, data in saved:
@@ -417,20 +595,28 @@ def reduce_gradients(grads: list[torch.Tensor], params: list[torch.nn.Parameter]
 
 def global_grad_norm(grads: list[torch.Tensor], params: list[torch.nn.Parameter],
                      ctx: ParallelContext | None = None) -> torch.Tensor:
-    """optax.global_norm of the full model's gradients: a split tensor
-    counts once, from all its shards (their squares summed over the model
-    group), a replicated one once. With one model rank,
+    """optax.global_norm of the full model's gradients: a model-split
+    tensor counts once, from all its shards (their squares summed over the
+    model group), a stage's layers once (their squares summed over the
+    stage group), a replicated tensor once (never summed over the seq or
+    stage peers, which hold the same gradient). With every tensor whole,
     :func:`~isp_tts_tpu_torch.training.optimizers.grad_norm` itself."""
     from ..training.optimizers import grad_norm
 
     ctx = ctx or get_parallel_context()
-    split = [g for g, p in zip(grads, params) if getattr(p, "tp_split", None) is not None]
-    if ctx.model_size == 1 or not split:
+    kinds: dict[str, list[torch.Tensor]] = {"model": [], "stage": [], "whole": []}
+    for g, p in zip(grads, params):
+        kind = ("model" if getattr(p, "tp_split", None) is not None
+                else "stage" if getattr(p, "stage_split", None) else "whole")
+        kinds[kind].append(g)
+    if not (kinds["model"] or kinds["stage"]):
         return grad_norm(grads)
-    rest = [g for g, p in zip(grads, params) if getattr(p, "tp_split", None) is None]
-    sq_split = grad_norm(split).square()
-    dist.all_reduce(sq_split, group=ctx.group("model"))
-    sq = sq_split + (grad_norm(rest).square() if rest else 0.0)
+    sq = grad_norm(kinds["whole"]).square() if kinds["whole"] else 0.0
+    for axis in ("model", "stage"):
+        if kinds[axis]:
+            part = grad_norm(kinds[axis]).square()
+            dist.all_reduce(part, group=ctx.group(axis))
+            sq = sq + part
     return sq.sqrt()
 
 

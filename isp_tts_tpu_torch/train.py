@@ -17,8 +17,11 @@ every device of a host becomes)::
 
 ``--distributed`` reads torchrun's environment, starts NCCL on
 ``cuda:LOCAL_RANK`` (gloo with ``--device cpu``) and trains the data ×
-model mesh of the recipe's ``trainer.mesh_model_axis``; rank 0 writes the
-checkpoints.
+model × seq × stage mesh of the recipe's ``trainer.mesh_model_axis``,
+``mesh_seq_axis`` and ``mesh_pipeline_axis`` (``acoustic/core_sp`` rings
+the attention over 2 seq ranks, ``acoustic/core_pp`` runs the stacked
+decoder over 2 stages); rank 0 writes the checkpoints (a stacked layer
+stack's global tensors, gathered over the stages).
 """
 
 from __future__ import annotations

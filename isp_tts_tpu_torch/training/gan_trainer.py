@@ -127,8 +127,9 @@ class GANTrainer(Trainer):
         if opt.parallel is None:
             norm = grad_norm(grads)
         else:
-            if opt.accum == 1:  # an accumulation is reduced when applied
-                reduce_gradients(grads, params, self.parallel_ctx)
+            # each micro-step's gradients reduced (the logged norm is the
+            # global micro-batch's)
+            reduce_gradients(grads, params, self.parallel_ctx)
             norm = global_grad_norm(grads, params, self.parallel_ctx)
         return finite_or_nan(norm), opt.step(norm)
 
@@ -136,7 +137,7 @@ class GANTrainer(Trainer):
         """One GAN step: the discriminator's update, then the generator's.
         Returns the JAX trainer's metrics as 0-dim device tensors and
         whether the optimizers updated the parameters."""
-        with activated(self.parallel_ctx):
+        with activated(self.parallel_ctx), self.precision_scope():
             return self._gan_update(batch)
 
     def _gan_update(self, batch: dict):

@@ -101,19 +101,29 @@ def jax_param_name(module: torch.nn.Module, name: str) -> tuple[str, bool | tupl
     ``weight`` is ``embedding``, any other ``weight`` of two or more axes a
     ``kernel`` with its axes reversed (True), and a one-axis ``weight`` a
     norm's ``scale``. A module's ``JAX_LAYOUTS`` maps a parameter of its
-    own to the permutation that takes its axes to the JAX layout."""
+    own to the permutation that takes its axes to the JAX layout. A
+    parameter of a stacked layer stack (``stack.`` in its path) keeps its
+    leading depth axis and follows the rule of one layer's parameter on
+    the others."""
     prefix, _, leaf = name.rpartition(".")
     owner = module.get_submodule(prefix) if prefix else module
+    stacked = name.startswith("stack.") or ".stack." in name
     perm = getattr(owner, "JAX_LAYOUTS", {}).get(leaf)
+    ndim = module.get_parameter(name).dim() - stacked
     if perm is not None:
-        return name, tuple(perm)
-    if leaf != "weight":
+        layout = tuple(perm)
+        jname = name
+    elif leaf != "weight":
         return name, False
-    if isinstance(owner, torch.nn.Embedding):
+    elif isinstance(owner, torch.nn.Embedding):
         return f"{prefix}.embedding", False
-    if module.get_parameter(name).dim() >= 2:
-        return f"{prefix}.kernel", True
-    return f"{prefix}.scale", False
+    elif ndim >= 2:
+        jname, layout = f"{prefix}.kernel", tuple(reversed(range(ndim)))
+    else:
+        return f"{prefix}.scale", False
+    if stacked:
+        return jname, (0,) + tuple(a + 1 for a in layout)
+    return jname, (True if perm is None else layout)
 
 
 def keystr(jax_name: str) -> str:
@@ -158,9 +168,10 @@ class Optimizer:
     relative to the ``model`` passed, the branch).
 
     ``parallel`` (a ``ParallelContext``, set by the trainer when several
-    ranks run): an accumulation's mean gradient is reduced over the ranks
-    (``parallel.mesh.reduce_gradients``) when it is applied, and the clip
-    reads the global norm (a model-split tensor counted once)."""
+    ranks run): the clip reads the global norm (a model-split tensor counted
+    once). The optimizer never reduces gradients over the ranks: the
+    trainers reduce each micro-step's (``parallel.mesh.reduce_gradients``)
+    before they hand them here."""
 
     def __init__(self, config: OptimizationConfig, model: torch.nn.Module,
                  trainable: set[str] | None = None, key_prefix: str = ""):
@@ -204,10 +215,6 @@ class Optimizer:
             self.mini_step = (n + 1) % self.accum
             if n != self.accum - 1:
                 return False
-            if self.parallel is not None:
-                from ..parallel.mesh import reduce_gradients
-
-                reduce_gradients(self.acc, self.params, self.parallel)
             self._inner([self.acc[i] for i in self.trained])
             for a in self.acc:
                 a.zero_()

@@ -33,18 +33,33 @@ the epoch from its start.
 
 Several cards (one process a card, ``torch.distributed`` initialised by
 the caller: ``python -m isp_tts_tpu_torch.train --distributed`` under
-torchrun) split the data and model axes of ``make_mesh(data=-1,
-model=mesh_model_axis)``, as the JAX trainer's mesh does: each data rank
-loads its contiguous rows of every global batch (fixed-shape collation,
-so every rank pads to one shape); the model axis splits the attention
-heads and the feed-forward inner dim (``parallel.mesh.shard_params``);
-after the backward (after an accumulation) the gradients are averaged
-over the data group in a few flat buckets and the clip reads the global
-norm; every rank's generator is the same stream and each keeps its rows
+torchrun) split the axes of ``make_mesh(data=-1, model=mesh_model_axis,
+seq=mesh_seq_axis, stage=mesh_pipeline_axis)``, as the JAX trainer's mesh
+does: each data rank loads its contiguous rows of every global batch
+(fixed-shape collation, so every rank pads to one shape), and the ranks
+that differ only along the other axes load the same rows; the model axis
+splits the attention heads and the feed-forward inner dim
+(``parallel.mesh.shard_params``); the seq axis rings ``flash: ring``
+attention over its ranks; the stage axis cuts ``pipeline: true`` layer
+stacks into stages (``parallel.mesh.shard_stages``) run as a GPipe
+schedule of ``pipeline_microbatches``. Everything else is computed alike
+on the seq and stage peers (the aligner too), so their gradients of it are
+equal. After each micro-step's backward the gradients are averaged over
+the data group alone in a few flat buckets (so the logged micro-step
+gradient norm is the global micro-batch's, as JAX logs it) and the clip
+reads the global norm (a stage's layers counted once over the stage
+group); every rank's generator is the same stream and each keeps its rows
 of the global draws, so N ranks compute one rank's step. Metrics are
 averaged over the data group; rank 0 alone logs and writes checkpoints,
-with split tensors and their moments gathered, between barriers, so a
-file is one rank's; every rank loads a checkpoint and slices its shards.
+with split tensors, a stage's layers and their moments gathered, between
+barriers, so a file is one rank's; every rank loads a checkpoint and
+slices its part.
+
+``precision: fp32`` computes in full float32 on the card: the step, the
+evaluation and the GAN step run with cuDNN's and cuBLAS's TF32 off and
+cuDNN's deterministic algorithms (restored on exit, never set for the
+process), as the JAX package's f32 on the CPU, which the port is held to,
+so two runs of the same steps are bit-equal. No recipe trains in fp32.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ import dataclasses
 import datetime
 import logging
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Any
 
@@ -64,9 +80,10 @@ from ..config.registry import config_to_dict
 from ..data.loader import DataLoader
 from ..nn.layers import set_dropout_generator
 from ..parallel.context import ParallelContext, activated
-from ..parallel.mesh import (all_reduce_mean, barrier, full_parameters, gather_split,
-                             global_grad_norm, make_context, make_mesh, reduce_gradients,
-                             replicate, shard_batch, shard_params, slice_split)
+from ..parallel.mesh import (all_reduce_mean, barrier, full_parameters, full_part,
+                             global_grad_norm, local_part, make_context, make_mesh,
+                             reduce_gradients, replicate, shard_batch, shard_params,
+                             shard_stages)
 from ..utils.device import resolve_device
 from .callbacks import (CALLBACKS, CallbackHandler, DefaultFlowCallback, ProgressCallback,
                         TrackerCallback, TrainerCallback, TrainerControl, TrainerState,
@@ -204,9 +221,11 @@ class Trainer:
         self._maybe_load_checkpoint()
         # every rank starts from rank 0's weights (built alike from one seed,
         # they agree already); the model axis splits the full (loaded)
-        # parameters, and the optimizer is built over the shards
+        # parameters, the stage axis keeps each stage's layers, and the
+        # optimizer is built over the parts
         replicate(self.model)
         shard_params(self.model, self.parallel_ctx)
+        shard_stages(self.model, self.parallel_ctx)
         self._init_optimizer()
         if config.debug_nans:
             torch.autograd.set_detect_anomaly(True)
@@ -219,14 +238,15 @@ class Trainer:
     # -- set-up ----------------------------------------------------------------
 
     def _make_parallel_context(self) -> ParallelContext:
-        """The data × model layout of the process group's ranks (one
-        process, no group: the plain one-device context)."""
+        """The data × model × seq × stage layout of the process group's
+        ranks (one process, no group: the plain one-device context)."""
         cfg = self.config
         if not torch.distributed.is_initialized():
-            if cfg.mesh_model_axis > 1:
-                raise ValueError(f"mesh_model_axis = {cfg.mesh_model_axis} needs one process a "
-                                 "card: run under torchrun with --distributed")
-            return ParallelContext()
+            for axis in ("mesh_model_axis", "mesh_seq_axis", "mesh_pipeline_axis"):
+                if getattr(cfg, axis) > 1:
+                    raise ValueError(f"{axis} = {getattr(cfg, axis)} needs one process a "
+                                     "card: run under torchrun with --distributed")
+            return ParallelContext(n_micro=cfg.pipeline_microbatches)
         world = torch.distributed.get_world_size()
         if cfg.num_devices and cfg.num_devices < world:
             raise ValueError(f"num_devices = {cfg.num_devices}, but {world} ranks run: one "
@@ -235,9 +255,13 @@ class Trainer:
         if (backend == "nccl") != (self.device.type == "cuda"):
             raise ValueError(f"a {backend} process group trains on its device type, not on "
                              f"{self.device}")
-        ctx = make_context(make_mesh(data=-1, model=cfg.mesh_model_axis, world_size=world))
-        logger.info("rank %d of %d: data %d/%d, model %d/%d on %s", ctx.rank, world,
-                    ctx.data_rank, ctx.data_size, ctx.model_rank, ctx.model_size, self.device)
+        ctx = make_context(make_mesh(data=-1, model=cfg.mesh_model_axis, seq=cfg.mesh_seq_axis,
+                                     stage=cfg.mesh_pipeline_axis, world_size=world),
+                           n_micro=cfg.pipeline_microbatches)
+        logger.info("rank %d of %d: data %d/%d, model %d/%d, seq %d/%d, stage %d/%d on %s",
+                    ctx.rank, world, ctx.data_rank, ctx.data_size, ctx.model_rank,
+                    ctx.model_size, ctx.seq_rank, ctx.seq_size, ctx.stage_rank,
+                    ctx.stage_size, self.device)
         return ctx
 
     def _make_loader(self, dataset, batch_size, shuffle):
@@ -247,16 +271,32 @@ class Trainer:
                           num_shards=ctx.data_size, shard_index=ctx.data_rank)
 
     def _split_local(self, param: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a parameter-shaped full tensor."""
-        split = getattr(param, "tp_split", None)
-        ctx = self.parallel_ctx
-        return full if split is None else slice_split(full, *split, ctx.model_rank,
-                                                      ctx.model_size)
+        """This rank's part of a parameter-shaped full tensor."""
+        return local_part(param, full, self.parallel_ctx)
 
     def _split_full(self, param: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
-        """The full tensor of a parameter-shaped shard (every rank calls it)."""
-        split = getattr(param, "tp_split", None)
-        return local if split is None else gather_split(local, split, self.parallel_ctx)
+        """The full tensor of a parameter-shaped part (every rank calls it)."""
+        return full_part(param, local, self.parallel_ctx)
+
+    @contextmanager
+    def precision_scope(self):
+        """fp32 on the card computes in full float32 and repeats itself:
+        cuDNN's and cuBLAS's TF32 off and cuDNN's deterministic algorithms
+        within the block (its float32 convolution algorithms otherwise sum
+        in a run-dependent order), the settings restored on exit."""
+        if self._autocast is not None or self.device.type != "cuda":
+            yield
+            return
+        backends = torch.backends
+        saved = (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+                 backends.cudnn.deterministic)
+        backends.cudnn.allow_tf32 = backends.cuda.matmul.allow_tf32 = False
+        backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+             backends.cudnn.deterministic) = saved
 
     def _init_optimizer(self):
         trainable = None
@@ -276,8 +316,8 @@ class Trainer:
             self.optimizer.load_keyed_state(self._restored_opt_state, local=self._split_local)
 
     def _distribute(self, optimizer) -> None:
-        """Hand an optimizer the parallel context (its accumulated gradients'
-        reduction and the clip's global norm) when several ranks run."""
+        """Hand an optimizer the parallel context (the clip's global norm)
+        when several ranks run."""
         if torch.distributed.is_initialized():
             optimizer.parallel = self.parallel_ctx
 
@@ -382,7 +422,7 @@ class Trainer:
         self.model.train()
         self._reseed(self._micro_step)
         self.optimizer.zero_grad()
-        with activated(self.parallel_ctx):
+        with activated(self.parallel_ctx), self.precision_scope():
             loss, losses, _, _ = self._forward(batch, noise, t, step)
             loss.backward()
         params = list(self.model.parameters())
@@ -390,8 +430,10 @@ class Trainer:
             if p.grad is None:  # optax decays and steps every parameter
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        if self.optimizer.parallel is not None and self.optimizer.accum == 1:
-            # an accumulation is reduced once, when the optimizer applies it
+        if self.optimizer.parallel is not None:
+            # every micro-step's gradients are the global micro-batch's mean,
+            # so the logged norm is JAX's; an accumulation of them needs no
+            # reduction when applied
             reduce_gradients(grads, params, self.parallel_ctx)
         # every gradient's norm: the logged one, and the clip's when nothing
         # is frozen or accumulated (Optimizer.step); with several ranks the
@@ -424,7 +466,7 @@ class Trainer:
         """(model outputs, metrics) in eval mode: no dropout, no update."""
         self.model.eval()
         self._reseed(-1 - salt)
-        with activated(self.parallel_ctx):
+        with activated(self.parallel_ctx), self.precision_scope():
             loss, losses, outputs, _ = self._forward(batch, noise, t)
         return outputs, all_reduce_mean(
             {"loss": loss.float(), **{k: v.float() for k, v in losses.items()}},
@@ -767,8 +809,8 @@ class Trainer:
 
     def checkpoint_payload(self) -> dict:
         """What a checkpoint holds: the ``isp_tts_tpu.v1`` payload, split
-        tensors gathered whole (a collective: every rank of a model split
-        calls it)."""
+        tensors and a stage's layers gathered whole (a collective: every
+        rank of a model or stage split calls it)."""
         with full_parameters(self.model, self.parallel_ctx):
             model_state = self.model.jax_state()
         payload = {
@@ -793,8 +835,9 @@ class Trainer:
         no rank goes on, or reads it, before the write ends."""
         t0 = time.perf_counter()
         path = self.run_dir / name
-        if self.is_main_process or self.parallel_ctx.model_size > 1:
-            payload = self.checkpoint_payload()
+        ctx = self.parallel_ctx
+        if self.is_main_process or ctx.model_size > 1 or ctx.stage_size > 1:
+            payload = self.checkpoint_payload()  # gathers split tensors: a collective
         if self.is_main_process:
             save_checkpoint(path, payload)
         self.state.last_model_checkpoint = str(path)

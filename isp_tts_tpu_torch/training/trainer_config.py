@@ -2,13 +2,17 @@
 ``isp_tts_tpu/training/trainer_config.py``: it takes every key there).
 
 ``precision`` is the compute dtype under autocast over float32 master
-weights: bf16, fp16 (no loss scaling, as in the JAX package) or fp32.
-The data axis spans the ranks the model axis leaves (``mesh_model_axis``
-splits heads and feed-forward dims over that many ranks; both need a
-process group, ``--distributed``); ``num_devices`` caps the ranks. The
-seq and pipeline axes are not ported yet: a value above 1 raises. The JAX
-settings with no counterpart (``IGNORED_KEYS``) are accepted and change
-nothing.
+weights: bf16, fp16 (no loss scaling, as in the JAX package) or fp32 (full
+float32 on the card: the trainer's steps run with TF32 off).
+The data axis spans the ranks the other axes leave: ``mesh_model_axis``
+splits heads and feed-forward dims over that many ranks,
+``mesh_seq_axis`` rings ``flash: ring`` attention over that many, and
+``mesh_pipeline_axis`` cuts ``pipeline: true`` layer stacks into that many
+stages, streaming ``pipeline_microbatches`` microbatches through them. Each
+above 1 needs a process group (``--distributed``); ``num_devices`` caps the
+ranks. A model axis with a pipeline axis is refused here (ROADMAP Queue 1,
+item 4). The JAX settings with no counterpart (``IGNORED_KEYS``) are
+accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -17,19 +21,23 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import ClassVar
 
-from ..parallel.context import SEQ_STAGE_NOT_PORTED
 from .optimizers import OptimizationConfig
 
 #: precision names the trainer computes
 PRECISIONS = ("bf16", "bfloat16", "fp16", "float16", "fp32", "float32")
 
+#: what a model axis together with a pipeline axis raises with
+MODEL_STAGE_NOT_PORTED = (
+    "a model axis with a pipeline axis: the tensor-parallel split of stacked layer "
+    "stacks is not ported (ROADMAP Queue 1, item 4); use mesh_model_axis or "
+    "mesh_pipeline_axis")
+
 
 @dataclass
 class TrainerConfig:
-    #: JAX settings of its PRNG and compiler: pipeline microbatches (with
-    #: no pipeline axis), the 'rbg' PRNG switch and XLA's compilation cache
-    IGNORED_KEYS: ClassVar[frozenset] = frozenset({
-        "pipeline_microbatches", "fast_rng", "compilation_cache"})
+    #: JAX settings of its PRNG and compiler: the 'rbg' PRNG switch and
+    #: XLA's compilation cache
+    IGNORED_KEYS: ClassVar[frozenset] = frozenset({"fast_rng", "compilation_cache"})
 
     # what to run
     do_train: bool = True
@@ -90,11 +98,12 @@ class TrainerConfig:
     # callbacks: {name: {kwargs}} added to the defaults
     callbacks: dict = field(default_factory=dict)
 
-    # mesh: data × model over the process group's ranks (seq and pipeline
-    # must stay 1)
+    # mesh: data × model × seq × stage over the process group's ranks
     mesh_model_axis: int = 1
     mesh_seq_axis: int = 1
     mesh_pipeline_axis: int = 1
+    #: microbatches a stacked layer stack streams per step
+    pipeline_microbatches: int = 4
     #: at most this many ranks (None: every rank of the process group)
     num_devices: int | None = None
 
@@ -110,11 +119,12 @@ class TrainerConfig:
     def __post_init__(self):
         if self.precision not in PRECISIONS:
             raise ValueError(f"unknown precision {self.precision!r}; one of {PRECISIONS}")
-        if int(self.mesh_model_axis) < 1:
-            raise ValueError("mesh_model_axis must be >= 1")
-        for axis in ("mesh_seq_axis", "mesh_pipeline_axis"):
-            if getattr(self, axis) != 1:
-                raise NotImplementedError(f"{axis} = {getattr(self, axis)}: {SEQ_STAGE_NOT_PORTED}")
+        for axis in ("mesh_model_axis", "mesh_seq_axis", "mesh_pipeline_axis",
+                     "pipeline_microbatches"):
+            if int(getattr(self, axis)) < 1:
+                raise ValueError(f"{axis} must be >= 1")
+        if self.mesh_model_axis > 1 and self.mesh_pipeline_axis > 1:
+            raise NotImplementedError(MODEL_STAGE_NOT_PORTED)
         if int(self.steps_per_call) < 1:
             raise ValueError("steps_per_call must be >= 1")
         self.do_train = self.do_train and not self.eval_mode

@@ -43,9 +43,8 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
 
 
 @pytest.mark.parametrize("cls,cfg,error", [
-    (TrainerConfig, {"mesh_model_axis": 2, "mesh_seq_axis": 2}, NotImplementedError),
-    (TrainerConfig, {"mesh_seq_axis": 2}, NotImplementedError),
-    (TrainerConfig, {"mesh_pipeline_axis": 4}, NotImplementedError),
+    (TrainerConfig, {"mesh_model_axis": 2, "mesh_pipeline_axis": 2}, NotImplementedError),
+    (TrainerConfig, {"pipeline_microbatches": 0}, ValueError),
     (TrainerConfig, {"precision": "int8"}, ValueError),
     (TrainerConfig, {"deepspeed": True}, ValueError),
     (AttentionConfig, {"context_dim": 128}, NotImplementedError),

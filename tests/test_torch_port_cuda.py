@@ -576,3 +576,58 @@ def test_front_end_on_the_card_matches_the_cpu(card):
     assert (vc == vg)[mask].float().mean() >= 0.99
     both = vc & vg
     assert ((fc - fg).abs()[both] <= 1e-3 * fc[both]).all()
+
+
+def test_fp32_steps_run_with_tf32_off_and_restore_the_setting(card, tmp_path):
+    """``precision: fp32`` computes in full float32 on the card: cuDNN's and
+    cuBLAS's TF32 are off and cuDNN deterministic inside the trainer's step
+    (and only there), the process's settings are the same after it, and two
+    runs of the same 2 steps from the same weights and seed are bit-equal."""
+    import copy
+
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.loss import AcousticModelLoss
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
+    from isp_tts_tpu_torch.training.trainer import Trainer
+    from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
+
+    layer = {"attention": {"heads": 4, "head_dim": 64, "one_kv_head": True,
+                           "alibi_pos_bias": True, "dropout": 0.1},
+             "feed_forward": {"inner_dim": 256, "activation": "gelu", "dropout": 0.1}}
+    stack = {"dim": 128, "depth": 2, "transformer_layer": layer}
+    cfg = {"encoding_map": {c: i for i, c in enumerate(["<pad>", "</s>", *"abcdefgh "])},
+           "mel_dim": 16, "text_dim": 128, "encoder": stack, "decoder": stack,
+           "temporal_adaptor": {"predictor": {"transformer": stack, "time_embedding_dim": 16},
+                                "embedding": {"transformer": stack}, "soft_duration": True},
+           "aligner": {"attention_dim": 16, "key_kernel_size": 5, "query_kernel_size": 5}}
+    torch.manual_seed(0)
+    model = AcousticModel(build_config(AcousticModelConfig, cfg))
+    rng = np.random.RandomState(3)
+    B, T, M = 4, 24, 96
+    batch = {"text_vector": rng.randint(2, 11, (B, T)).astype(np.int32),
+             "text_vector_len": np.array([24, 20, 16, 12], np.int32),
+             "mel": rng.randn(B, M, 16).astype(np.float32),
+             "mel_len": np.array([96, 80, 64, 50], np.int32),
+             "pitch": rng.randn(B, M).astype(np.float32),
+             "energy": rng.randn(B, M).astype(np.float32)}
+    backends = torch.backends
+    def settings():
+        return (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+                backends.cudnn.deterministic)
+
+    before = (True, False, False)  # PyTorch's defaults
+    (backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32,
+     backends.cudnn.deterministic) = before
+    seen, runs = [], []
+    for _ in range(2):
+        config = build_config(TrainerConfig, {"precision": "fp32", "progress": False,
+                                              "log_with": [], "output_dir": str(tmp_path)})
+        trainer = Trainer(copy.deepcopy(model), AcousticModelLoss(), config, device=card)
+        hook = trainer.model.register_forward_pre_hook(lambda m, a: seen.append(settings()))
+        history = trainer.train([batch], 2)
+        hook.remove()
+        runs.append((history, [p.detach().clone() for p in trainer.model.parameters()]))
+    assert set(seen) == {(False, False, True)}
+    assert settings() == before
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -8,7 +8,9 @@
   the same model over a model axis of the conftest's virtual devices,
   including the GLU halves and an indivisible tensor;
 - ``barrier`` and ``gather_to_host`` in one process; the seq and stage
-  axes raise, naming the ROADMAP item;
+  axes build, a model axis with a stage axis is refused at config time
+  naming the ROADMAP item, and a layout that splits the seq or stage axis
+  without its process group raises (no rank computes the whole alone);
 - the dropout hash of a shard: the plain versions of K1/K2 and K5a/K5b
   called with a batch offset and a head slice give the keep masks of the
   matching slice of the whole call bit for bit and outputs within 1e-6;
@@ -81,13 +83,26 @@ def test_ranks_lay_out_data_by_model_with_groups_along_each_axis():
     assert mesh.lines("data") == [[0, 2, 4, 6], [1, 3, 5, 7]]
 
 
-def test_seq_and_stage_axes_raise_naming_the_roadmap_item():
-    for kwargs in ({"mesh_seq_axis": 2}, {"mesh_pipeline_axis": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5, second half"):
-            TrainerConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5, second half"):
-        pctx.ParallelContext(layout=pmesh.make_mesh(data=1, seq=2, world_size=2))
-    assert TrainerConfig(mesh_model_axis=2, num_devices=4).mesh_model_axis == 2
+@pytest.mark.parametrize("kwargs", [{"mesh_seq_axis": 2},
+                                    {"mesh_pipeline_axis": 2, "pipeline_microbatches": 2},
+                                    {"mesh_seq_axis": 2, "mesh_pipeline_axis": 2},
+                                    {"mesh_model_axis": 2, "mesh_seq_axis": 2}])
+def test_seq_and_stage_axes_build(kwargs):
+    cfg = TrainerConfig(**kwargs)
+    assert all(getattr(cfg, k) == v for k, v in kwargs.items())
+
+
+def test_model_with_stage_is_refused_and_no_split_runs_without_its_group():
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+        TrainerConfig(mesh_model_axis=2, mesh_pipeline_axis=2)
+    for axis in ("seq", "stage"):
+        layout = pmesh.make_mesh(data=1, world_size=2, **{axis: 2})
+        with pytest.raises(ValueError, match=f"must name its {axis} axis"):
+            pctx.ParallelContext(layout=layout)
+        with pytest.raises(ValueError, match="has no process group"):
+            pctx.ParallelContext(layout=layout, **{f"{axis}_axis": axis})
+    ctx = pctx.ParallelContext(seq_axis="seq", stage_axis="stage")  # size-1 axes: alone
+    assert (ctx.axis_group("seq"), ctx.axis_group("stage")) == (None, None)
 
 
 def test_an_nccl_rank_without_its_own_card_raises_before_any_group(monkeypatch):

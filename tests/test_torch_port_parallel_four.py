@@ -12,7 +12,13 @@ through a ``file://`` store and run both cases:
   draws the JAX model makes from its key, against the JAX step's loss over
   ``make_mesh(data=2, model=2)`` of the conftest's virtual CPU devices
   (``shard_params`` by its TP rules, the batch over "data"): every loss
-  term within rel 1e-4, the bound of ``test_torch_port_train_step.py``.
+  term within rel 1e-4, the bound of ``test_torch_port_train_step.py``;
+- seq 2 × stage 2 (``flash: ring`` in the encoder and the stacked decoder
+  of 2 layers, 2 microbatches: each stage's layer rings over its seq
+  pair) for 3 steps with live dropout against one rank (ringing alone,
+  the stacked decoder locally): loss terms and gradient norm within rel
+  1e-4, the first step's gradients within 1e-5 of each tensor's max-abs
+  or twice its float32 floor measured on that model.
 """
 
 import jax
@@ -30,7 +36,7 @@ from isp_tts_tpu.parallel.mesh import make_mesh, shard_batch, shard_params
 from test_torch_port_parallel_two import _grads_close, _metrics_close
 from torch_port_common import flow_draws, perturb
 
-CASES = ["data_model", "jax_step"]
+CASES = ["data_model", "jax_step", "seq_stage"]
 
 
 def jax_mesh_loss(jm, batch: dict, key) -> dict[str, float]:
@@ -61,16 +67,23 @@ def runs(tmp_path_factory):
     batch = W.global_batch()
     key = jax.random.PRNGKey(21)
     x0, t = flow_draws(key, *batch["text_vector"].shape)
-    W.save_inputs(tmp / "inputs.npz", flat, batch, x0=x0, t=t)
+    jstage = JAcousticModel(jax_build_config(JAcousticModelConfig, W.PAR_STAGE_LAYERS),
+                            rngs=nnx.Rngs(1))
+    W.save_inputs(tmp / "inputs.npz", flat, batch, ws=perturb(jstage, 13), x0=x0, t=t)
     procs = W.spawn(4, tmp / "inputs.npz", tmp, CASES, tmp)
     try:
         inputs = dict(np.load(tmp / "inputs.npz"))
         one = W.one_thread(W.case_steps, inputs, tmp / "one", model_axis=1)
         floor = W.one_thread(W.gradient_floor, inputs, tmp / "floor", one)
+        one_seq_stage = W.one_thread(W.case_steps, inputs, tmp / "one_ss", model_axis=1,
+                                     **W.one_rank(W.SEQ_STAGE))
+        floor_seq_stage = W.one_thread(W.gradient_floor, inputs, tmp / "floor_ss",
+                                       one_seq_stage, **W.one_rank(W.SEQ_STAGE))
         jax_loss = jax_mesh_loss(jm, batch, key)
     finally:
-        W.join(procs, tmp)
-    return {"one": one, "floor": floor, "jax": jax_loss,
+        W.join(procs, tmp, timeout=180.0)
+    return {"one": one, "floor": floor, "jax": jax_loss, "one_seq_stage": one_seq_stage,
+            "floor_seq_stage": floor_seq_stage,
             **{case: dict(np.load(tmp / f"{case}.npz")) for case in CASES}}
 
 
@@ -88,3 +101,15 @@ def test_data_2_model_2_step_equals_jax_mesh_step(runs):
     assert set(ref) <= {k[3:] for k in got}
     for k, v in ref.items():
         np.testing.assert_allclose(float(got[f"m::{k}"]), v, rtol=1e-4, err_msg=k)
+
+
+def test_three_steps_at_seq_2_stage_2_equal_one_rank(runs):
+    assert runs["seq_stage"]["m::loss"].shape == (3,)
+    _metrics_close(runs["seq_stage"], runs["one_seq_stage"], 1e-4)
+
+
+def test_first_step_gradients_at_seq_2_stage_2_equal_one_rank(runs):
+    """Within 1e-5 of each tensor's max-abs, or twice its float32 floor:
+    the ring sums its chunks in another order than the ring of one, and
+    the aligner's key convolution amplifies that rounding (~5e-5)."""
+    _grads_close(runs["seq_stage"], runs["one_seq_stage"], 1e-5, runs["floor_seq_stage"])

@@ -53,6 +53,22 @@ PAR = {
 }
 
 
+def with_ring(cfg: dict) -> dict:
+    """``cfg`` with the encoder's and the decoder's attention ``flash: ring``."""
+    out = dict(cfg)
+    for part in ("encoder", "decoder"):
+        layer = cfg[part]["transformer_layer"]
+        out[part] = dict(cfg[part], transformer_layer=dict(
+            layer, attention=dict(layer["attention"], flash="ring")))
+    return out
+
+
+#: PAR with a stacked decoder of 2 layers (``pipeline: true``)
+PAR_STAGE = dict(PAR, decoder=dict(PAR["decoder"], depth=2, pipeline=True))
+#: the per-layer twin of PAR_STAGE (its weights' JAX names)
+PAR_STAGE_LAYERS = dict(PAR, decoder=dict(PAR["decoder"], depth=2))
+
+
 def without_dropout(cfg: dict) -> dict:
     """``cfg`` with every attention and feed-forward dropout 0."""
     if isinstance(cfg, dict):
@@ -75,17 +91,22 @@ def global_batch(B: int = 4, T: int = 12, M: int = 48, seed: int = 13) -> dict:
 
 
 def acoustic_trainer(flat: dict, outdir, model_axis: int, dropout: bool = True,
-                     **trainer):
-    """The port's Trainer over the PAR model with ``flat`` (JAX names) as
-    its weights, float32 on the CPU, AdamW 1e-3, clip 1.0 (``trainer``:
-    more TrainerConfig keys)."""
+                     model: dict | None = None, ring_alone: bool = False, **trainer):
+    """The port's Trainer over the PAR model (``model``: another config)
+    with ``flat`` (JAX names) as its weights, float32 on the CPU, AdamW
+    1e-3, clip 1.0 (``trainer``: more TrainerConfig keys). ``ring_alone``
+    names a seq axis of size 1 in the trainer's one-process context, so
+    ``flash: ring`` rings alone (the one-rank reference of a seq split)."""
     from isp_tts_tpu_torch.config import build_config
     from isp_tts_tpu_torch.models.acoustic.loss import AcousticModelLoss
     from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
     from isp_tts_tpu_torch.training.trainer import Trainer
     from isp_tts_tpu_torch.training.trainer_config import TrainerConfig
 
-    cfg = PAR if dropout else without_dropout(PAR)
+    import dataclasses
+
+    cfg = model or PAR
+    cfg = cfg if dropout else without_dropout(cfg)
     model = AcousticModel(build_config(AcousticModelConfig, cfg))
     model.load_jax_state(flat)
     config = build_config(TrainerConfig, {
@@ -93,27 +114,26 @@ def acoustic_trainer(flat: dict, outdir, model_axis: int, dropout: bool = True,
         "experiment_name": "par", "mesh_model_axis": model_axis,
         "optimization": {"learning_rate": 1e-3, "grad_clip_norm": 1.0,
                          **trainer.pop("optimization", {})}, **trainer})
-    return Trainer(model, AcousticModelLoss(), config, device="cpu")
+    tr = Trainer(model, AcousticModelLoss(), config, device="cpu")
+    if ring_alone:
+        tr.parallel_ctx = dataclasses.replace(tr.parallel_ctx, seq_axis="seq")
+    return tr
 
 
 def _full_grads(trainer) -> dict[str, np.ndarray]:
-    """Every parameter's gradient, split ones gathered whole."""
-    from isp_tts_tpu_torch.parallel.mesh import gather_split
+    """Every parameter's gradient, split ones and a stage's layers
+    gathered whole."""
+    from isp_tts_tpu_torch.parallel.mesh import full_part
 
-    out = {}
-    for name, p in trainer.model.named_parameters():
-        g = p.grad
-        split = getattr(p, "tp_split", None)
-        if split is not None:
-            g = gather_split(g, split, trainer.parallel_ctx)
-        out[name] = g.detach().numpy().copy()
-    return out
+    return {name: full_part(p, p.grad, trainer.parallel_ctx).detach().numpy().copy()
+            for name, p in trainer.model.named_parameters()}
 
 
-def case_steps(inputs: dict, outdir, model_axis: int, steps: int = 3) -> dict:
+def case_steps(inputs: dict, outdir, model_axis: int, steps: int = 3, **layout) -> dict:
     """``steps`` micro-steps with live dropout on the global batch: each
-    step's metrics, and the first step's gradients."""
-    tr = acoustic_trainer(_flat(inputs), outdir, model_axis)
+    step's metrics, and the first step's gradients (``layout``: more
+    :func:`acoustic_trainer` keys, such as the seq and stage axes)."""
+    tr = acoustic_trainer(_flat(inputs, layout), outdir, model_axis, **layout)
     batch = _batch(inputs)
     out = {}
     for i in range(steps):
@@ -140,12 +160,13 @@ class _NudgeGrad(torch.autograd.Function):
 ULP = 1.2e-7
 
 
-def gradient_floor(inputs: dict, outdir, one: dict, seeds=(5, 6)) -> dict[str, float]:
+def gradient_floor(inputs: dict, outdir, one: dict, seeds=(5, 6), **layout) -> dict[str, float]:
     """Each gradient's float32 noise floor, relative to its max-abs: how
     far one rank's first-step gradient moves (the most over ``seeds``) when
-    ~1 ulp of seeded noise is put where a model split's sums round: the
-    outputs of the split modules (attention, feed-forward, time embedding)
-    and the gradients of their inputs."""
+    ~1 ulp of seeded noise is put where a split's sums round: the outputs
+    of the split modules (attention, whose ring sums its chunks in another
+    order, feed-forward, time embedding) and the gradients of their inputs
+    (``layout``: the one-rank reference's :func:`acoustic_trainer` keys)."""
     from isp_tts_tpu_torch.nn.attention import Attention
     from isp_tts_tpu_torch.nn.embeddings import TimePositionalEmbedding
     from isp_tts_tpu_torch.nn.feedforward import FeedForward
@@ -161,7 +182,7 @@ def gradient_floor(inputs: dict, outdir, one: dict, seeds=(5, 6)) -> dict[str, f
 
             originals[cls], cls.forward = cls.forward, nudged
         try:
-            moved = case_steps(inputs, outdir, model_axis=1, steps=1)
+            moved = case_steps(inputs, outdir, model_axis=1, steps=1, **layout)
         finally:
             for cls, forward in originals.items():
                 cls.forward = forward
@@ -192,17 +213,42 @@ def case_accumulate(inputs: dict, outdir, model_axis: int) -> dict:
     return out
 
 
-def case_jax_step(inputs: dict, outdir, model_axis: int) -> dict:
+def case_jax_step(inputs: dict, outdir, model_axis: int, **layout) -> dict:
     """One step without dropout, with the flow draws of the inputs (JAX's
-    draws from its key): the loss terms, averaged over the data ranks."""
+    draws from its key): the loss terms and the gradient norm, averaged
+    over the data ranks."""
     from isp_tts_tpu_torch.parallel.mesh import shard_batch
 
-    tr = acoustic_trainer(_flat(inputs), outdir, model_axis, dropout=False)
+    tr = acoustic_trainer(_flat(inputs, layout), outdir, model_axis, dropout=False, **layout)
     draws = shard_batch({"x0": inputs["x0"], "t": inputs["t"]}, tr.parallel_ctx)
     metrics = tr.train_step(shard_batch(_batch(inputs), tr.parallel_ctx),
                             noise=torch.from_numpy(draws["x0"]),
                             t=torch.from_numpy(draws["t"]))
     return {f"m::{k}": np.asarray(float(v)) for k, v in metrics.items()}
+
+
+def case_data_metrics(inputs: dict, outdir) -> dict:
+    """The logged readings the data split once averaged over the ranks:
+    one micro-step of an accumulation of 2 without dropout, with the
+    inputs' flow draws (its ``stats/grad_norm``), then an evaluation step
+    and the evaluator's metrics over the data group."""
+    from isp_tts_tpu_torch.models.acoustic.evaluator import AcousticModelEvaluator
+    from isp_tts_tpu_torch.parallel.context import activated
+    from isp_tts_tpu_torch.parallel.mesh import all_reduce_mean, shard_batch
+
+    tr = acoustic_trainer(_flat(inputs), outdir, 1, dropout=False,
+                          optimization={"grad_accum_steps": 2})
+    draws = shard_batch({"x0": inputs["x0"], "t": inputs["t"]}, tr.parallel_ctx)
+    batch = shard_batch(_batch(inputs), tr.parallel_ctx)
+    noise, t = torch.from_numpy(draws["x0"]), torch.from_numpy(draws["t"])
+    metrics = tr.train_step(batch, noise=noise, t=t)
+    out = {f"m::{k}": np.asarray(float(v)) for k, v in metrics.items()}
+    outputs, _ = tr.eval_step(batch, noise=noise, t=t)
+    with activated(tr.parallel_ctx):
+        inputs_ = tr.model.prepare_inputs(tr._to_device(batch))
+        evals = all_reduce_mean(AcousticModelEvaluator()(inputs_, outputs), tr.parallel_ctx)
+    out.update({f"e::{k}": np.asarray(float(v)) for k, v in evals.items()})
+    return out
 
 
 def gan_overrides(root, outdir) -> dict:
@@ -246,8 +292,30 @@ def case_gan(inputs: dict, outdir, model_axis: int = 1) -> dict:
     return out
 
 
+#: the seq and stage layouts of the cases (their one-rank references ring
+#: alone on a size-1 axis, and run the stacked decoder locally)
+SEQ = {"model": with_ring(PAR), "mesh_seq_axis": 2}
+STAGE = {"model": PAR_STAGE, "mesh_pipeline_axis": 2, "pipeline_microbatches": 2}
+SEQ_STAGE = {"model": with_ring(PAR_STAGE), "mesh_seq_axis": 2, "mesh_pipeline_axis": 2,
+             "pipeline_microbatches": 2}
+
+
+def one_rank(layout: dict) -> dict:
+    """``layout`` with its axes at 1: the one-rank reference's keys."""
+    out = {k: v for k, v in layout.items() if not k.startswith("mesh_")}
+    if "mesh_seq_axis" in layout:
+        out["ring_alone"] = True
+    return out
+
+
 CASES = {
     "data": lambda inputs, out: case_steps(inputs, out, model_axis=1),
+    "seq": lambda inputs, out: case_steps(inputs, out, model_axis=1, **SEQ),
+    "stage": lambda inputs, out: case_steps(inputs, out, model_axis=1, **STAGE),
+    "seq_stage": lambda inputs, out: case_steps(inputs, out, model_axis=1, **SEQ_STAGE),
+    "seq_jax": lambda inputs, out: case_jax_step(inputs, out, model_axis=1, **SEQ),
+    "stage_jax": lambda inputs, out: case_jax_step(inputs, out, model_axis=1, **STAGE),
+    "data_metrics": case_data_metrics,
     "model": lambda inputs, out: case_steps(inputs, out, model_axis=2),
     "accumulate": lambda inputs, out: case_accumulate(inputs, out, model_axis=2),
     "data_model": lambda inputs, out: case_steps(inputs, out, model_axis=2),
@@ -273,8 +341,11 @@ def _part(inputs: dict, prefix: str) -> dict:
     return {k.split("::", 1)[1]: v for k, v in inputs.items() if k.startswith(prefix + "::")}
 
 
-def _flat(inputs: dict) -> dict:
-    return _part(inputs, "w")
+def _flat(inputs: dict, layout: dict | None = None) -> dict:
+    """The weights of the case's model: ``ws::`` (PAR_STAGE's per-layer
+    twin, JAX names) for a stacked decoder, else ``w::`` (PAR)."""
+    stacked = bool(layout) and layout.get("model", {}).get("decoder", {}).get("pipeline")
+    return _part(inputs, "ws" if stacked else "w")
 
 
 def _batch(inputs: dict) -> dict:
@@ -287,8 +358,8 @@ def save_inputs(path, weights: dict, batch: dict, **more) -> None:
     arrays.update({f"b::{k}": v for k, v in batch.items() if isinstance(v, np.ndarray)})
     for key, value in more.items():
         if isinstance(value, dict):
-            arrays.update({f"{key}::{k}": v for k, v in value.items()
-                           if isinstance(v, np.ndarray)})
+            arrays.update({f"{key}::{k}": np.asarray(v) for k, v in value.items()
+                           if isinstance(v, (np.ndarray, np.generic))})
         else:
             arrays[key] = np.asarray(value)
     np.savez(path, **arrays)

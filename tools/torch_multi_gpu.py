@@ -31,6 +31,26 @@ card, NCCL through a ``file://`` store under the work directory):
              committed checkpoint, 8 steps: exit 0, rank 0 alone writes one
              checkpoint at step 8.
 
+    python3 tools/torch_multi_gpu.py --axes [--cards 4]
+
+runs the seq and stage axes alone (needs 4 cards):
+
+5. axes    - the fine-tuning of phase 2 at data 2 x seq 2 (``flash: ring`` in
+             the encoder and the decoder), data 2 x stage 2 (the decoder
+             stacked, 4 microbatches) and seq 2 x stage 2, each against one
+             card with the same model (ringing alone on a size-1 seq axis;
+             the stacked decoder run locally): 3 f32 steps within
+             FT_F32_BOUND (the first step's gap reported apart), then bf16
+             host ms a step, peak memory of each card and the collectives'
+             device ms a step by kind (rotate, all-gather, all-reduce; rank
+             0, CUDA events around each call).
+6. axis-recipes - ``acoustic/core_sp`` and ``acoustic/core_pp`` through
+             ``torchrun --nproc_per_node 4 ... --distributed`` (data 2 x seq
+             2, data 2 x stage 2) on the dataset of phase 4, warm-started
+             from the committed checkpoint, 8 steps each: exit 0, one
+             checkpoint at step 8 (core_pp's with the decoder's global
+             stacked tensors).
+
     python3 tools/torch_multi_gpu.py --tf32-study [--cards 4]
 
 needs one card: where the f32 gap between data N and one card comes
@@ -99,6 +119,7 @@ def rank_main(args) -> int:
     cuda = not args.rehearse
     warm, timed = (1, 2) if args.rehearse else (FT_WARM, FT_TIMED)
     one_card = args.tf32 is not None  # --tf32-study: every rank on cuda:0 over gloo
+    timed_calls: dict = {}
     dev = mesh.init_distributed("gloo" if one_card or not cuda else "nccl",
                                 init_method=f"file://{work / (args.config + '.store')}",
                                 world_size=args.world, rank=args.rank, local_rank=args.rank,
@@ -113,15 +134,39 @@ def rank_main(args) -> int:
         experiment = json.loads((work / "experiment.json").read_text())
         batch = {k: v.to(dev) for k, v in torch.load(work / "batch.pt").items()}
 
+        def build_model():
+            if not args.stacked:
+                model = AcousticModel.from_pretrained(smoke.CKPT, device=dev)
+            else:  # the decoder stacked, its per-layer weights translated
+                from isp_tts_tpu_torch.checkpoint import load_checkpoint
+                from isp_tts_tpu_torch.models.acoustic.model import AcousticModelConfig
+
+                blob = load_checkpoint(smoke.CKPT)["model"]
+                model = AcousticModel(build_config(AcousticModelConfig,
+                                                   smoke.stacked_config(blob["config"])))
+                model.load_jax_state(blob["state"])
+                model = model.to(dev)
+            if args.ring:
+                smoke.set_flash(model.encoder, "ring")
+                smoke.set_flash(model.decoder, "ring")
+            return model
+
         def trainer(precision):
+            import dataclasses
+
             cfg = build_config(TrainerConfig, experiment["trainer"])
             cfg.precision, cfg.mesh_model_axis = precision, args.model
+            cfg.mesh_seq_axis, cfg.mesh_pipeline_axis = args.seq, args.stage
+            cfg.pipeline_microbatches = 2 if args.rehearse else 4
             cfg.output_dir = str(work / f"{args.config}_runs")
-            model = AcousticModel.from_pretrained(smoke.CKPT, device=dev)
+            model = build_model()
             loss = AcousticModelLoss(build_config(AcousticLossConfig, experiment["criterion"]))
             gen = torch.Generator(device=dev).manual_seed(7)
             if not (one_card and cuda):
-                return Trainer(model, loss, cfg, device=dev, generator=gen)
+                tr = Trainer(model, loss, cfg, device=dev, generator=gen)
+                if args.ring and args.seq == 1:  # one card: the ring of one
+                    tr.parallel_ctx = dataclasses.replace(tr.parallel_ctx, seq_axis="seq")
+                return tr
             # the trainer refuses a gloo group on a card (no silent fallback
             # from NCCL); this study runs one on purpose
             get_backend, dist.get_backend = dist.get_backend, lambda group=None: "nccl"
@@ -133,7 +178,9 @@ def rank_main(args) -> int:
         tr = trainer("fp32")
         hist = tr.train([batch], FT_F32_STEPS)
         out["f32"] = {k: [h[k] for h in hist] for k in ("loss", "stats/grad_norm")}
-        out["layout"] = {"data": tr.parallel_ctx.data_size, "model": tr.parallel_ctx.model_size}
+        ctx = tr.parallel_ctx
+        out["layout"] = {"data": ctx.data_size, "model": ctx.model_size, "seq": ctx.seq_size,
+                         "stage": ctx.stage_size}
         del tr
         if one_card:  # f32 steps only
             (work / f"{args.config}_rank{args.rank}.json").write_text(json.dumps(out))
@@ -152,7 +199,25 @@ def rank_main(args) -> int:
             end.record()
             events.append((start, end))
 
+        def timed_call(kind, fn):
+            def call(*a, **k):
+                if not cuda:
+                    return fn(*a, **k)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                result = fn(*a, **k)
+                end.record()
+                timed_calls.setdefault(kind, []).append((start, end))
+                return result
+            return call
+
         mesh._bucketed_all_reduce = timed_reduce
+        originals = (mesh._rotate, mesh._all_gather, dist.all_reduce)
+        if args.seq > 1 or args.stage > 1:
+            mesh._rotate = timed_call("rotate", mesh._rotate)
+            mesh._all_gather = timed_call("all_gather", mesh._all_gather)
+            dist.all_reduce = timed_call("all_reduce", dist.all_reduce)
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -162,11 +227,17 @@ def rank_main(args) -> int:
             hist += tr.train([batch], 1)  # the metrics come back as floats: synced
             step_ms.append(1e3 * (time.perf_counter() - t))
         mesh._bucketed_all_reduce = reduce
+        mesh._rotate, mesh._all_gather, dist.all_reduce = originals
         if cuda:
             torch.cuda.synchronize(dev)
             out["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
             out["all_reduce_ms_per_step"] = sum(s.elapsed_time(e) for s, e in events) / timed
             out["all_reduce_calls_per_step"] = len(events) / timed
+            out["collectives_ms_per_step"] = {
+                kind: sum(s.elapsed_time(e) for s, e in calls) / timed
+                for kind, calls in timed_calls.items()}
+            out["collectives_calls_per_step"] = {kind: len(calls) / timed
+                                                 for kind, calls in timed_calls.items()}
         out["bf16_ms"] = step_ms
         out["bf16_finite"] = bool(all(np.isfinite(v) for h in hist for v in h.values()))
         out["bf16_loss"] = [h["loss"] for h in hist]
@@ -184,9 +255,12 @@ def rank_main(args) -> int:
 
 
 def run_config(work: Path, name: str, world: int, model: int, rehearse: bool,
-               timeout: float, tf32: str | None = None) -> list[dict]:
+               timeout: float, tf32: str | None = None, seq: int = 1, stage: int = 1,
+               ring: bool = False, stacked: bool = False) -> list[dict]:
     """Start ``world`` ranks of one configuration (with ``tf32``, all on
-    cuda:0 over gloo, f32 steps only); their results by rank."""
+    cuda:0 over gloo, f32 steps only; ``ring``: the encoder and decoder
+    ``flash: ring``; ``stacked``: the decoder stacked); their results by
+    rank."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     if rehearse:
         env["OMP_NUM_THREADS"] = "1"
@@ -198,6 +272,8 @@ def run_config(work: Path, name: str, world: int, model: int, rehearse: bool,
             cmd.append("--rehearse")
         if tf32 is not None:
             cmd += ["--tf32", tf32]
+        cmd += ["--seq", str(seq), "--stage", str(stage)]
+        cmd += ["--ring"] * ring + ["--stacked"] * stacked
         log = open(work / f"{name}_rank{rank}.log", "w")
         procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
                                       stderr=subprocess.STDOUT))
@@ -293,6 +369,63 @@ def rel_gap(a: dict, b: dict, steps: int | None = None) -> float:
                for x, y in zip(a[key][:steps], b[key][:steps]))
 
 
+#: (name, world, seq, stage, ring, stacked) of the axes' configurations, each
+#: after its one-card reference
+AXES_CONFIGS = (
+    ("data1_ring", 1, 1, 1, True, False), ("data2_seq2", 4, 2, 1, True, False),
+    ("data1_stacked", 1, 1, 1, False, True), ("data2_stage2", 4, 1, 2, False, True),
+    ("data1_ring_stacked", 1, 1, 1, True, True), ("seq2_stage2", 4, 2, 2, True, True),
+)
+
+
+def phase_axes(t0, work: Path, rehearse: bool) -> dict:
+    """The seq and stage configurations against one card with the same
+    model, f32, then their bf16 readings."""
+    write_batch(t0, work, rehearse)
+    results, refs, errs = {}, {}, {}
+    for name, world, seq, stage, ring, stacked in AXES_CONFIGS:
+        t = time.perf_counter()
+        ranks = run_config(work, name, world, 1, rehearse, timeout=900, seq=seq, stage=stage,
+                           ring=ring, stacked=stacked)
+        r0 = ranks[0]
+        if world == 1:
+            refs[(ring, stacked)] = r0["f32"]
+        else:
+            one = refs[(ring, stacked)]
+            errs[name] = {"first_step": rel_gap(r0["f32"], one, 1),
+                          f"{FT_F32_STEPS}_steps": rel_gap(r0["f32"], one)}
+        results[name] = ranks
+        warm = r0["bf16_ms"][2:] or r0["bf16_ms"]
+        say("axes", t0, f"{name} ({world} rank(s), layout {r0['layout']}, ring {ring}, stacked "
+            f"decoder {stacked}): f32 losses {[round(x, 6) for x in r0['f32']['loss']]}, grad "
+            f"norms {[round(x, 5) for x in r0['f32']['stats/grad_norm']]}"
+            + (f" (against one card: {errs[name]})" if name in errs else "")
+            + f"; bf16 finite {all(r['bf16_finite'] for r in ranks)}, host ms a step (steps "
+            f"3-{FT_TIMED}) median {np.median(warm):.2f} mean {np.mean(warm):.2f}; peak MiB by "
+            f"rank {[round(r.get('peak_mib', 0.0), 1) for r in ranks]}; collectives ms a step "
+            f"{ {k: round(v, 3) for k, v in r0.get('collectives_ms_per_step', {}).items()} } "
+            f"in { {k: round(v, 1) for k, v in r0.get('collectives_calls_per_step', {}).items()} }"
+            f" calls, gradient all-reduce {r0.get('all_reduce_ms_per_step', 0.0):.3f} ms; "
+            f"{r0.get('profile', '')}; {time.perf_counter() - t:.1f} s with the ranks' start")
+        if not all(r["bf16_finite"] for r in ranks):
+            raise AssertionError(f"{name}: a bf16 metric went non-finite")
+    worst = max(e[f"{FT_F32_STEPS}_steps"] for e in errs.values())
+    say("axes", t0, f"f32, {FT_F32_STEPS} steps, loss and gradient norm against one card with "
+        f"the same model, largest relative error: {errs} (bound {FT_F32_BOUND:.0e})")
+    if worst > FT_F32_BOUND:
+        raise AssertionError(f"seq/stage fine-tuning against one card: {errs}")
+    return {"f32_rel_err": errs,
+            "configs": {name: {
+                "ranks": len(ranks), "layout": ranks[0]["layout"],
+                "host_ms_median": float(np.median(ranks[0]["bf16_ms"][2:] or ranks[0]["bf16_ms"])),
+                "host_ms_mean": float(np.mean(ranks[0]["bf16_ms"][2:] or ranks[0]["bf16_ms"])),
+                "busy_ms": ranks[0].get("busy_ms"),
+                "peak_mib": [r.get("peak_mib") for r in ranks],
+                "collectives_ms_per_step": ranks[0].get("collectives_ms_per_step"),
+                "all_reduce_ms_per_step": ranks[0].get("all_reduce_ms_per_step"),
+                "f32": ranks[0]["f32"]} for name, ranks in results.items()}}
+
+
 def phase_tf32_study(t0, work: Path, cards: int, rehearse: bool) -> dict:
     """Data 1 and data ``cards`` on one card, cuDNN's TF32 on and off, f32
     steps: each pair's relative gap (:func:`rel_gap`)."""
@@ -345,8 +478,8 @@ def phase_serve(t0, cards: int, rehearse: bool) -> dict:
             "bit_equal": r["bit_equal"], "warm_ms": times}
 
 
-def phase_recipe(t0, work: Path, cards: int, rehearse: bool) -> dict:
-    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+def recipe_data(t0, work: Path, rehearse: bool) -> dict:
+    """The dataset the Synthesizer writes (chip_smoke.py's) and its stats."""
     from isp_tts_tpu_torch.serving import Synthesizer
 
     dev = "cpu" if rehearse else "cuda:0"
@@ -362,10 +495,30 @@ def phase_recipe(t0, work: Path, cards: int, rehearse: bool) -> dict:
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"--compute-stats exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return data
+
+
+#: the axes' recipes over the cards: their layouts' extra settings (fixed
+#: collation at core_fast's shape, which 2 seq ranks divide)
+AXIS_RECIPES = {
+    "acoustic/core_sp": {"collator.max_text_len": smoke.RECIPE_TEXT,
+                         "collator.max_mel_len": smoke.RECIPE_MEL},
+    "acoustic/core_pp": {"collator.max_text_len": smoke.RECIPE_TEXT,
+                         "collator.max_mel_len": smoke.RECIPE_MEL},
+}
+
+
+def phase_recipe(t0, work: Path, cards: int, rehearse: bool, data: dict | None = None,
+                 recipe: str = smoke.RECIPE, extra: dict | None = None) -> dict:
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+
+    data = data or recipe_data(t0, work, rehearse)
+    device = ["--device", "cpu"] if rehearse else []
+    label = recipe.split("/")[-1]
     settings = {**data, "dataset.stats": str(work / "data" / "stats.json"),
                 "trainer.max_steps": RECIPE_STEPS, "trainer.batch_size": smoke.RECIPE_BATCH,
                 "trainer.eval_strategy": "no", "trainer.save_strategy": "no",
-                "trainer.logging_steps": 1, "trainer.log_with": [], "trainer.label": "dist",
+                "trainer.logging_steps": 1, "trainer.log_with": [], "trainer.label": label,
                 "trainer.output_dir": str(work / "runs"), "trainer.progress": False,
                 "trainer.resume_from_checkpoint": str(smoke.CKPT), "trainer.warm_start": True,
                 "trainer.metric_for_best_model": None}
@@ -382,29 +535,44 @@ def phase_recipe(t0, work: Path, cards: int, rehearse: bool) -> dict:
                                                                           "depth": 1},
                          "model.temporal_adaptor.embedding.transformer": {"dim": 16,
                                                                           "depth": 1}})
+        if recipe == "acoustic/core_pp":  # the stacked decoder: 2 layers for 2 stages
+            settings.update({"model.decoder": {
+                "dim": 16, "depth": 2, "pipeline": True, "transformer_layer": {
+                    "attention": {"heads": 2, "head_dim": 64},
+                    "feed_forward": {"inner_dim": 32}}},
+                "trainer.pipeline_microbatches": 1})
+        if recipe == "acoustic/core_sp":
+            settings["model.encoder"]["transformer_layer"]["attention"]["flash"] = "ring"
+    settings.update(extra or {})
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     t = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                            "--nproc_per_node", str(cards), "-m", "isp_tts_tpu_torch.train",
-                           "--distributed", "--config-name", smoke.RECIPE] + device
+                           "--distributed", "--config-name", recipe] + device
                           + smoke.set_args(settings), cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=900)
     seconds = time.perf_counter() - t
     if proc.returncode != 0:
-        raise AssertionError(f"torchrun {smoke.RECIPE} exited {proc.returncode}: "
+        raise AssertionError(f"torchrun {recipe} exited {proc.returncode}: "
                              f"{proc.stderr[-4000:]}")
-    run = work / "runs" / "AcousticModel" / "dist"
+    run = work / "runs" / "AcousticModel" / label
     ckpts = sorted(p.name for p in run.glob("*.ckpt"))
     steps = load_checkpoint(run / "checkpoint_last.ckpt")["experiment"]["state"]["global_step"]
     want = settings["trainer.max_steps"]
     if ckpts != ["checkpoint_last.ckpt"] or steps != want:
-        raise AssertionError(f"{smoke.RECIPE} over {cards} ranks wrote {ckpts} at step {steps}")
+        raise AssertionError(f"{recipe} over {cards} ranks wrote {ckpts} at step {steps}")
+    stacked = {k: v.shape for k, v in load_checkpoint(run / "checkpoint_last.ckpt")[
+        "model"]["state"].items() if ".stack." in k}
+    if recipe == "acoustic/core_pp" and not stacked:
+        raise AssertionError("core_pp's checkpoint holds no stacked tensors")
     layout = [line for line in proc.stderr.splitlines() if "rank 0 of" in line]
     say("recipe", t0, f"torchrun --nproc_per_node {cards} -m isp_tts_tpu_torch.train "
-        f"--distributed --config-name {smoke.RECIPE}: exit 0 in {seconds:.1f} s (process, "
+        f"--distributed --config-name {recipe}: exit 0 in {seconds:.1f} s (process, "
         f"start and data pipeline included), {steps} steps, one checkpoint {ckpts}; "
-        f"{layout[-1].split('|')[-1].strip() if layout else ''}")
-    return {"seconds": seconds, "steps": steps}
+        f"{layout[-1].split('|')[-1].strip() if layout else ''}"
+        + (f"; stacked tensors {len(stacked)}, e.g. {next(iter(stacked.items()))}"
+           if stacked else ""))
+    return {"seconds": seconds, "steps": steps, "stacked_tensors": len(stacked)}
 
 
 def rehearsal_smoke():
@@ -426,7 +594,13 @@ def main(argv=None) -> int:
                     help="the control flow on the CPU with gloo at a small size")
     ap.add_argument("--tf32-study", action="store_true",
                     help="on one card: the f32 gap of data 1 against data N, TF32 on and off")
+    ap.add_argument("--axes", action="store_true",
+                    help="the seq and stage configurations and their recipes only")
     ap.add_argument("--tf32", choices=("on", "off"), help=argparse.SUPPRESS)
+    ap.add_argument("--seq", type=int, default=1)
+    ap.add_argument("--stage", type=int, default=1)
+    ap.add_argument("--ring", action="store_true")
+    ap.add_argument("--stacked", action="store_true")
     ap.add_argument("--rank", type=int)
     ap.add_argument("--world", type=int)
     ap.add_argument("--model", type=int, default=1)
@@ -461,6 +635,12 @@ def main(argv=None) -> int:
     try:
         if args.tf32_study:
             result = {"tf32_study": phase_tf32_study(t0, work, args.cards, args.rehearse)}
+        elif args.axes:
+            result = {"axes": phase_axes(t0, work, args.rehearse)}
+            data = recipe_data(t0, work, args.rehearse)
+            result["recipes"] = {name: phase_recipe(t0, work, args.cards, args.rehearse, data,
+                                                    name, extra)
+                                 for name, extra in AXIS_RECIPES.items()}
         else:
             result = {"finetune": phase_finetune(t0, work, args.cards, args.rehearse),
                       "serve": phase_serve(t0, args.cards, args.rehearse),

@@ -150,6 +150,30 @@ how far it got:
              cuDNN deterministic inside the step, the defaults restored after
              it, two runs bit-equal; f32 ms per step in that scope, with
              TF32 off alone and with the defaults, interleaved.
+15d. interface - the attention layer's interface at full width, on the
+             committed checkpoint's decoder (6 layers x 384, 6 heads x 64)
+             made causal, with one key/value head and with H (``to_kv``
+             tiled): 256 tokens decoded through the layers' KV caches
+             (K1 or K5a at N = 1, offset t - 1) against the same decode at
+             ``flash: off`` (the plain versions; f32 within F32_BOUND, bf16
+             within 2 ulps of the output's max-abs) and against the full
+             causal call (f32 within 1e-4 of the output's max-abs, bf16
+             within 2 ulps of it), the decode's launches (6 x 256) and ms
+             per token; cross-attention at mel 320 / 1024 against text
+             48 / 192 (offset M - N): K1/K5a held against their plain
+             version in float64, K2/K5b against their plain versions and
+             autograd, the slope gradients also against float64
+             (check_forward, check_backward), then the layer's ``flash:
+             on`` against ``flash: off`` (output, and the gradients of x,
+             the context and the weights; the slopes' against the layer in
+             float64), one launch each; an explicit causal attention mask
+             (the plain masked path, no kernel) against the kernels'
+             causal call. The decode's shapes are also tile-edge cases of
+             the kernel phases (EDGE_CASES).
+15e. batch-norm - the fine-tuning step with the aligner's ``normalization:
+             batch``: 8 bf16 steps from the checkpoint's weights, finite and
+             falling, K1-K4 launched, the running statistics moved, an
+             evaluation step on them, the model saved and loaded bit-equal.
 16. train  - the same for the multi-KV-head model on K5a/K5b, and, in f32
              with dropout off, its ``to_kv`` gradient summed over the heads
              against the one-KV-head model's, both models on the same K and
@@ -530,12 +554,17 @@ KERNEL_CASES = (  # B, N, M, H, dtype, symmetric, offset, causal
 
 
 def check_forward(q, k, v, slopes, key_lens, q_lens, offset=0, causal=False, rate=0.0,
-                  seed=None):
+                  seed=None, exact=False):
     """K1 (k and v (B, M, 64)) or K5a (k and v (B, M, Hkv, 64)) against its
     plain version on the same inputs: o within the dtype's bound, lse within
     it relative to lse's size, the same dead rows (lse +inf), and under
     dropout the kept share of the keep mask within 0.01 of thresh/256.
-    Returns (name, o err, lse err, bound, kept share or None)."""
+    With ``exact`` the plain version runs in float64 on the same inputs
+    (the kernel held to an exact answer: at offsets far from 0 the ALiBi
+    bias reaches ~-1000, whose f32 rounding moves the f32 plain version as
+    far as the kernel) and the f32 plain version's own o distance from it
+    is read. Returns (name, o err, lse err, bound, kept share or None, the
+    f32 plain version's o distance from float64 or None)."""
     import torch
 
     from isp_tts_tpu_torch.ops import flash_attention as fa
@@ -549,16 +578,23 @@ def check_forward(q, k, v, slopes, key_lens, q_lens, offset=0, causal=False, rat
     o, lse = fwd(*args)
     torch.cuda.synchronize()
     o_ref, lse_ref = plain(*args)
+    plain_err = None
+    if exact:
+        o_f32 = o_ref.float()
+        o_ref, lse_ref = plain(q.double(), k.double(), v.double(), slopes.double(), *args[4:])
+        plain_err = (o_f32.double() - o_ref).abs().max().item()
+        del o_f32
     live = torch.isfinite(lse_ref)
     if not torch.equal(torch.isfinite(lse), live):
         raise AssertionError(f"{name} lse marks other rows dead than the plain version")
-    err = (o.float() - o_ref.float()).abs().max().item()
-    lse_err = (lse[live] - lse_ref[live]).abs().max().item() if live.any() else 0.0
+    err = (o.double() - o_ref.double()).abs().max().item()
+    lse_err = (lse[live].double() - lse_ref[live]).abs().max().item() if live.any() else 0.0
     lse_max = lse_ref[live].abs().max().item() if live.any() else 0.0
     bound = F32_BOUND if q.dtype == torch.float32 else BF16_BOUND
     if not (err <= bound and lse_err <= bound * (1 + lse_max)):
         raise AssertionError(f"{name} {tuple(q.shape)} {q.dtype} rate={rate} offset={offset} "
-                             f"causal={causal} disagrees with its plain version: o err "
+                             f"causal={causal} disagrees with its plain version"
+                             f"{' in float64' if exact else ''}: o err "
                              f"{err:.3e}, lse err {lse_err:.3e}, bound {bound:.0e}")
     kept = None
     if rate:
@@ -571,7 +607,7 @@ def check_forward(q, k, v, slopes, key_lens, q_lens, offset=0, causal=False, rat
         del mask
         if abs(kept - thresh / 256) > 0.01:
             raise AssertionError(f"{name} kept share {kept:.4f} vs {thresh / 256:.4f}")
-    return name, err, lse_err, bound, kept
+    return name, err, lse_err, bound, kept, plain_err
 
 
 def phase_kernel(t0):
@@ -583,7 +619,7 @@ def phase_kernel(t0):
     for B, N, M, H, dt, sym, offset, causal in KERNEL_CASES:
         dtype = getattr(torch, dt)
         q, k, v, slopes, key_lens, q_lens = mqa_inputs(B, N, M, H, dtype, sym, gen)
-        _, err, lse_err, bound, _ = check_forward(q, k, v, slopes, key_lens, q_lens, offset,
+        _, err, lse_err, bound, _, _ = check_forward(q, k, v, slopes, key_lens, q_lens, offset,
                                                   causal)
         scale = 64 ** -0.5
         k_ms = graph_ms(lambda: mqa_fwd(q, k, v, slopes, key_lens, scale, offset,
@@ -602,14 +638,17 @@ def phase_kernel(t0):
 # The forward kernels' tile edges (64-row blocks, 16-row warps, 64-key
 # tiles, 8- and 16-wide fragments): lengths that are not multiples of 8, 16
 # or 64, 6 and 4 heads (K1's folded rows straddle queries inside a
-# fragment), causal with offsets 128 and -5, M 3072, dropout 0.1; in every
-# batch one row has key length 0 and one query length 0.
+# fragment), causal with offsets 128 and -5, M 3072, dropout 0.1; the
+# KV-cache decode's shapes (one query against M cached keys, causal at
+# offset M - 1); in every batch one row has key length 0 and one query
+# length 0.
 EDGE_CASES = (  # B, N, M, H, offset, causal, rate
     (4, 37, 45, 6, 0, False, 0.0), (4, 37, 45, 4, 0, True, 0.1),
     (32, 48, 48, 6, 0, False, 0.1), (32, 48, 48, 4, 0, False, 0.0),
     (4, 1024, 1024, 6, 0, False, 0.1), (4, 1024, 1024, 4, 0, True, 0.0),
     (4, 96, 224, 6, 128, True, 0.1), (4, 300, 300, 4, -5, True, 0.1),
     (3, 3072, 3072, 6, 0, False, 0.1),
+    (4, 1, 256, 6, 255, True, 0.0), (4, 1, 17, 6, 16, True, 0.0),
 )
 
 
@@ -626,7 +665,7 @@ def phase_edges(t0, gen, kv_heads=(None,)):
                 q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, getattr(torch, dt), False,
                                                      gen, kv_heads=kvh)
                 kl[1], ql[2] = 0, 0  # a row of dead queries, a row of none
-                name, err, lse_err, bound, kept = check_forward(
+                name, err, lse_err, bound, kept, _ = check_forward(
                     q, k, v, slopes, kl, ql, offset, causal, rate, seed_tensor(777))
                 say("kernel", t0, f"{name} edge B={B} N={N} M={M} H={H}"
                     + ("" if kvh is None else f" Hkv={kvh}") + f" {dt} offset={offset} "
@@ -1720,6 +1759,14 @@ def phase_interop(t0, experiment, batch, reference, work: Path) -> None:
 # JAX package's bound for its kernel against its reference); bf16 gradients
 # are rounded to 8 mantissa bits
 K2_BOUNDS = {"float32": 1e-4, "bfloat16": 2e-2}
+# the kernels' slope gradients against their formula in float64 on the same
+# o and lse at the cross-attention offsets (:func:`check_backward`): K2/K5b
+# read 1.2e-6-2.1e-6 in f32 and 7.0e-7-2.3e-6 in bf16 on an H100
+SLOPES_F64_BOUNDS = {"float32": 1e-5, "bfloat16": 1e-5}
+# a cross-attention layer's slope gradient on the kernels against the layer
+# in float64 (:func:`cross_check`): 3.4e-6-5.6e-5 in f32, 1.7e-3-8.9e-3 in
+# bf16 (the plain path's own 1.2e-5-3.6e-5 and 1.6e-3-1.3e-2) on an H100
+LAYER_SLOPES_F64_BOUNDS = {"float32": 2e-4, "bfloat16": 3e-2}
 # K4 against its plain version: both run the state recursion in f64, the
 # kernel's transcendental tails in f32, the plain version's in f64
 K4_LOSS_BOUND = 1e-5
@@ -1895,19 +1942,23 @@ def k4_pair(lp, tl, ml, g, plain=False):
 
 
 def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False, rate=0.0,
-                   seed=None, autograd=True):
+                   seed=None, autograd=True, slopes_f64=False):
     """K2 (k and v (B, M, 64)) or K5b (k and v (B, M, Hkv, 64)) against its
     plain versions, gradients against ``w`` = dL/do, relative to each
     reference's max-abs:
     - with ``autograd``, the kernel pair's autograd function against
-      autograd through the plain forward: dq, dk and dv, and dslopes in f32.
-      In bf16 dslopes is read, not gated: it is a sum with cancellation of
-      ds * dist, and ds takes delta = rowsum(dO * O) on the o the forward
-      saved in bf16, as the TPU kernels' residual is, so it reads up to a
-      few 1e-2 against autograd through an f32 o
+      autograd through the plain forward: dq, dk, dv and dslopes. In bf16
+      ds takes delta = rowsum(dO * O) on the o the forward saved in bf16, as
+      the TPU kernels' residual is, which moves dslopes by 8e-4 to 6e-3
+      against autograd through an f32 o on an H100
       (tests/test_torch_port_attention_bwd_bf16.py);
     - always, the kernel backward against the plain backward fed the kernel
       forward's saved o and lse: all four, one launch.
+    With ``slopes_f64`` the slope gradients are held besides to the same
+    formula in float64 (``tools/torch_bwd_seeds.py:f64_backward``), the
+    kernel's distance from it within SLOPES_F64_BOUNDS; the kernel's and
+    the plain backward's distances are appended to the plain-backward
+    errors.
     Raises past the dtype's bound (K2_BOUNDS). Returns (name, autograd
     errors or None, plain-backward errors, bound, o, lse)."""
     import torch
@@ -1934,7 +1985,7 @@ def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False,
         ref = attention_grads(lambda *a: plain_fwd(*a)[0], q, k, v, slopes, key_lens, q_lens,
                               rate, offset, causal, seed, w)
         auto = [rel_err(a, b) for a, b in zip(got, ref)]
-        if not max(auto[:3] if bf16 else auto) <= bound:
+        if not max(auto) <= bound:
             raise AssertionError(f"{where}: against autograd through the plain forward, "
                                  f"relative errors dq/dk/dv/dslopes {auto} > {bound:.0e}")
         del got, ref
@@ -1962,6 +2013,17 @@ def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False,
     if not max(errs) <= bound:
         raise AssertionError(f"{where}: against the plain backward on the same o and lse, "
                              f"relative errors dq/dk/dv/dslopes {errs} > {bound:.0e}")
+    if slopes_f64:
+        sys.path.insert(0, str(ROOT / "tools"))
+        from torch_bwd_seeds import f64_backward
+
+        exact = f64_backward(q, k, v, slopes, key_lens, seed, o, lse, w, 64 ** -0.5, offset,
+                             causal, rate, not mqa)[3]
+        errs += [rel_err(got[3], exact), rel_err(ref[3], exact)]
+        f64_bound = SLOPES_F64_BOUNDS["bfloat16" if bf16 else "float32"]
+        if not errs[4] <= f64_bound:
+            raise AssertionError(f"{where}: dslopes {errs[4]:.3e} from float64 > "
+                                 f"{f64_bound:.0e} (the plain backward {errs[5]:.3e})")
     return name, auto, errs, bound, o, lse
 
 
@@ -2000,7 +2062,7 @@ def phase_kernel_train(t0):
         for rate in (0.1, 0.3):
             q, k, v, slopes, kl, ql = mqa_inputs(8, 320, 320, 6, getattr(torch, dt), True, gen)
             seed = seed_tensor(1234 + int(rate * 10))
-            _, err, _, bound, kept = check_forward(q, k, v, slopes, kl, ql, 0, False, rate,
+            _, err, _, bound, kept, _ = check_forward(q, k, v, slopes, kl, ql, 0, False, rate,
                                                    seed)
             thresh = dropout_thresh(rate)
             say("kernel", t0, f"K1 dropout={rate} B=8 N=M=320 H=6 {dt} max_err={err:.3e} "
@@ -2020,7 +2082,6 @@ def phase_kernel_train(t0):
         b_ms, b_by = attention_bound(q, k, kl, ql, causal, offset, backward=True)
         say("kernel", t0, f"K2 B={B} N={N} M={M} H={H} {dt} dropout={rate} offset={offset} "
             f"causal={int(causal)} {grad_errs('vs autograd', auto)}"
-            + (" (dslopes not gated in bf16)" if dt == "bfloat16" else "")
             + f"; {grad_errs('vs plain backward', errs)} bound={bound:.0e} kernel_ms={k_ms:.4f} "
             f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
@@ -2162,7 +2223,7 @@ def phase_kernel_mha(t0):
         if B > 2:
             kl[1] = 0  # a row with no key: every query row of it is dead
         seed = seed_tensor(4321)
-        _, err, lse_err, bound, share = check_forward(q, k, v, slopes, kl, ql, offset, causal,
+        _, err, lse_err, bound, share, _ = check_forward(q, k, v, slopes, kl, ql, offset, causal,
                                                       rate, seed)
         kept = ""
         if rate:
@@ -2191,7 +2252,6 @@ def phase_kernel_mha(t0):
             f"offset={offset} causal={int(causal)}: K5a max_err={err:.3e} "
             f"lse_err={lse_err:.3e} bound={bound:.0e}{kept}; K5b "
             f"{grad_errs('vs autograd', auto)}"
-            + (" (dslopes not gated in bf16)" if dt == "bfloat16" else "")
             + f"; {grad_errs('vs plain backward', errs)} bound={b_bound:.0e}; K5a kernel_ms="
             f"{f_ms:.4f} plain_ms={fp_ms:.4f} library_ms={fl_ms:.4f} bound_ms={fb[0]:.4f} "
             f"({fb[1]}); K5b kernel_ms={b_ms:.4f} plain_ms={bp_ms:.4f} library_ms="
@@ -2893,6 +2953,315 @@ def phase_tf32(t0, experiment, batch):
 #: models on the same K and V (kv_grad_errors' pin) it reads 6e-7 to 1.2e-6
 #: on an H100 over three batches; with each model's own to_kv GEMM, 8.5e-6
 #: to 1.3e-4 for the same kernels (tools/torch_fwd_study.py gates)
+#: the interface phase: tokens decoded through the KV cache, the batch, and
+#: the cross-attention shapes (B, mel frames N, text tokens M)
+DECODE_TOKENS, DECODE_BATCH = 256, 4
+CROSS_SHAPES = ((8, 320, 48), (4, 1024, 192))
+
+
+def bf16_ulps(scale: float, ulps: int = 2) -> float:
+    """``ulps`` bf16 ulps at the binade of ``scale`` (8 significant bits)."""
+    import math
+
+    return ulps * 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
+def causal_decoder(mha: bool):
+    """The committed checkpoint's decoder (6 layers x 384, 6 heads x 64),
+    every layer causal, on the card in eval mode: one key/value head, or
+    with ``mha`` one a query head (its ``to_kv`` tiled: :func:`mha_model`)."""
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel
+    from isp_tts_tpu_torch.nn.attention import Attention
+
+    model = mha_model() if mha else AcousticModel.from_pretrained(CKPT)
+    for m in model.decoder.modules():
+        if isinstance(m, Attention):
+            m.causal = True
+    return model.decoder
+
+
+def decode_tokens(dec, x) -> tuple:
+    """x (B, T, dim) decoded one token a call through the layers' KV
+    caches: (the outputs (B, T, dim) f32, host ms a token, the launch
+    counts of the decode, zeroed just before it and read just after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    cache, outs = None, []
+    for i in range(x.shape[1]):
+        step = dec(x[:, i:i + 1], cache=cache, return_cache=True)
+        cache = step.cache
+        outs.append(step.out)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / x.shape[1]
+    return torch.cat(outs, dim=1).float(), ms, launch_counts()
+
+
+def decode_check(t0, dec, kernel: str, dtype) -> None:
+    """DECODE_TOKENS tokens decoded one a call through the layers' KV
+    caches (K1 or K5a at N = 1, M = t, offset t - 1, causal):
+    - against the same decode with the layers at ``flash: off`` (the
+      kernel's plain version at each call's shapes, no launch): f32 within
+      F32_BOUND, bf16 (under autocast) within 2 ulps of the output's scale
+      (BF16_BOUND is less than one ulp of a decoder output ~5);
+    - against the full causal call through the same kernel: f32 within
+      1e-4 of the output's max-abs, bf16 within 2 ulps of it;
+    - the decode's launches, counts zeroed just before and read just
+      after: the kernel 6 x DECODE_TOKENS times, no other attention kernel."""
+    import torch
+
+    from isp_tts_tpu_torch.nn.attention import Attention
+
+    label = "bf16" if dtype == torch.bfloat16 else "f32"
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((DECODE_BATCH, DECODE_TOKENS, dec.emb_dim), generator=gen, device="cuda")
+    depth = len(dec.layers)
+    layers = [m for m in dec.modules() if isinstance(m, Attention)]
+    modes = [m.flash for m in layers]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                         enabled=dtype == torch.bfloat16):
+        full = dec(x).float()
+        inc, ms, launches = decode_tokens(dec, x)
+        set_flash(dec, "off")
+        try:
+            plain, plain_ms, plain_launches = decode_tokens(dec, x)
+        finally:
+            for m, mode in zip(layers, modes):
+                m.flash = mode
+    scale = full.abs().max().item()
+    err = (inc - full).abs().max().item()
+    plain_err = (inc - plain).abs().max().item()
+    bound = 1e-4 * scale if dtype == torch.float32 else bf16_ulps(scale)
+    plain_bound = F32_BOUND if dtype == torch.float32 else bf16_ulps(scale)
+    want = depth * DECODE_TOKENS
+    others = {k: v for k, v in launches.items() if k != kernel and k.startswith(("K1", "K2",
+                                                                                  "K5"))}
+    say("interface", t0, f"decode {kernel} {label}: {DECODE_TOKENS} tokens x B {DECODE_BATCH} "
+        f"through {depth} layers' caches vs the same decode at flash off (plain version, "
+        f"{sum(plain_launches.values())} launches, {plain_ms:.3f} ms per token): max_err "
+        f"{plain_err:.3e} (bound {plain_bound:.3e}); vs the full causal call: max_err "
+        f"{err:.3e} (scale {scale:.3f}, bound {bound:.3e}); launches {launches[kernel]} (want "
+        f"{want}); {ms:.3f} ms per token (host clock, synced)")
+    if not (np.isfinite(plain_err) and plain_err <= plain_bound):
+        raise AssertionError(f"decode {kernel} {label} vs its plain version: {plain_err:.3e} "
+                             f"> {plain_bound:.3e}")
+    if not (np.isfinite(err) and err <= bound):
+        raise AssertionError(f"decode {kernel} {label}: {err:.3e} > {bound:.3e}")
+    if launches[kernel] != want or any(others.values()) or any(plain_launches.values()):
+        raise AssertionError(f"decode {kernel} {label}: launches {launches}, want {want}; "
+                             f"at flash off {plain_launches}")
+    del full, inc, plain
+
+
+def cross_check(t0, layer, kernel: str, B, N, M, dtype) -> None:
+    """Cross-attention of ``layer`` (non-causal, its own weights, x (B, N)
+    against a context (B, M), ragged ``mask`` and ``context_mask``) under
+    ``flash: on`` (K1/K2 or K5a/K5b at offset M - N) against ``flash:
+    off`` (their plain versions): the output and the gradients of x, the
+    context and every weight but the slopes within the edge phases' bounds
+    (F32_BOUND, BF16_BOUND on the output; K2_BOUNDS on gradients, relative
+    to each one's max-abs). The slopes' gradient is held instead against
+    the same layer at ``flash: off`` in float64 (its plain versions in
+    float64), within LAYER_SLOPES_F64_BOUNDS: it is a sum with cancellation
+    of ds times distances, on which the f32 paths each read up to ~6e-5
+    from float64 and so up to ~9e-5 from each other, and in bf16 both take
+    delta on an o rounded to bf16; the ``off`` path's distance from float64
+    is read. The ``on`` call launches each kernel once, the ``off`` calls
+    none."""
+    import copy
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(N + M)
+    dim = layer.to_q.in_features
+    x = torch.randn((B, N, dim), generator=gen, device="cuda")
+    ctx = torch.randn((B, M, dim), generator=gen, device="cuda")
+    w = torch.randn((B, N, dim), generator=gen, device="cuda")
+    mask = torch.arange(N, device="cuda")[None] < torch.randint(
+        N // 2, N + 1, (B,), generator=gen, device="cuda")[:, None]
+    cmask = torch.arange(M, device="cuda")[None] < torch.randint(
+        M // 2, M + 1, (B,), generator=gen, device="cuda")[:, None]
+    mask[0], cmask[0] = True, True
+    bf16 = dtype == torch.bfloat16
+    results = {}
+    for mode in ("on", "off", "f64"):
+        run = layer
+        if mode == "f64":
+            run = copy.deepcopy(layer).double()
+        run.flash = "off" if mode == "f64" else mode
+        run.zero_grad(set_to_none=True)
+        wide = torch.float64 if mode == "f64" else torch.float32
+        xi, ci = (t.to(wide, copy=True).requires_grad_() for t in (x, ctx))
+        launch_counts(reset=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16 and mode != "f64"):
+            out = run(xi, mask=mask, context=ci, context_mask=cmask)
+        (out.to(wide) * w.to(wide)).sum().backward()
+        torch.cuda.synchronize()
+        grads = {"x": xi.grad, "context": ci.grad,
+                 **{n: p.grad for n, p in run.named_parameters()}}
+        results[mode] = (out.float().detach(), grads, launch_counts())
+        del run
+    layer.flash = "auto"
+    out_err = (results["on"][0] - results["off"][0]).abs().max().item()
+    errs = {n: rel_err(g, results["off"][1][n]) for n, g in results["on"][1].items()}
+    slope_err = errs.pop("rel_pos.log_slopes")
+    exact = results["f64"][1]["rel_pos.log_slopes"]
+    slope_f64 = rel_err(results["on"][1]["rel_pos.log_slopes"], exact)
+    plain_f64 = rel_err(results["off"][1]["rel_pos.log_slopes"], exact)
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
+    out_bound = BF16_BOUND if bf16 else F32_BOUND
+    grad_bound = K2_BOUNDS["bfloat16" if bf16 else "float32"]
+    slope_bound = LAYER_SLOPES_F64_BOUNDS["bfloat16" if bf16 else "float32"]
+    launches = results["on"][2]
+    fwd, bwd = PATH_KERNELS[kernel == "K5a flash_fwd"]
+    say("interface", t0, f"cross-attention {fwd.split()[0]}/{bwd.split()[0]} "
+        f"{'bf16' if bf16 else 'f32'} B {B} x mel {N} vs text {M} (offset {M - N}), flash on "
+        f"vs off: out max_err {out_err:.3e} (bound {out_bound:.0e}), gradients of x, "
+        f"context, weights max rel {grad_err:.3e} ({worst}; bound {grad_bound:.0e}), slopes "
+        f"{slope_err:.3e} (read); slopes' gradient from the float64 layer: on {slope_f64:.3e} "
+        f"(bound {slope_bound:.0e}), off {plain_f64:.3e} (read); launches {fwd} "
+        f"{launches[fwd]}, {bwd} {launches[bwd]}; plain path launched "
+        f"{sum(results['off'][2].values()) + sum(results['f64'][2].values())}")
+    if not (out_err <= out_bound and grad_err <= grad_bound and slope_f64 <= slope_bound):
+        raise AssertionError(f"cross-attention {kernel} on vs off: {out_err:.3e}, "
+                             f"{grad_err:.3e}; slopes from float64 {slope_f64:.3e}")
+    if (launches[fwd] != 1 or launches[bwd] != 1 or sum(results["off"][2].values())
+            or sum(results["f64"][2].values())):
+        raise AssertionError(f"cross-attention launches: on {launches}, off "
+                             f"{results['off'][2]}, float64 {results['f64'][2]}")
+
+
+def phase_interface(t0):
+    """The attention layer's interface at full width, one key/value head
+    (K1/K2) and H (K5a/K5b): the KV-cache decode, cross-attention under
+    ``flash: on`` (the kernels held against their plain versions at offset
+    M - N, forward and backward), and the plain masked path of an explicit
+    attention mask."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for mha in (False, True):
+        dec = causal_decoder(mha)
+        kernel = PATH_KERNELS[mha][0]
+        for dtype in (torch.float32, torch.bfloat16):
+            decode_check(t0, dec, kernel, dtype)
+        # the kernels alone at the cross-attention shapes, against their plain versions
+        for B, N, M in CROSS_SHAPES:
+            for dt in ("float32", "bfloat16"):
+                q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, 6, getattr(torch, dt), False, gen,
+                                                     kv_heads=6 if mha else None)
+                name, err, lse_err, bound, _, plain_err = check_forward(
+                    q, k, v, slopes, kl, ql, M - N, False, 0.1, seed_tensor(5), exact=True)
+                w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+                bname, auto, errs, bbound, _, _ = check_backward(
+                    q, k, v, slopes, kl, ql, w, M - N, False, 0.1, seed_tensor(6),
+                    slopes_f64=True)
+                say("interface", t0, f"{name}/{bname} cross B={B} N={N} M={M} offset={M - N} "
+                    f"{dt} dropout=0.1: vs the plain forward in float64 o max_err {err:.3e} "
+                    f"lse_err {lse_err:.3e} (bound {bound:.0e}; the plain forward in f32 "
+                    f"{plain_err:.3e}); {grad_errs('vs autograd', auto)}; "
+                    f"{grad_errs('vs plain backward', errs)} (bound {bbound:.0e}); dslopes "
+                    f"from float64: kernel {errs[4]:.3e} (bound "
+                    f"{SLOPES_F64_BOUNDS[dt]:.0e}), plain {errs[5]:.3e}")
+                del q, k, v, w
+        layer = dec.layers[0].attention.train()
+        layer.causal = False
+        layer.dropout.rate = 0.0
+        for B, N, M in CROSS_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                cross_check(t0, layer, kernel, B, N, M, dtype)
+        # an explicit attention mask runs the plain masked path: a causal
+        # mask given as one equals the kernels' causal call
+        layer.eval()
+        x = torch.randn((4, 320, layer.to_q.in_features), generator=gen, device="cuda")
+        mask = torch.arange(320, device="cuda")[None] < torch.tensor([320, 250, 180, 300],
+                                                                     device="cuda")[:, None]
+        with torch.no_grad():
+            launch_counts(reset=True)
+            masked = layer(x, mask=mask, attention_mask=torch.ones(
+                (320, 320), dtype=torch.bool, device="cuda").tril())
+            plain_launches = sum(launch_counts().values())
+            layer.causal = True
+            ref = layer(x, mask=mask)
+        err = rel_err(masked, ref)
+        say("interface", t0, f"explicit causal attention_mask (plain masked path, "
+            f"{plain_launches} kernel launches) vs {kernel.split()[0]} causal, f32 B 4 x 320: "
+            f"max rel {err:.3e} (bound {F32_BOUND:.0e})")
+        if err > F32_BOUND or plain_launches:
+            raise AssertionError(f"explicit mask path: {err:.3e}, launches {plain_launches}")
+        del dec, layer
+        torch.cuda.empty_cache()
+
+
+BN_STEPS = 8
+
+
+def phase_batch_norm(t0, experiment, batch):
+    """The fine-tuning step with the aligner's ``normalization: batch``
+    (the committed checkpoint's weights; each norm's running statistics
+    from their init): BN_STEPS bf16 steps, finite and falling, K1-K4
+    launched, the running statistics moved; an evaluation step on them;
+    the model saved and loaded bit-equal, statistics included."""
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.config import build_config
+    from isp_tts_tpu_torch.models.acoustic.model import AcousticModel, AcousticModelConfig
+    from isp_tts_tpu_torch.nn.norms import MaskedBatchNorm1d
+
+    blob = load_checkpoint(CKPT)["model"]
+    cfg = dict(blob["config"], aligner=dict(blob["config"]["aligner"], normalization="batch"))
+    model = AcousticModel(build_config(AcousticModelConfig, cfg))
+    model.load_params(blob["state"])
+    trainer = recipe_trainer_on(model.cuda(), experiment, precision="bf16")
+    norms = {n: m for n, m in model.named_modules() if isinstance(m, MaskedBatchNorm1d)}
+    if len(norms) != 3:
+        raise AssertionError(f"the aligner holds {len(norms)} batch norms, not 3")
+    init = {n: (m.mean.clone(), m.var.clone()) for n, m in norms.items()}
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    history = trainer.train([batch], BN_STEPS)
+    step_ms = 1e3 * (time.perf_counter() - t) / BN_STEPS
+    launches = launch_counts()
+    mel = [h["model/mel_loss"] for h in history]
+    loss = [h["loss"] for h in history]
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"batch-norm: a metric went non-finite: {history}")
+    if not (np.mean(mel[-3:]) < np.mean(mel[:3]) and loss[-1] < loss[0]):
+        raise AssertionError(f"batch-norm: the losses did not fall: loss {loss}, mel {mel}")
+    path = ("K1 mqa_fwd", "K2 mqa_bwd", "K3 mas", "K4 ctc_fwd", "K4 ctc_bwd")
+    if min(launches[k] for k in path) == 0:
+        raise AssertionError(f"batch-norm: the step should launch {path}: {launches}")
+    moved = {n: max((m.mean - init[n][0]).abs().max().item(),
+                    (m.var - init[n][1]).abs().max().item()) for n, m in norms.items()}
+    if not all(v > 0 and np.isfinite(v) for v in moved.values()):
+        raise AssertionError(f"batch-norm: running statistics did not move: {moved}")
+    outputs, metrics = trainer.eval_step(batch)
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"batch-norm: eval step on the running statistics: {metrics}")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_bn_") as tmp:
+        ckpt = Path(tmp) / "bn.ckpt"
+        model.save_pretrained(ckpt)
+        back = AcousticModel.from_pretrained(ckpt)
+        mine, theirs = model.state_dict(), back.state_dict()
+        unequal = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    if unequal or set(mine) != set(theirs):
+        raise AssertionError(f"batch-norm: save/load not bit-equal: {unequal[:5]}")
+    say("batch-norm", t0, f"{BN_STEPS} bf16 steps with the aligner's batch norm: loss "
+        f"{loss[0]:.5f} -> {loss[-1]:.5f}, mel_loss first 3 mean {np.mean(mel[:3]):.5f} last 3 "
+        f"{np.mean(mel[-3:]):.5f}; {step_ms:.1f} ms per step (host clock, first step "
+        f"included); launches {launches}; running statistics moved by up to "
+        + ", ".join(f"{n.split('aligner.')[-1]} {v:.3e}" for n, v in moved.items())
+        + f"; eval loss {float(metrics['loss']):.5f}; saved and loaded bit-equal "
+        f"({len(mine)} tensors, {2 * len(norms)} of them running statistics)")
+    del trainer, model, back, outputs
+    torch.cuda.empty_cache()
+
+
 KV_GRAD_BOUND = 1e-4
 
 
@@ -3576,7 +3945,7 @@ def recipe_records(t0, trainer, launches, eval_launches) -> list[dict]:
         # K1 within the bf16 bound of its plain version, K2 within K2_BOUNDS
         # of autograd through the plain forward (dq, dk, dv) and of the
         # plain backward on the kernel's own o and lse (all four, dslopes too)
-        _, fwd_err, lse_err, fwd_bound, kept = check_forward(q, k, v, slopes, lens, lens, 0,
+        _, fwd_err, lse_err, fwd_bound, kept, _ = check_forward(q, k, v, slopes, lens, lens, 0,
                                                              False, rate, seed)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         _, auto, errs, bwd_bound, o, lse = check_backward(q, k, v, slopes, lens, lens, do, 0,
@@ -3587,8 +3956,8 @@ def recipe_records(t0, trainer, launches, eval_launches) -> list[dict]:
         fb, bb = attention_bound(q, k, lens, lens), attention_bound(q, k, lens, lens, True)
         shape = f"recipe {label}: B={B} N=M={N} H={H} D=64 bfloat16 dropout={rate}"
         say("recipe-kernels", t0, f"{shape}: K1 o err {fwd_err:.3e} lse err {lse_err:.3e} "
-            f"(bound {fwd_bound:.0e}), kept {kept:.4f}; K2 {grad_errs('vs autograd', auto)} "
-            f"(dslopes not gated in bf16); {grad_errs('vs plain backward', errs)} (bound "
+            f"(bound {fwd_bound:.0e}), kept {kept:.4f}; K2 {grad_errs('vs autograd', auto)}; "
+            f"{grad_errs('vs plain backward', errs)} (bound "
             f"{bwd_bound:.0e})")
         records += [
             {"name": f"K1 mqa_fwd, recipe {label}", "route": "cuda",
@@ -4072,6 +4441,8 @@ def main() -> int:
     phase_dist_one(t0, experiment, batch)
     phase_seq_stage(t0, experiment, batch)
     phase_tf32(t0, experiment, batch)
+    phase_interface(t0)
+    phase_batch_norm(t0, experiment, batch)
     mha_trainer, mha_launches = phase_train(t0, experiment, batch, durations, mha=True)
     phase_profile(t0, lambda: mha_trainer.train([batch], 1),
                   "one training step, multi-KV-head")

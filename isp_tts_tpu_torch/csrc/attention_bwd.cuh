@@ -9,14 +9,21 @@
 //   dp    = dO . V^T (* keep / (1-rate))  ds = p * (dp - delta)
 //   dV    = sum_rows p * keep/(1-rate) . dO
 //   dQ    = scale * dS . K                dK = scale * sum_rows dS^T . Q
-//   dslope[lower|upper][h] = sum ds * -|c - n - offset| over that triangle
+//   dslope[lower|upper][h] = sum ds * -|c - c*| over that triangle, c*
+//     the valid key nearest n + offset: c* = n + offset where the row's
+//     valid keys straddle it, and -|c - c*| the ALiBi distance; where they
+//     all lie on one side (a far offset, a query past the key length) the
+//     two differ by a constant of the row, over which ds sums to zero.
+//     Summed over the ALiBi distance, delta's error (o is the forward's
+//     rounded output) times that constant, up to |offset|, swamps the sum
+//     (1e-2 of it in f32, O(1) in bf16 at offset -832 on an H100)
 // Two passes, both deterministic, no float atomics on dq, dk or dv:
 //   1. dq pass, row-stationary: one block of 4 warps per 64 rows (the
 //      forward's blocks); each warp keeps its 16 rows' Q and dO as A
 //      fragments. 64-key K/V tiles arrive by cp.async, double buffered; per
 //      tile S = Q.K^T and dP = dO.V^T (qk), dS in S's registers, dQ += dS.K
 //      (pv, K read transposed). It writes delta for pass 2 and sums the
-//      slope gradients: per element ds * dist by triangle, per row in
+//      slope gradients: per element ds * (c - c*) by triangle, per row in
 //      registers, over the block in a fixed order, then one float atomic
 //      per (head, block, triangle). The terms of a slope's sum (B * N * M
 //      of them) cancel to a small total, so in the f32 kernels this pass
@@ -237,7 +244,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   float dq[8][4];
 #pragma unroll
   for (int d = 0; d < 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-  float dsl[2][2] = {};  // [half][lower, upper]: sum of ds * -|dist|
+  float dsl[2][2] = {};  // [half][lower, upper]: sum of ds * -|c - c*|
   const float one[2] = {1.f, 1.f};
 
   // K/V rows c0 .. c0 + 63 into a stage; rows past block_kend zero-filled
@@ -287,12 +294,14 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const BwdRow& r = rs[half];
-        // element (j, e) is key c = c0 + 2t + 8j + e at distance d0 + 8j + e
+        // element (j, e) is key c = c0 + 2t + 8j + e at distance d0 + 8j + e,
+        // a0 + 8j + e from the row's nearest valid key c*
         const int cb = c0 + 2 * t;
         const float d0 = static_cast<float>(cb - r.nb);  // c - n - offset
+        const float a0 = static_cast<float>(cb - min(max(r.nb, 0), max(r.lim - 1, 0)));
         const float sl = lower ? r.lo2 : -r.hi2;
         const uint32_t u0 = (r.hseed + static_cast<uint32_t>(cb)) * KEEP_MUL;
-        float lo_acc = 0.f, hi_acc = 0.f;  // ds * (c - n - offset) by triangle
+        float lo_acc = 0.f, hi_acc = 0.f;  // ds * (c - c*) by triangle
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -321,14 +330,15 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
             }
             const float ds = pr * (dpv - r.delta);
             s[j][2 * half + e] = ds;
+            const float arm = a0 + static_cast<float>(8 * j + e);  // exact
             if (full || dist <= 0.f) {
-              lo_acc = fmaf(ds, dist, lo_acc);
+              lo_acc = fmaf(ds, arm, lo_acc);
             } else {
-              hi_acc = fmaf(ds, dist, hi_acc);
+              hi_acc = fmaf(ds, arm, hi_acc);
             }
           }
         }
-        // lower: -|dist| = dist; upper: -|dist| = -dist
+        // lower: -|c - c*| = c - c*; upper: -|c - c*| = c* - c
         if (full && !lower) {
           dsl[half][1] -= lo_acc;
         } else {

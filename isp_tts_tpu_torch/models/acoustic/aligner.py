@@ -5,7 +5,9 @@ Counterpart of ``isp_tts_tpu/models/acoustic/aligner.py`` (the local path,
 the aligner's batch over every live mesh axis (``_attention_manual``)
 when the model axis is 1 and dropout is off; here each seq or stage peer
 computes it whole on its data rank's rows (the same values; the peers'
-gradients of it are equal, so nothing sums them). Channel-last (B, T, C) at the module's
+gradients of it are equal, so nothing sums them); a batch norm
+(``normalization: batch``) takes its statistics over the data group's
+global batch, as the JAX package's sharded sums do. Channel-last (B, T, C) at the module's
 edges, as in the JAX package; the convolutions run channel-first inside.
 Hard alignment is kernel K3 (``ops/mas.py``) on CUDA tensors with
 ``mas_impl`` "auto" or "pallas", and the plain DP with "scan".
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import FastDropout, choose_activation
+from ...nn.layers import FastDropout, choose_activation, choose_normalization
 from ...ops.mas import monotonic_alignment_search, monotonic_alignment_search_reference
 from ...utils.autocast import no_autocast
 from ...utils.masks import get_mask_from_lengths
@@ -47,42 +49,23 @@ def batch_diagonal_prior(text_lens: torch.Tensor, mel_lens: torch.Tensor,
     return torch.where(prior < threshold, 0.0, prior)
 
 
-class MaskedInstanceNorm1d(nn.Module):
-    """Instance norm over time using valid positions only (biased variance),
-    affine; (B, T, C) in, statistics in f32. ``weight`` is flax's scale."""
-
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        m = mask[:, :, None].float()
-        count = m.sum(dim=1, keepdim=True).clamp_min(1.0)
-        mean = (xf * m).sum(dim=1, keepdim=True) / count
-        var = ((xf - mean) ** 2 * m).sum(dim=1, keepdim=True) / count
-        return ((xf - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias) * m
-
-
 class ConvBlock1D(nn.Module):
-    """Conv1d ("SAME" padding) -> activation -> masked instance norm ->
-    dropout, with padded positions zeroed before the convolution. The
-    convolution has a bias only without a norm, as there."""
+    """Conv1d ("SAME" padding) -> activation -> masked norm (instance or
+    batch: ``choose_normalization``) -> dropout, with padded positions
+    zeroed before the convolution. The convolution has a bias only without
+    a norm, as there."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  bias: bool = True, activation: str = "relu",
                  normalization: str | None = "instance", dropout: float = 0.0):
         super().__init__()
-        if normalization not in (None, "instance"):
-            raise NotImplementedError(f"normalization {normalization!r} is not ported")
         self.conv = nn.Conv1d(in_channels, out_channels, kernel_size,
                               bias=bias and normalization is None)
         # flax "SAME": (k - 1) // 2 before, the rest after
         self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
         self.act = choose_activation(activation)
-        self.norm = MaskedInstanceNorm1d(out_channels) if normalization else None
+        norm_cls = choose_normalization(normalization)
+        self.norm = norm_cls(out_channels) if norm_cls is not None else None
         self.dropout = FastDropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

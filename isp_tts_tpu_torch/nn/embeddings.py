@@ -64,8 +64,11 @@ class LearnedALiBiBias(nn.Module):
         self.log_slopes = nn.Parameter(torch.log(slopes))
 
     def slopes2(self) -> torch.Tensor:
-        """(2, total_heads) [lower, upper] slopes for the kernel path."""
-        slopes = torch.exp(self.log_slopes.float())
+        """(2, total_heads) [lower, upper] slopes for the kernel path: f32,
+        or f64 in a float64 module (the plain path's exact reference)."""
+        log_slopes = self.log_slopes
+        slopes = torch.exp(log_slopes if log_slopes.dtype == torch.float64
+                           else log_slopes.float())
         pad = self.total_heads - self.heads
         if self.symmetric:
             s = nn.functional.pad(slopes[:, 0, 0], (0, pad))

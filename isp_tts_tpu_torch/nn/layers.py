@@ -1,4 +1,5 @@
-"""Activation factory and dropout (counterpart of ``isp_tts_tpu/nn/layers.py``)."""
+"""Activation and normalization factories, and dropout (counterpart of
+``isp_tts_tpu/nn/layers.py``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,19 @@ def choose_activation(name: str):
     if name not in ACTIVATIONS:
         raise KeyError(f"Unknown activation {name!r}; known: {sorted(ACTIVATIONS)}")
     return ACTIVATIONS[name]
+
+
+def choose_normalization(name: str | None):
+    """The masked normalization class of ``name`` for (B, T, C) sequences:
+    "batch" or "instance"; None for None."""
+    if name is None:
+        return None
+    from .norms import MaskedBatchNorm1d, MaskedInstanceNorm1d
+
+    table = {"batch": MaskedBatchNorm1d, "instance": MaskedInstanceNorm1d}
+    if name not in table:
+        raise KeyError(f"Unknown normalization {name!r}; known: {sorted(table)}")
+    return table[name]
 
 
 class FastDropout(torch.nn.Module):

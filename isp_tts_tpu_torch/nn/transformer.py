@@ -1,5 +1,11 @@
 """Transformer layer and stack (counterpart of ``isp_tts_tpu/nn/transformer.py``).
 
+Every layer's attention takes the JAX call's arguments: a padding mask,
+cross-attention's ``context``/``context_mask``, an explicit
+``attention_mask`` and a KV ``cache`` (one (k, v) a layer); with
+``return_cache`` the stack returns a :class:`TransformerOutput` holding
+the layers' new caches, else its output tensor alone.
+
 Two layouts of the layer stack, as there:
 
 - per layer (``layers.<i>.*``), the default;
@@ -14,7 +20,12 @@ Two layouts of the layer stack, as there:
   one microbatch layer by layer here (the same schedule at one stage), so
   a pipeline-trained checkpoint serves on one card. A batch that
   ``n_micro`` does not divide raises under a live stage axis of more than
-  one rank and runs as one microbatch at one.
+  one rank and runs as one microbatch at one. Beside a model axis each
+  stage's stacked tensors are also split over the model ranks
+  (``parallel.mesh.shard_params``, the split dim past the depth axis), and
+  each depth slice runs split. A stacked stack takes
+  self-attention with a padding mask only: the other arguments raise, as
+  there.
 
 Dropout inside a stacked stack cannot follow JAX's
 ``fold_in(base, layer * n_micro + mb)`` keys, which torch cannot
@@ -32,6 +43,7 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -47,6 +59,10 @@ from .layers import FastDropout, set_dropout_generator
 from .norms import AdaptiveLayerNorm, LayerNorm
 
 _M63 = 2**63 - 1
+
+#: what a stacked stack raises with on what it does not take (JAX's words)
+STACKED_ONLY = ("pipeline=True transformers support self-attention with a padding mask "
+                "only (no cross-attention / explicit attention masks / AdaLN / KV caches)")
 
 
 @dataclass
@@ -80,13 +96,19 @@ class TransformerLayer(nn.Module):
         self.feed_forward = FeedForward(
             build_config(FeedForwardConfig, as_dict(cfg.feed_forward), dim=cfg.dim))
 
-    def forward(self, x, mask=None, adaptive_condition=None):
+    def forward(self, x, mask=None, adaptive_condition=None, context=None, context_mask=None,
+                attention_mask=None, cache=None, return_cache=False):
+        """(B, N, dim) out; with ``return_cache`` (out, the attention's (k, v))."""
         if self.adaptive_norm and adaptive_condition is None:
             raise ValueError("adaptive_condition must be provided for AdaptiveLayerNorm")
         fmask = mask[..., None].to(x.dtype) if mask is not None else None
         residual = x
         out = self.attention_norm(x, adaptive_condition) if self.pre_norm else x
-        out = self.attention(out, mask=mask)
+        out = self.attention(out, mask=mask, context=context, context_mask=context_mask,
+                             attention_mask=attention_mask, cache=cache,
+                             return_cache=return_cache)
+        if return_cache:
+            out, new_cache = out
         out = out + residual
         if not self.pre_norm:
             out = self.attention_norm(out, adaptive_condition)
@@ -100,7 +122,14 @@ class TransformerLayer(nn.Module):
             out = self.feed_forward_norm(out, adaptive_condition)
         if fmask is not None:
             out = out * fmask
-        return out
+        return (out, new_cache) if return_cache else out
+
+
+class TransformerOutput(NamedTuple):
+    """A stack's output with the layers' KV caches (``return_cache``)."""
+
+    out: torch.Tensor
+    cache: list | None = None
 
 
 @dataclass
@@ -142,8 +171,7 @@ class Transformer(nn.Module):
         layers = [TransformerLayer(layer_cfg) for _ in range(cfg.depth)]
         if cfg.pipeline:
             if cfg.adaptive_norm:
-                raise ValueError("pipeline=True transformers take self-attention with a "
-                                 "padding mask only (no AdaLN)")
+                raise ValueError(STACKED_ONLY)
             self.layers = None
             self.stack = _stacked_layer(layers)
             #: (first global layer, layers) this rank holds (shard_stages)
@@ -165,7 +193,17 @@ class Transformer(nn.Module):
         self.norm = nn.LayerNorm(cfg.dim, eps=1e-6) if layer_cfg.pre_norm else None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                adaptive_condition: torch.Tensor | None = None) -> torch.Tensor:
+                adaptive_condition: torch.Tensor | None = None,
+                context: torch.Tensor | None = None,
+                context_mask: torch.Tensor | None = None,
+                attention_mask: torch.Tensor | None = None,
+                cache: list | None = None, return_cache: bool = False):
+        """x (B, N, emb_dim); mask (B, N). ``context``/``context_mask``,
+        ``attention_mask`` and ``cache`` (one (k, v) a layer) reach every
+        layer's attention. Returns (B, N, dim), or a
+        :class:`TransformerOutput` with the layers' new caches when
+        ``return_cache``. A stacked stack takes self-attention with a
+        padding mask only, as the JAX package's."""
         if self.use_abs_pos_emb:
             x = x + fixed_positional_embedding(x.shape[1], self.emb_dim,
                                                device=x.device, dtype=x.dtype)
@@ -177,19 +215,26 @@ class Transformer(nn.Module):
             # package's ``stream_dtype``: its adds are bf16 under bf16 autocast
             # (the norms still take their statistics in f32)
             x = x.to(torch.get_autocast_dtype(dev))
+        new_caches = []
         if self.stack is not None:
-            if adaptive_condition is not None:
-                raise ValueError("pipeline=True transformers take self-attention with a "
-                                 "padding mask only (no AdaLN)")
+            if (context is not None or attention_mask is not None
+                    or adaptive_condition is not None or cache is not None or return_cache):
+                raise ValueError(STACKED_ONLY)
             x = self._stacked_forward(x, mask)
         else:
-            for layer in self.layers:
-                x = layer(x, mask=mask, adaptive_condition=adaptive_condition)
+            for i, layer in enumerate(self.layers):
+                x = layer(x, mask=mask, adaptive_condition=adaptive_condition, context=context,
+                          context_mask=context_mask, attention_mask=attention_mask,
+                          cache=cache[i] if cache is not None else None,
+                          return_cache=return_cache)
+                if return_cache:
+                    x, layer_cache = x
+                    new_caches.append(layer_cache)
         if self.norm is not None:
             x = self.norm(x.float())
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
-        return x
+        return TransformerOutput(out=x, cache=new_caches) if return_cache else x
 
     # -- the stacked layer stack -------------------------------------------------
 

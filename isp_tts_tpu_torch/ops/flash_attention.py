@@ -143,13 +143,20 @@ def head_keep_mask(B: int, H: int, N: int, M: int, seed: torch.Tensor, thresh: i
     return keep_hash(idx, seed.to(torch.int64), thresh)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in the plain versions' math type: f32, or f64 for an f64 input
+    (an exact reference to hold f32 results against)."""
+    return x.double() if x.dtype == torch.float64 else x.float()
+
+
 def _geometry(N, M, offset, slopes, device):
-    """(dist (N, M), lower (N, M), bias (N, H, M)) of the in-kernel ALiBi."""
+    """(dist (N, M), lower (N, M), bias (N, H, M)) of the in-kernel ALiBi,
+    in the slopes' math type (:func:`_wide`)."""
     n = torch.arange(N, device=device)[:, None]
     c = torch.arange(M, device=device)[None, :]
-    dist = -(c - n - offset).abs().float()
+    sl = _wide(slopes)
+    dist = -(c - n - offset).abs().to(sl.dtype)
     lower = c <= n + offset
-    sl = slopes.float()
     bias = torch.where(lower[:, None, :], sl[0][None, :, None] * dist[:, None, :],
                        sl[1][None, :, None] * dist[:, None, :])
     return dist, lower, bias
@@ -164,6 +171,26 @@ def _valid(key_lens, lower, causal, M, device):
     return valid[:, :, None, :]
 
 
+def _slope_arms(key_lens, offset, causal, N, M, device, dtype):
+    """(B, N, 1, M) -|c - c*| with c* the key nearest n + offset of those
+    query n may attend: each key's distance from the row's nearest valid
+    key, in the slope gradients' sums. Where a row's valid keys straddle
+    n + offset, c* = n + offset and this is the ALiBi distance; where they
+    all lie on one side (a far offset, a query past the key length) the
+    two differ by a constant of the row, over which ds sums to zero in
+    exact arithmetic. Summed over the ALiBi distance instead, delta's error
+    (rowsum(dO * O) on the forward's rounded o) times that constant (up to
+    |offset|) swamps the slope gradient: 1e-2 of it in f32 and O(1) in
+    bf16 at a cross-attention offset of -832 on an H100."""
+    nb = torch.arange(N, device=device) + offset  # (N,)
+    lim = key_lens.to(device).long().clamp(0, M)[:, None].expand(-1, N)  # keys [0, lim)
+    if causal:
+        lim = torch.minimum(lim, (nb + 1).clamp_min(0)[None, :])
+    near = torch.minimum(nb.clamp_min(0)[None, :], (lim - 1).clamp_min(0))  # (B, N)
+    c = torch.arange(M, device=device)
+    return -(c[None, None, :] - near[..., None]).abs().to(dtype)[:, :, None, :]
+
+
 def _keep(drop, mask_fn):
     """The dropped probabilities' multiplier (B, N, H, M), or None."""
     if drop is None:
@@ -172,21 +199,23 @@ def _keep(drop, mask_fn):
 
 
 def _heads(k, H):
-    """k/v (B, M, Hkv, D) as (B, M, H, D) f32: one key/value head is shared."""
-    kf = k.float()
+    """k/v (B, M, Hkv, D) as (B, M, H, D) in their math type (:func:`_wide`):
+    one key/value head is shared."""
+    kf = _wide(k)
     return kf.expand(-1, -1, H, -1) if kf.shape[2] == 1 else kf
 
 
 @no_autocast
 def _attention_reference(q, k, v, slopes, key_lens, scale, offset, q_lens, causal, keep):
     """The plain forward of both families: q (B, N, H, D), k/v (B, M, Hkv,
-    D), ``keep`` from :func:`_keep`. Returns (o in q's dtype, lse (B, N, H)
-    f32, +inf on dead rows)."""
+    D), ``keep`` from :func:`_keep`; math in f32, or in f64 for f64 inputs.
+    Returns (o in q's dtype, lse (B, N, H) in the math type, +inf on dead
+    rows)."""
     B, N, H, _ = q.shape
     M = k.shape[1]
     dev = q.device
     _, lower, bias = _geometry(N, M, offset, slopes, dev)
-    s = torch.einsum("bnhd,bmhd->bnhm", q.float(), _heads(k, H)) * scale + bias[None]
+    s = torch.einsum("bnhd,bmhd->bnhm", _wide(q), _heads(k, H)) * scale + bias[None]
     valid = _valid(key_lens, lower, causal, M, dev)
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
@@ -210,16 +239,17 @@ def _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse, do, scale, offse
                              causal, keep):
     """The plain backward of both families from the saved o and lse
     (B, N, H). Returns (dq, dk, dv in their inputs' dtypes, dk/dv summed
-    over the heads that share a key/value head; dslopes (2, H) f32)."""
+    over the heads that share a key/value head; dslopes (2, H) in the math
+    type: f32, or f64 for f64 inputs)."""
     B, N, H, _ = q.shape
     M = k.shape[1]
     dev = q.device
-    dist, lower, bias = _geometry(N, M, offset, slopes, dev)
-    qf, kf, vf, dof = q.float(), _heads(k, H), _heads(v, H), do.float()
+    _, lower, bias = _geometry(N, M, offset, slopes, dev)
+    qf, kf, vf, dof = _wide(q), _heads(k, H), _heads(v, H), _wide(do)
     s = torch.einsum("bnhd,bmhd->bnhm", qf, kf) * scale + bias[None]
     s = s.masked_fill(~_valid(key_lens, lower, causal, M, dev), NEG_INF)
     p = torch.exp(s - lse[..., None])
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    delta = (dof * _wide(o)).sum(dim=-1, keepdim=True)
     dp = torch.einsum("bnhd,bmhd->bnhm", dof, vf)
     pv = p
     if keep is not None:
@@ -231,7 +261,7 @@ def _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse, do, scale, offse
     dk = torch.einsum("bnhm,bnhd->bmhd", ds, qf) * scale
     if k.shape[2] == 1:
         dk, dv = dk.sum(dim=2, keepdim=True), dv.sum(dim=2, keepdim=True)
-    dsd = ds * dist[None, :, None, :]
+    dsd = ds * _slope_arms(key_lens, offset, causal, N, M, dev, ds.dtype)
     low = lower[None, :, None, :]
     dslopes = torch.stack([torch.where(low, dsd, 0.0).sum(dim=(0, 1, 3)),
                            torch.where(low, 0.0, dsd).sum(dim=(0, 1, 3))])
@@ -241,7 +271,8 @@ def _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse, do, scale, offse
 def mqa_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
                             q_lens=None, causal=False, dropout_rate=0.0, seed=None,
                             batch0=0, head0=0, heads_total=None):
-    """Plain version of K1. Shapes as in :func:`mqa_fwd`; math in f32.
+    """Plain version of K1. Shapes as in :func:`mqa_fwd`; math in f32 (f64
+    for f64 inputs).
 
     Returns (o (B, N, H, D) in q's dtype, lse (B, N*H) f32).
     """
@@ -277,7 +308,8 @@ def mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale
 def flash_attention_reference(q, k, v, slopes, key_lens, scale, offset=0,
                               q_lens=None, causal=False, dropout_rate=0.0, seed=None,
                               batch0=0, head0=0, heads_total=None):
-    """Plain version of K5a. Shapes as in :func:`flash_fwd`; math in f32.
+    """Plain version of K5a. Shapes as in :func:`flash_fwd`; math in f32
+    (f64 for f64 inputs).
 
     Returns (o (B, N, H, D) in q's dtype, lse (B, H, N) f32).
     """
@@ -303,6 +335,40 @@ def flash_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, sca
         B, H, N, M, seed, thresh, batch0, head0, heads_total).permute(0, 2, 1, 3))
     return _attention_bwd_reference(q, k, v, slopes, key_lens, o, lse.transpose(1, 2),
                                     do, scale, offset, causal, keep)
+
+
+@no_autocast
+def masked_attention(q, k, v, scale, bias=None, mask=None, causal=False, drop=None):
+    """Attention with an additive bias and a boolean mask: the counterpart of
+    ``isp_tts_tpu/ops/attention.py:scaled_dot_product_attention``, the plain
+    path of calls the kernels do not take (an explicit attention mask,
+    cross-attention under "auto"). No kernel stands behind it.
+
+    q (B, N, H, D), k/v (B, M, Hkv, D) with Hkv in {1, H}; ``bias``
+    broadcastable to (B, H, N, M) (ALiBi); ``mask`` bool broadcastable to
+    (B, H, N, M), True = attend; ``causal`` lets query i see keys up to
+    i + M - N; ``drop`` maps the (B, H, N, M) probabilities to their dropped
+    values (after the normaliser, as there). Math in f32 (f64 for f64
+    inputs); fully masked query rows give zeros. Returns (B, N, H, D) in q's dtype.
+    """
+    H = q.shape[2]
+    n, m = q.shape[1], k.shape[1]
+    logits = torch.einsum("bnhd,bmhd->bhnm", _wide(q), _heads(k, H)) * scale
+    if bias is not None:
+        logits = logits + _wide(bias)
+    if causal:
+        lower = (torch.arange(m, device=q.device)[None, :]
+                 <= torch.arange(n, device=q.device)[:, None] + (m - n))
+        mask = lower if mask is None else mask & lower
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full((), NEG_INF, device=q.device))
+    unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
+    if mask is not None:
+        unnorm = torch.where(mask, unnorm, torch.zeros((), device=q.device))
+    probs = unnorm / unnorm.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if drop is not None:
+        probs = drop(probs)
+    return torch.einsum("bhnm,bmhd->bnhd", probs, _heads(v, H)).to(q.dtype)
 
 
 def _check(q, k, v, slopes, key_lens, q_lens, seed, *more, per_head=False):

@@ -29,14 +29,18 @@ named by the caller), and the collectives are explicit:
   The one-KV-head ``to_kv`` and the ALiBi slopes stay replicated: inside a
   split layer each rank's gradient of them is partial, and
   :func:`reduce_gradients` sums it over the model group before the data
-  mean;
+  mean. A stacked layer stack (``stack.*``, a leading depth axis) splits by
+  the same rules one dim further right, as the JAX rules shift their specs,
+  and its layer runs split on each depth slice; beside a stage axis its
+  tensors are both split over the model ranks and cut over the stages;
 - :func:`reduce_gradients` and :func:`global_grad_norm`: the data mean of
   every gradient in a few flat buckets, and the global norm that counts a
   split tensor once from all its shards (a stage's layers once across the
-  stage group, a replicated tensor once, never summed over seq peers,
-  whose gradients are identical);
+  stage group, a stage's model shards once across both groups, a
+  replicated tensor once, never summed over seq peers, whose gradients are
+  identical);
 - :func:`full_parameters` / :func:`gather_split` / :func:`slice_split`:
-  split tensors (model shards, a stage's layers) gathered for a
+  split tensors (model shards, a stage's layers, both) gathered for a
   checkpoint (a file equal to one rank's) and sliced again on load;
 - :func:`barrier`, :func:`gather_to_host`, :func:`init_distributed`,
   :func:`process_local_mesh_info`.
@@ -415,10 +419,14 @@ def shard_params(model: torch.nn.Module, ctx: ParallelContext | None = None,
     A module runs split when every one of its parameters that a rule
     matches divides into whole granules (heads for attention) over the
     model ranks; otherwise all of them stay replicated, as the JAX rules
-    replicate an indivisible tensor. A split parameter carries
-    ``tp_split = (dim, halves)``; inside a split attention layer the
-    replicated ``to_kv`` and slopes carry ``tp_partial`` (their gradient
-    is summed over the model group). With one model rank nothing changes.
+    replicate an indivisible tensor. Inside a stacked layer stack (``stack``
+    in the module's path) every parameter leads with the depth axis, so the
+    split dim is the rule's plus one (JAX's specs shifted right by one,
+    whatever the stage count); each depth slice is then one layer's share.
+    A split parameter carries ``tp_split = (dim, halves)``; inside a split
+    attention layer the replicated ``to_kv`` and slopes carry
+    ``tp_partial`` (their gradient is summed over the model group). With
+    one model rank nothing changes.
     """
     from ..nn.feedforward import FeedForward
 
@@ -431,8 +439,9 @@ def shard_params(model: torch.nn.Module, ctx: ParallelContext | None = None,
     tp = TensorSplit(ctx.model_rank, size, ctx.group("model"))
     for mname, mod in model.named_modules():
         units = _split_units(mod)
-        if units is None or "stack" in mname.split("."):
-            continue  # a stacked layer stack's layers stay whole
+        if units is None:
+            continue
+        lead = int("stack" in mname.split("."))  # a stacked stack's depth axis
         params = dict(mod.named_parameters())
         plan = {}
         for pname, (granule, halves) in units.items():
@@ -442,7 +451,7 @@ def shard_params(model: torch.nn.Module, ctx: ParallelContext | None = None,
             dim = next((d for pattern, d in rules if re.search(pattern, "." + full)), None)
             if dim is None:
                 continue
-            plan[pname] = (full, dim, granule, halves)
+            plan[pname] = (full, dim + lead, granule, halves)
         if not plan or any(params[p].shape[d] % (h * g * size)
                            for p, (_, d, g, h) in plan.items()):
             continue
@@ -507,28 +516,30 @@ def gather_stages(t: torch.Tensor, ctx: ParallelContext | None = None) -> torch.
 
 def local_part(param: torch.Tensor, full: torch.Tensor,
                ctx: ParallelContext | None = None) -> torch.Tensor:
-    """This rank's part of a parameter-shaped full tensor: its model shard
-    or its stage's layers (the full tensor when ``param`` is whole)."""
+    """This rank's part of a parameter-shaped full tensor: its stage's
+    layers, its model shard of them (the full tensor when ``param`` is
+    whole)."""
     ctx = ctx or get_parallel_context()
-    split = getattr(param, "tp_split", None)
-    if split is not None:
-        return slice_split(full, *split, ctx.model_rank, ctx.model_size)
     if getattr(param, "stage_split", None):
         per = full.shape[0] // ctx.stage_size
-        return full[ctx.stage_rank * per:(ctx.stage_rank + 1) * per]
+        full = full[ctx.stage_rank * per:(ctx.stage_rank + 1) * per]
+    split = getattr(param, "tp_split", None)
+    if split is not None:
+        full = slice_split(full, *split, ctx.model_rank, ctx.model_size)
     return full
 
 
 def full_part(param: torch.Tensor, local: torch.Tensor,
               ctx: ParallelContext | None = None) -> torch.Tensor:
     """The full tensor of a parameter-shaped part (every rank of the split
-    calls it: a collective over the model or the stage group)."""
+    calls it: a collective over the model group, then over the stage
+    group)."""
     ctx = ctx or get_parallel_context()
     split = getattr(param, "tp_split", None)
     if split is not None:
-        return gather_split(local, split, ctx)
+        local = gather_split(local, split, ctx)
     if getattr(param, "stage_split", None):
-        return gather_stages(local, ctx)
+        local = gather_stages(local, ctx)
     return local
 
 
@@ -604,19 +615,22 @@ def global_grad_norm(grads: list[torch.Tensor], params: list[torch.nn.Parameter]
     from ..training.optimizers import grad_norm
 
     ctx = ctx or get_parallel_context()
-    kinds: dict[str, list[torch.Tensor]] = {"model": [], "stage": [], "whole": []}
+    #: (model-split, stage-cut) -> the gradients of that kind
+    kinds: dict[tuple[bool, bool], list[torch.Tensor]] = {}
     for g, p in zip(grads, params):
-        kind = ("model" if getattr(p, "tp_split", None) is not None
-                else "stage" if getattr(p, "stage_split", None) else "whole")
-        kinds[kind].append(g)
-    if not (kinds["model"] or kinds["stage"]):
+        kind = (getattr(p, "tp_split", None) is not None,
+                bool(getattr(p, "stage_split", None)))
+        kinds.setdefault(kind, []).append(g)
+    if set(kinds) <= {(False, False)}:
         return grad_norm(grads)
-    sq = grad_norm(kinds["whole"]).square() if kinds["whole"] else 0.0
-    for axis in ("model", "stage"):
-        if kinds[axis]:
-            part = grad_norm(kinds[axis]).square()
-            dist.all_reduce(part, group=ctx.group(axis))
-            sq = sq + part
+    sq = 0.0
+    for (split, cut) in sorted(kinds):  # every rank reduces in one order
+        part = grad_norm(kinds[(split, cut)]).square()
+        if split:
+            dist.all_reduce(part, group=ctx.group("model"))
+        if cut:
+            dist.all_reduce(part, group=ctx.group("stage"))
+        sq = sq + part
     return sq.sqrt()
 
 

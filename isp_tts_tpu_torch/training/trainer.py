@@ -38,8 +38,8 @@ seq=mesh_seq_axis, stage=mesh_pipeline_axis)``, as the JAX trainer's mesh
 does: each data rank loads its contiguous rows of every global batch
 (fixed-shape collation, so every rank pads to one shape), and the ranks
 that differ only along the other axes load the same rows; the model axis
-splits the attention heads and the feed-forward inner dim
-(``parallel.mesh.shard_params``); the seq axis rings ``flash: ring``
+splits the attention heads and the feed-forward inner dim, in stacked
+layer stacks too (``parallel.mesh.shard_params``); the seq axis rings ``flash: ring``
 attention over its ranks; the stage axis cuts ``pipeline: true`` layer
 stacks into stages (``parallel.mesh.shard_stages``) run as a GPipe
 schedule of ``pipeline_microbatches``. Everything else is computed alike
@@ -48,7 +48,7 @@ equal. After each micro-step's backward the gradients are averaged over
 the data group alone in a few flat buckets (so the logged micro-step
 gradient norm is the global micro-batch's, as JAX logs it) and the clip
 reads the global norm (a stage's layers counted once over the stage
-group); every rank's generator is the same stream and each keeps its rows
+group, a model shard of them once over both groups); every rank's generator is the same stream and each keeps its rows
 of the global draws, so N ranks compute one rank's step. Metrics are
 averaged over the data group; rank 0 alone logs and writes checkpoints,
 with split tensors, a stage's layers and their moments gathered, between

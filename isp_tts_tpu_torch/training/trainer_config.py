@@ -10,8 +10,8 @@ splits heads and feed-forward dims over that many ranks,
 ``mesh_pipeline_axis`` cuts ``pipeline: true`` layer stacks into that many
 stages, streaming ``pipeline_microbatches`` microbatches through them. Each
 above 1 needs a process group (``--distributed``); ``num_devices`` caps the
-ranks. A model axis with a pipeline axis is refused here (ROADMAP Queue 1,
-item 4). The JAX settings with no counterpart (``IGNORED_KEYS``) are
+ranks. A model axis beside a pipeline axis splits each stage's stacked
+layers over the model ranks. The JAX settings with no counterpart (``IGNORED_KEYS``) are
 accepted and change nothing.
 """
 
@@ -25,12 +25,6 @@ from .optimizers import OptimizationConfig
 
 #: precision names the trainer computes
 PRECISIONS = ("bf16", "bfloat16", "fp16", "float16", "fp32", "float32")
-
-#: what a model axis together with a pipeline axis raises with
-MODEL_STAGE_NOT_PORTED = (
-    "a model axis with a pipeline axis: the tensor-parallel split of stacked layer "
-    "stacks is not ported (ROADMAP Queue 1, item 4); use mesh_model_axis or "
-    "mesh_pipeline_axis")
 
 
 @dataclass
@@ -123,8 +117,6 @@ class TrainerConfig:
                      "pipeline_microbatches"):
             if int(getattr(self, axis)) < 1:
                 raise ValueError(f"{axis} must be >= 1")
-        if self.mesh_model_axis > 1 and self.mesh_pipeline_axis > 1:
-            raise NotImplementedError(MODEL_STAGE_NOT_PORTED)
         if int(self.steps_per_call) < 1:
             raise ValueError("steps_per_call must be >= 1")
         self.do_train = self.do_train and not self.eval_mode

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import isp_tts_tpu.ops.flash_attention as fa
+import isp_tts_tpu_torch.ops.flash_attention as pfa
 from isp_tts_tpu.nn.embeddings import alibi_slopes
 from isp_tts_tpu_torch.ops.flash_attention import (flash_attention_reference,
                                                    flash_bwd_reference,
@@ -79,6 +80,16 @@ def _rel(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
 
+def _alibi_arms(key_lens, offset, causal, N, M, device, dtype):
+    """The TPU kernels' slope-gradient distances, -|c - n - offset|, in
+    place of the port's ``_slope_arms`` (each key's distance from the row's
+    nearest valid key): the two differ by a constant of each row whose
+    valid keys all lie on one side of n + offset."""
+    n = torch.arange(N, device=device)[:, None]
+    c = torch.arange(M, device=device)[None, :]
+    return -(c - n - offset).abs().to(dtype)[None, :, None, :]
+
+
 def _one_rounding_apart(a, b):
     a, b = a.float(), b.float()
     return bool(((a - b).abs() <= ULP * b.abs() + 1e-6).all())
@@ -93,7 +104,7 @@ K2_CASES = [  # B, N, M, H, offset, causal, rate, key_lens, q_lens
 
 @pytest.mark.parametrize("B,N,M,H,offset,causal,rate,key_lens,q_lens", K2_CASES)
 def test_plain_k2_bf16_matches_jax_grad_through_pallas(B, N, M, H, offset, causal, rate,
-                                                       key_lens, q_lens):
+                                                       key_lens, q_lens, monkeypatch):
     q, k, v, do, slopes, kl, ql = _inputs(B, N, M, H, None, key_lens, q_lens)
     seed = jnp.asarray([SEED], jnp.int32)
     kl_j, ql_j = jnp.asarray(kl.numpy()), jnp.asarray(ql.numpy())
@@ -116,7 +127,13 @@ def test_plain_k2_bf16_matches_jax_grad_through_pallas(B, N, M, H, offset, causa
     assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert _rel(a, _torch(b)) <= BF16_BOUND, name
-    # the slope gradient takes the f32 ds on both sides, delta on the same o
+    # the slope gradient takes the f32 ds on both sides, delta on the same
+    # o; over the TPU kernel's distances (the last case's second row has
+    # every valid key below n + offset, where the port's sum differs by
+    # delta's error times a constant of each row: the next tests)
+    monkeypatch.setattr(pfa, "_slope_arms", _alibi_arms)
+    got = mqa_bwd_reference(q, k, v, slopes, kl, ql, torch.tensor([SEED], dtype=torch.int32),
+                            o, lse, do, SCALE, offset, causal, rate)
     assert _rel(got[3], _torch(ref[3])) <= F32_SUM
 
 
@@ -171,8 +188,9 @@ def test_bf16_o_moves_the_slope_gradient_through_delta(B, N, M, H, Hkv, offset, 
     forward to f32 rounding (1e-4 of max-abs); from the same o rounded to
     bf16, as the forward kernels and the TPU kernels save it, dslopes moves
     by far more: delta = rowsum(dO * O) shifts by O's rounding, and dslopes
-    is a sum with cancellation of ds * dist. So a bf16 kernel's dslopes is
-    held to the plain backward on its own saved o, not to autograd."""
+    is a sum with cancellation of ds times the distances. So a bf16
+    kernel's dslopes is held to the plain backward on its own saved o, not
+    to autograd."""
     rng = np.random.RandomState(1)
     kv = (B, M, 64) if Hkv is None else (B, M, Hkv, 64)
     q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).bfloat16().float()
@@ -197,6 +215,53 @@ def test_bf16_o_moves_the_slope_gradient_through_delta(B, N, M, H, Hkv, offset, 
     bf16_errs = [_rel(a, b) for a, b in zip(from_bf16, auto)]
     assert max(f32_errs) <= 1e-4, f32_errs
     # dq, dk and dv stay within the bf16 bound; dslopes moves by more than
-    # a hundred times its f32 reading
+    # a hundred times its f32 reading (7.8e-4 to 5.6e-3 of its max-abs)
     assert max(bf16_errs[:3]) <= BF16_BOUND, bf16_errs
-    assert bf16_errs[3] > 100 * f32_errs[3] and bf16_errs[3] > 1e-3, (f32_errs, bf16_errs)
+    assert bf16_errs[3] > 100 * f32_errs[3] and bf16_errs[3] > 5e-4, (f32_errs, bf16_errs)
+
+
+FAR_CASES = [  # B, N, M, H, Hkv (None: K2), offset, causal
+    (4, 320, 48, 6, None, -272, False),  # cross-attention: mel 320 against text 48
+    (4, 320, 48, 6, 6, -272, False),
+    (3, 200, 40, 6, None, -160, False),
+    (4, 96, 160, 4, 1, 100, True),  # queries past short key lengths
+]
+
+
+@pytest.mark.parametrize("B,N,M,H,Hkv,offset,causal", FAR_CASES)
+def test_slope_gradient_sums_distances_from_the_nearest_valid_key(B, N, M, H, Hkv, offset,
+                                                                  causal, monkeypatch):
+    """Where a row's valid keys all lie on one side of n + offset, the
+    ALiBi distances of its keys share a constant, over which ds sums to
+    zero in exact arithmetic but not on the forward's rounded o (delta's
+    error): summed over the ALiBi distances, that error times the constant
+    swamps the slope gradient. The plain backwards sum each key's distance
+    from the row's nearest valid key instead: against float64 autograd
+    through the plain forward, within F32_SUM from an f32 o and
+    BF16_BOUND from a bf16 o, where the ALiBi distances read three to
+    twenty times further in bf16."""
+    rng = np.random.RandomState(2)
+    kv = (B, M, 64) if Hkv is None else (B, M, Hkv, 64)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   for shape in ((B, N, H, 64), kv, kv, (B, N, H, 64)))
+    sl = np.asarray(alibi_slopes(H), np.float32)
+    slopes = torch.from_numpy(np.stack([sl, sl * 0.5]))
+    kl = torch.tensor([M] + [M // 2 + 3] * (B - 1), dtype=torch.int32)
+    ql = torch.tensor([N] + [N - 7] * (B - 1), dtype=torch.int32)
+    seed = torch.tensor([29], dtype=torch.int32)
+    fwd, bwd = ((mqa_attention_reference, mqa_bwd_reference) if Hkv is None
+                else (flash_attention_reference, flash_bwd_reference))
+    args = [x.double().requires_grad_() for x in (q, k, v, slopes)]
+    o, _ = fwd(*args, kl, SCALE, offset, ql, causal)
+    (o * do.double()).sum().backward()
+    exact = args[3].grad
+    o, lse = fwd(q, k, v, slopes, kl, SCALE, offset, ql, causal)
+
+    def reading(o_):
+        return _rel(bwd(q, k, v, slopes, kl, ql, seed, o_, lse, do, SCALE, offset, causal)[3],
+                    exact)
+
+    f32, bf16 = reading(o), reading(o.bfloat16().float())
+    assert f32 <= F32_SUM and bf16 <= BF16_BOUND, (f32, bf16)
+    monkeypatch.setattr(pfa, "_slope_arms", _alibi_arms)
+    assert reading(o.bfloat16().float()) > 2 * bf16

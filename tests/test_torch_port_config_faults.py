@@ -1,11 +1,12 @@
 """Settings the port either computes as the JAX package does or refuses,
 and the bf16 residual stream, on the CPU.
 
-- ``build_config`` raises on a key its dataclass does not declare, and a
-  declared option the port does not compute (seq and pipeline mesh axes
-  above 1, also beside a model axis the port computes,
-  ``context_dim``, a head dim other than 64 with ``flash`` on) raises at
-  any value but the JAX default. Keys that cannot change what the port computes are listed per
+- ``build_config`` raises on a key its dataclass does not declare, on a
+  value no package takes (a mesh axis below 1), and a declared option the
+  port does not compute (a head dim other than 64 with ``flash`` on, in a
+  layer or in a model's stack) raises at any value but the JAX default;
+  cross-attention's ``context_dim`` and a model axis beside a pipeline
+  axis build. Keys that cannot change what the port computes are listed per
   dataclass (``IGNORED_KEYS``); the committed checkpoint's embedded config
   has no other undeclared key.
 - ``sigma`` and ``detach_inputs`` of the adaptor's temporal modules give
@@ -43,15 +44,15 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
 
 
 @pytest.mark.parametrize("cls,cfg,error", [
-    (TrainerConfig, {"mesh_model_axis": 2, "mesh_pipeline_axis": 2}, NotImplementedError),
+    (TrainerConfig, {"mesh_model_axis": 0, "mesh_pipeline_axis": 2}, ValueError),
     (TrainerConfig, {"pipeline_microbatches": 0}, ValueError),
     (TrainerConfig, {"precision": "int8"}, ValueError),
     (TrainerConfig, {"deepspeed": True}, ValueError),
-    (AttentionConfig, {"context_dim": 128}, NotImplementedError),
+    (AttentionConfig, {"context_dim": 128, "heads": 2, "head_dim": 128}, NotImplementedError),
     (AttentionConfig, {"kv_cache": True}, ValueError),
     (AcousticModelConfig, dict(SMALL, encoder=dict(SMALL["encoder"], transformer_layer=dict(
         SMALL["encoder"]["transformer_layer"], attention=dict(
-            SMALL["encoder"]["transformer_layer"]["attention"], context_dim=64)))),
+            SMALL["encoder"]["transformer_layer"]["attention"], head_dim=32)))),
      NotImplementedError),
     (AcousticModelConfig, dict(SMALL, vocoder="vocos"), ValueError),
     (AttentionConfig, {"heads": 2, "head_dim": 32}, NotImplementedError),
@@ -81,6 +82,9 @@ def test_defaults_ignored_and_meta_keys_build():
                                        "resume_from_checkpoint": "run/last.ckpt"})
     assert (cfg.precision, cfg.finetune_layers) == ("fp16", ["decoder"])
     assert build_config(AttentionConfig, {"context_dim": None}).context_dim is None
+    assert build_config(AttentionConfig, {"context_dim": 128}).context_dim == 128
+    cfg = build_config(TrainerConfig, {"mesh_model_axis": 2, "mesh_pipeline_axis": 2})
+    assert (cfg.mesh_model_axis, cfg.mesh_pipeline_axis) == (2, 2)
     assert build_config(AcousticModelConfig, dict(SMALL, audio_config={"n_fft": 1024}))
 
 

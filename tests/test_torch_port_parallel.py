@@ -7,10 +7,13 @@
 - ``shard_params`` over the port's names against the JAX rules' choices on
   the same model over a model axis of the conftest's virtual devices,
   including the GLU halves and an indivisible tensor;
+- ``shard_params`` on a stacked layer stack: the JAX rules' choices with
+  the split dim shifted right by one past the depth axis, each depth slice
+  a layer's share;
 - ``barrier`` and ``gather_to_host`` in one process; the seq and stage
-  axes build, a model axis with a stage axis is refused at config time
-  naming the ROADMAP item, and a layout that splits the seq or stage axis
-  without its process group raises (no rank computes the whole alone);
+  axes build, a model axis beside a stage axis builds, and a layout that
+  splits the seq or stage axis without its process group raises (no rank
+  computes the whole alone);
 - the dropout hash of a shard: the plain versions of K1/K2 and K5a/K5b
   called with a batch offset and a head slice give the keep masks of the
   matching slice of the whole call bit for bit and outputs within 1e-6;
@@ -92,9 +95,9 @@ def test_seq_and_stage_axes_build(kwargs):
     assert all(getattr(cfg, k) == v for k, v in kwargs.items())
 
 
-def test_model_with_stage_is_refused_and_no_split_runs_without_its_group():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        TrainerConfig(mesh_model_axis=2, mesh_pipeline_axis=2)
+def test_model_with_stage_builds_and_no_split_runs_without_its_group():
+    cfg = TrainerConfig(mesh_model_axis=2, mesh_pipeline_axis=2)
+    assert (cfg.mesh_model_axis, cfg.mesh_pipeline_axis) == (2, 2)
     for axis in ("seq", "stage"):
         layout = pmesh.make_mesh(data=1, world_size=2, **{axis: 2})
         with pytest.raises(ValueError, match=f"must name its {axis} axis"):
@@ -222,6 +225,37 @@ def test_shard_params_makes_the_jax_rules_choices(model, inner, heads):
         assert all(getattr(p, "tp_partial", False) == (".to_kv." in n or ".rel_pos." in n)
                    for n, p in pm.named_parameters()
                    if n.split(".attention.")[0] + ".attention.to_q.weight" in splits)
+
+
+def test_shard_params_shifts_the_rules_on_a_stacked_stack():
+    """The stacked decoder (``stack.*``, depth 2) splits the tensors the JAX
+    rules shard (``tests/test_parallel.py::test_shard_params_stacked_tp_shift``:
+    the stacked ``fc1`` kernel (depth, in, out) on axis 2, here the weight
+    (depth, out, in) on dim 1), each rank keeping its share of every
+    layer's slice; the stacked layer then runs split on each slice."""
+    cfg = W.without_dropout(W.PAR_STAGE)
+    jm = JAcousticModel(jax_build_config(JAcousticModelConfig, cfg), rngs=nnx.Rngs(0))
+    full = AcousticModel(build_config(AcousticModelConfig, cfg))
+    full.load_jax_state(jax_flat(jm))
+    jax_name = {n: j for n, (j, _) in full.jax_names().items()}
+    want = _split_by_jax(jm, 2)
+    whole = dict(full.named_parameters())
+    for rank in range(2):
+        pm = AcousticModel(build_config(AcousticModelConfig, cfg))
+        pm.load_state_dict(full.state_dict())
+        with _context(model=2, rank=rank) as ctx:
+            splits = pmesh.shard_params(pm, ctx)
+        assert {jax_name[n] for n in splits} == want
+        assert splits["decoder.stack.feed_forward.fc1.weight"] == (1, 2)  # GLU halves
+        assert splits["decoder.stack.feed_forward.fc2.weight"] == (2, 1)
+        assert splits["decoder.stack.attention.to_q.weight"] == (1, 1)
+        for name, (dim, halves) in splits.items():
+            p = pm.get_parameter(name)
+            assert torch.equal(p.data, pmesh.slice_split(whole[name], dim, halves, rank, 2))
+            assert torch.equal(pmesh.local_part(p, whole[name], ctx), p.data)
+        stack = pm.decoder.stack
+        assert stack.attention.tp is not None and stack.feed_forward.tp is not None
+        assert stack.attention.to_kv.weight.tp_partial
 
 
 def test_heads_and_glu_halves_split_whole_or_not_at_all():

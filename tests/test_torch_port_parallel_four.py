@@ -1,5 +1,6 @@
-"""Four gloo ranks on the CPU, data 2 × model 2, against one rank and
-against the JAX trainer's step on a data 2 × model 2 mesh.
+"""Four gloo ranks on the CPU, data 2 × model 2, seq 2 × stage 2 and model
+2 × stage 2, against one rank and against the JAX trainer's step on the
+same mesh.
 
 The ranks (``torch_port_parallel_workers.py``) start once for the module
 through a ``file://`` store and run both cases:
@@ -18,7 +19,18 @@ through a ``file://`` store and run both cases:
   pair) for 3 steps with live dropout against one rank (ringing alone,
   the stacked decoder locally): loss terms and gradient norm within rel
   1e-4, the first step's gradients within 1e-5 of each tensor's max-abs
-  or twice its float32 floor measured on that model.
+  or twice its float32 floor measured on that model;
+- model 2 × stage 2 (the stacked decoder of 2 layers over 2 stages, each
+  stage's layer split over its 2 model ranks: heads and the GLU's halves,
+  2 microbatches) for 3 steps with live dropout against one rank (the
+  stacked decoder locally): loss terms and gradient norm within rel 1e-4,
+  the first step's gradients (gathered over both groups) within 1e-5 of
+  each tensor's max-abs or twice its float32 floor (the most over
+  ``STAGE_FLOOR_SEEDS``' six draws); and one step without
+  dropout, with JAX's flow draws, against the JAX step on
+  ``make_mesh(model=2, stage=2)`` (the stacked tensors sharded over
+  "stage" and, one dim further right, over "model"): loss terms and
+  gradient norm within rel 1e-4.
 """
 
 import jax
@@ -33,10 +45,10 @@ from isp_tts_tpu.models import AcousticModel as JAcousticModel
 from isp_tts_tpu.models.acoustic import loss as jloss
 from isp_tts_tpu.models.acoustic.model import AcousticModelConfig as JAcousticModelConfig
 from isp_tts_tpu.parallel.mesh import make_mesh, shard_batch, shard_params
-from test_torch_port_parallel_two import _grads_close, _metrics_close
+from test_torch_port_parallel_two import _grads_close, _metrics_close, jax_mesh_step
 from torch_port_common import flow_draws, perturb
 
-CASES = ["data_model", "jax_step", "seq_stage"]
+CASES = ["data_model", "jax_step", "seq_stage", "model_stage", "model_stage_jax"]
 
 
 def jax_mesh_loss(jm, batch: dict, key) -> dict[str, float]:
@@ -69,7 +81,8 @@ def runs(tmp_path_factory):
     x0, t = flow_draws(key, *batch["text_vector"].shape)
     jstage = JAcousticModel(jax_build_config(JAcousticModelConfig, W.PAR_STAGE_LAYERS),
                             rngs=nnx.Rngs(1))
-    W.save_inputs(tmp / "inputs.npz", flat, batch, ws=perturb(jstage, 13), x0=x0, t=t)
+    flat_stage = perturb(jstage, 13)
+    W.save_inputs(tmp / "inputs.npz", flat, batch, ws=flat_stage, x0=x0, t=t)
     procs = W.spawn(4, tmp / "inputs.npz", tmp, CASES, tmp)
     try:
         inputs = dict(np.load(tmp / "inputs.npz"))
@@ -79,11 +92,21 @@ def runs(tmp_path_factory):
                                      **W.one_rank(W.SEQ_STAGE))
         floor_seq_stage = W.one_thread(W.gradient_floor, inputs, tmp / "floor_ss",
                                        one_seq_stage, **W.one_rank(W.SEQ_STAGE))
+        one_model_stage = W.one_thread(W.case_steps, inputs, tmp / "one_ms", model_axis=1,
+                                       **W.one_rank(W.STAGE))
+        floor_model_stage = W.one_thread(W.gradient_floor, inputs, tmp / "floor_ms",
+                                         one_model_stage, seeds=W.STAGE_FLOOR_SEEDS,
+                                         **W.one_rank(W.STAGE))
         jax_loss = jax_mesh_loss(jm, batch, key)
+        jax_model_stage = jax_mesh_step(
+            W.PAR_STAGE, flat_stage, batch, key,
+            make_mesh(data=1, model=2, stage=2, devices=jax.devices()[:4]),
+            stage_axis="stage", n_micro=2)
     finally:
-        W.join(procs, tmp, timeout=180.0)
+        W.join(procs, tmp, timeout=240.0)
     return {"one": one, "floor": floor, "jax": jax_loss, "one_seq_stage": one_seq_stage,
-            "floor_seq_stage": floor_seq_stage,
+            "floor_seq_stage": floor_seq_stage, "one_model_stage": one_model_stage,
+            "floor_model_stage": floor_model_stage, "jax_model_stage": jax_model_stage,
             **{case: dict(np.load(tmp / f"{case}.npz")) for case in CASES}}
 
 
@@ -113,3 +136,22 @@ def test_first_step_gradients_at_seq_2_stage_2_equal_one_rank(runs):
     the ring sums its chunks in another order than the ring of one, and
     the aligner's key convolution amplifies that rounding (~5e-5)."""
     _grads_close(runs["seq_stage"], runs["one_seq_stage"], 1e-5, runs["floor_seq_stage"])
+
+
+def test_three_steps_at_model_2_stage_2_equal_one_rank(runs):
+    assert runs["model_stage"]["m::loss"].shape == (3,)
+    _metrics_close(runs["model_stage"], runs["one_model_stage"], 1e-4)
+
+
+def test_first_step_gradients_at_model_2_stage_2_equal_one_rank(runs):
+    """Every gradient gathered over the model and the stage groups within
+    1e-5 of its max-abs, or twice its float32 floor."""
+    _grads_close(runs["model_stage"], runs["one_model_stage"], 1e-5,
+                 runs["floor_model_stage"])
+
+
+def test_model_2_stage_2_step_equals_the_jax_mesh_step(runs):
+    got, ref = runs["model_stage_jax"], runs["jax_model_stage"]
+    assert {"loss", "stats/grad_norm"} <= set(ref) and set(ref) <= {k[3:] for k in got}
+    for k, v in ref.items():
+        np.testing.assert_allclose(float(got[f"m::{k}"]), v, rtol=1e-4, err_msg=k)

@@ -53,10 +53,11 @@ PAR = {
 }
 
 
-def with_ring(cfg: dict) -> dict:
-    """``cfg`` with the encoder's and the decoder's attention ``flash: ring``."""
+def with_ring(cfg: dict, parts=("encoder", "decoder")) -> dict:
+    """``cfg`` with the attention of ``parts`` (the encoder's and the
+    decoder's) ``flash: ring``."""
     out = dict(cfg)
-    for part in ("encoder", "decoder"):
+    for part in parts:
         layer = cfg[part]["transformer_layer"]
         out[part] = dict(cfg[part], transformer_layer=dict(
             layer, attention=dict(layer["attention"], flash="ring")))
@@ -192,6 +193,28 @@ def gradient_floor(inputs: dict, outdir, one: dict, seeds=(5, 6), **layout) -> d
     return floor
 
 
+#: PAR with the aligner's masked batch norm (``normalization: batch``)
+PAR_BN = dict(PAR, aligner=dict(PAR["aligner"], normalization="batch"))
+
+
+def case_batch_norm(inputs: dict, outdir) -> dict:
+    """Two micro-steps of PAR_BN (weights ``wb::``) with live dropout on the
+    global batch: each step's metrics and every batch norm's running
+    statistics after it (``s::``), and the first step's gradients."""
+    tr = acoustic_trainer(_part(inputs, "wb"), outdir, 1, model=PAR_BN)
+    batch = _batch(inputs)
+    out = {}
+    for i in range(2):
+        for k, v in tr.train(batches=[batch], steps=1)[0].items():
+            out.setdefault(f"m::{k}", []).append(v)
+        for name, buf in tr.model.named_buffers():
+            if name.endswith((".norm.mean", ".norm.var")):
+                out.setdefault(f"s::{name}", []).append(buf.numpy().copy())
+        if i == 0:
+            grads = {f"g::{k}": v for k, v in _full_grads(tr).items()}
+    return {**{k: np.asarray(v) for k, v in out.items()}, **grads}
+
+
 def case_accumulate(inputs: dict, outdir, model_axis: int) -> dict:
     """Gradient accumulation over 2 micro-steps with part of the model
     frozen: 3 micro-steps (the third after the update); each one's loss
@@ -298,6 +321,14 @@ SEQ = {"model": with_ring(PAR), "mesh_seq_axis": 2}
 STAGE = {"model": PAR_STAGE, "mesh_pipeline_axis": 2, "pipeline_microbatches": 2}
 SEQ_STAGE = {"model": with_ring(PAR_STAGE), "mesh_seq_axis": 2, "mesh_pipeline_axis": 2,
              "pipeline_microbatches": 2}
+#: the seeds of the float32 floor of the stage-split cases' gradients: their
+#: ALiBi slope gradients (sums with cancellation) read floors 5-10x apart
+#: between seed pairs, so the floor is the most over six draws
+STAGE_FLOOR_SEEDS = tuple(range(5, 11))
+#: data × seq 2 × stage 2 (data 2 on 8 ranks): the composed step of the
+#: JAX package's ``_run_composed_train_phase``, the encoder ringing over
+#: "seq", the stacked decoder over "stage"
+COMPOSED = dict(SEQ_STAGE, model=with_ring(PAR_STAGE, parts=("encoder",)))
 
 
 def one_rank(layout: dict) -> dict:
@@ -315,7 +346,12 @@ CASES = {
     "seq_stage": lambda inputs, out: case_steps(inputs, out, model_axis=1, **SEQ_STAGE),
     "seq_jax": lambda inputs, out: case_jax_step(inputs, out, model_axis=1, **SEQ),
     "stage_jax": lambda inputs, out: case_jax_step(inputs, out, model_axis=1, **STAGE),
+    "model_stage": lambda inputs, out: case_steps(inputs, out, model_axis=2, **STAGE),
+    "model_stage_jax": lambda inputs, out: case_jax_step(inputs, out, model_axis=2, **STAGE),
+    "composed": lambda inputs, out: case_steps(inputs, out, model_axis=1, **COMPOSED),
+    "composed_jax": lambda inputs, out: case_jax_step(inputs, out, model_axis=1, **COMPOSED),
     "data_metrics": case_data_metrics,
+    "batch_norm": case_batch_norm,
     "model": lambda inputs, out: case_steps(inputs, out, model_axis=2),
     "accumulate": lambda inputs, out: case_accumulate(inputs, out, model_axis=2),
     "data_model": lambda inputs, out: case_steps(inputs, out, model_axis=2),

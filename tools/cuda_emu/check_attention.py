@@ -135,6 +135,10 @@ CASES = [  # B, N, M, H, Hkv (None: folded MQA), dtype, causal, offset, rate, sp
     (3, 66, 33, 3, 1, torch.float32, False, 7, 0.1, 2),
     (2, 40, 130, 2, 2, torch.bfloat16, True, 70, 0.1, 1),
     (3, 65, 64, 2, 1, torch.bfloat16, False, 0, 0.0, 1),
+    # far offsets: every valid key on one side of each row (the slope
+    # gradients over distances from the row's nearest valid key)
+    (3, 96, 24, 3, None, torch.float32, False, -72, 0.0, 1),
+    (3, 40, 20, 2, 2, torch.bfloat16, False, 60, 0.1, 1),
 ]
 
 

@@ -35,7 +35,9 @@ ROOT = Path(__file__).resolve().parents[1]
 def f64_backward(q, k, v, slopes, key_lens, seed, o, lse, do, scale, offset, causal, rate,
                  per_head):
     """The plain backward's formula in float64 on the kernel forward's o
-    and lse: (dq, dk, dv, dslopes) shaped as the kernel's outputs."""
+    and lse (the slope gradients over each key's distance from the row's
+    nearest valid key, ``fa._slope_arms``): (dq, dk, dv, dslopes) shaped as
+    the kernel's outputs."""
     from isp_tts_tpu_torch.ops import flash_attention as fa
 
     B, N, H, _ = q.shape
@@ -66,7 +68,7 @@ def f64_backward(q, k, v, slopes, key_lens, seed, o, lse, do, scale, offset, cau
     dk = torch.einsum("bnhm,bnhd->bmhd", ds, qd) * scale
     if kk.shape[2] == 1:
         dk, dv = dk.sum(dim=2, keepdim=True), dv.sum(dim=2, keepdim=True)
-    dsd = ds * dist[None, :, None, :]
+    dsd = ds * fa._slope_arms(key_lens, offset, causal, N, M, q.device, torch.float64)
     low = lower[None, :, None, :]
     dslopes = torch.stack([torch.where(low, dsd, 0.0).sum(dim=(0, 1, 3)),
                            torch.where(low, 0.0, dsd).sum(dim=(0, 1, 3))])

@@ -37,19 +37,22 @@ runs the seq and stage axes alone (needs 4 cards):
 
 5. axes    - the fine-tuning of phase 2 at data 2 x seq 2 (``flash: ring`` in
              the encoder and the decoder), data 2 x stage 2 (the decoder
-             stacked, 4 microbatches) and seq 2 x stage 2, each against one
-             card with the same model (ringing alone on a size-1 seq axis;
-             the stacked decoder run locally): 3 f32 steps within
-             FT_F32_BOUND (the first step's gap reported apart), then bf16
+             stacked, 4 microbatches), seq 2 x stage 2 and model 2 x stage 2
+             (each stage's stacked layers split over its 2 model ranks),
+             each against one card with the same model (ringing alone on a
+             size-1 seq axis; the stacked decoder run locally): 3 f32 steps
+             within FT_F32_BOUND (the first step's gap reported apart, and
+             model 2 x stage 2's held within FT_F32_FIRST_BOUND), then bf16
              host ms a step, peak memory of each card and the collectives'
              device ms a step by kind (rotate, all-gather, all-reduce; rank
              0, CUDA events around each call).
 6. axis-recipes - ``acoustic/core_sp`` and ``acoustic/core_pp`` through
              ``torchrun --nproc_per_node 4 ... --distributed`` (data 2 x seq
-             2, data 2 x stage 2) on the dataset of phase 4, warm-started
-             from the committed checkpoint, 8 steps each: exit 0, one
-             checkpoint at step 8 (core_pp's with the decoder's global
-             stacked tensors).
+             2, data 2 x stage 2), and ``acoustic/core_pp`` with
+             ``trainer.mesh_model_axis=2`` (model 2 x stage 2), on the
+             dataset of phase 4, warm-started from the committed checkpoint,
+             8 steps each: exit 0, one checkpoint at step 8 (core_pp's with
+             the decoder's global stacked tensors).
 
     python3 tools/torch_multi_gpu.py --tf32-study [--cards 4]
 
@@ -369,13 +372,16 @@ def rel_gap(a: dict, b: dict, steps: int | None = None) -> float:
                for x, y in zip(a[key][:steps], b[key][:steps]))
 
 
-#: (name, world, seq, stage, ring, stacked) of the axes' configurations, each
-#: after its one-card reference
+#: (name, world, model, seq, stage, ring, stacked) of the axes'
+#: configurations, each after its one-card reference
 AXES_CONFIGS = (
-    ("data1_ring", 1, 1, 1, True, False), ("data2_seq2", 4, 2, 1, True, False),
-    ("data1_stacked", 1, 1, 1, False, True), ("data2_stage2", 4, 1, 2, False, True),
-    ("data1_ring_stacked", 1, 1, 1, True, True), ("seq2_stage2", 4, 2, 2, True, True),
+    ("data1_ring", 1, 1, 1, 1, True, False), ("data2_seq2", 4, 1, 2, 1, True, False),
+    ("data1_stacked", 1, 1, 1, 1, False, True), ("data2_stage2", 4, 1, 1, 2, False, True),
+    ("model2_stage2", 4, 2, 1, 2, False, True),
+    ("data1_ring_stacked", 1, 1, 1, 1, True, True), ("seq2_stage2", 4, 1, 2, 2, True, True),
 )
+#: model 2 x stage 2's first f32 step against one card's, relative
+FT_F32_FIRST_BOUND = 1e-5
 
 
 def phase_axes(t0, work: Path, rehearse: bool) -> dict:
@@ -383,10 +389,10 @@ def phase_axes(t0, work: Path, rehearse: bool) -> dict:
     model, f32, then their bf16 readings."""
     write_batch(t0, work, rehearse)
     results, refs, errs = {}, {}, {}
-    for name, world, seq, stage, ring, stacked in AXES_CONFIGS:
+    for name, world, model, seq, stage, ring, stacked in AXES_CONFIGS:
         t = time.perf_counter()
-        ranks = run_config(work, name, world, 1, rehearse, timeout=900, seq=seq, stage=stage,
-                           ring=ring, stacked=stacked)
+        ranks = run_config(work, name, world, model, rehearse, timeout=900, seq=seq,
+                           stage=stage, ring=ring, stacked=stacked)
         r0 = ranks[0]
         if world == 1:
             refs[(ring, stacked)] = r0["f32"]
@@ -412,7 +418,7 @@ def phase_axes(t0, work: Path, rehearse: bool) -> dict:
     worst = max(e[f"{FT_F32_STEPS}_steps"] for e in errs.values())
     say("axes", t0, f"f32, {FT_F32_STEPS} steps, loss and gradient norm against one card with "
         f"the same model, largest relative error: {errs} (bound {FT_F32_BOUND:.0e})")
-    if worst > FT_F32_BOUND:
+    if worst > FT_F32_BOUND or errs["model2_stage2"]["first_step"] > FT_F32_FIRST_BOUND:
         raise AssertionError(f"seq/stage fine-tuning against one card: {errs}")
     return {"f32_rel_err": errs,
             "configs": {name: {
@@ -498,23 +504,25 @@ def recipe_data(t0, work: Path, rehearse: bool) -> dict:
     return data
 
 
-#: the axes' recipes over the cards: their layouts' extra settings (fixed
-#: collation at core_fast's shape, which 2 seq ranks divide)
-AXIS_RECIPES = {
-    "acoustic/core_sp": {"collator.max_text_len": smoke.RECIPE_TEXT,
-                         "collator.max_mel_len": smoke.RECIPE_MEL},
-    "acoustic/core_pp": {"collator.max_text_len": smoke.RECIPE_TEXT,
-                         "collator.max_mel_len": smoke.RECIPE_MEL},
-}
+#: the axes' recipes over the cards, (recipe, run label, extra settings):
+#: fixed collation at core_fast's shape (which 2 seq ranks divide), and
+#: core_pp once more with a model axis beside its stage axis
+_FIXED = {"collator.max_text_len": smoke.RECIPE_TEXT, "collator.max_mel_len": smoke.RECIPE_MEL}
+AXIS_RECIPES = (
+    ("acoustic/core_sp", "core_sp", _FIXED),
+    ("acoustic/core_pp", "core_pp", _FIXED),
+    ("acoustic/core_pp", "core_pp_model2", {**_FIXED, "trainer.mesh_model_axis": 2}),
+)
 
 
 def phase_recipe(t0, work: Path, cards: int, rehearse: bool, data: dict | None = None,
-                 recipe: str = smoke.RECIPE, extra: dict | None = None) -> dict:
+                 recipe: str = smoke.RECIPE, extra: dict | None = None,
+                 label: str | None = None) -> dict:
     from isp_tts_tpu_torch.checkpoint import load_checkpoint
 
     data = data or recipe_data(t0, work, rehearse)
     device = ["--device", "cpu"] if rehearse else []
-    label = recipe.split("/")[-1]
+    label = label or recipe.split("/")[-1]
     settings = {**data, "dataset.stats": str(work / "data" / "stats.json"),
                 "trainer.max_steps": RECIPE_STEPS, "trainer.batch_size": smoke.RECIPE_BATCH,
                 "trainer.eval_strategy": "no", "trainer.save_strategy": "no",
@@ -638,9 +646,9 @@ def main(argv=None) -> int:
         elif args.axes:
             result = {"axes": phase_axes(t0, work, args.rehearse)}
             data = recipe_data(t0, work, args.rehearse)
-            result["recipes"] = {name: phase_recipe(t0, work, args.cards, args.rehearse, data,
-                                                    name, extra)
-                                 for name, extra in AXIS_RECIPES.items()}
+            result["recipes"] = {label: phase_recipe(t0, work, args.cards, args.rehearse, data,
+                                                     name, extra, label)
+                                 for name, label, extra in AXIS_RECIPES}
         else:
             result = {"finetune": phase_finetune(t0, work, args.cards, args.rehearse),
                       "serve": phase_serve(t0, args.cards, args.rehearse),

@@ -8,11 +8,13 @@ how far it got:
 
 1. env     - Python, torch and CUDA versions; the card's name and power limit
              as ``nvidia-smi`` gives them.
-2. build   - compiles every kernel of the three paths from ``csrc/`` with
-             nvcc, one process per source, all started together; then, for
-             the tensor-core kernels K1, K5a, K2 and K5b, ptxas's registers
-             and spills and the HMMA count of each kernel's SASS (a bf16
-             backward kernel that spills fails the run).
+2. build   - compiles every kernel of the paths from ``csrc/`` with nvcc,
+             one process per library, all started together: the attention
+             sources K1, K5a, K2 and K5b once per tile width (16, 32, 64 and
+             128, ``-DATT_TILE_D``), K3 and K4 once; then, for each attention
+             library, ptxas's registers and spills and the HMMA count of
+             each kernel's SASS (a bf16 backward kernel that spills at a tile
+             width up to 64 fails the run; at 128 its spills are printed).
 3. kernel  - holds kernel K1 (folded-MQA attention forward) against its plain
              version on the card at the serving path's shapes, f32 and bf16,
              and times it beside one PyTorch call; then K1 at the tile edges
@@ -31,6 +33,15 @@ how far it got:
              f32 and bf16 with and without dropout, 4 heads, causal with an
              offset, one shared key/value head (bf16 too), and M 3072; then
              K5a and K5b at the tile edges with H and with 1 key/value head.
+   head-dims - K1/K2 and K5a/K5b (H and 1 key/value heads) at head dims 8,
+             12, 16, 32, 96 and 128 (HEAD_DIMS), f32 and bf16, at one query
+             against 65 keys, 63 x 65, 65 x 63, 320 x 320 and 65 x 1, causal
+             at offsets, short key lengths, dropout (HEAD_DIM_SHAPES): the
+             forward against its plain version, the backward against the
+             plain backward on the kernel forward's o and lse and its slope
+             gradients against float64; K2 at N = M = 3072 at head dims 32
+             and 128; and every forward with dropout bit-equal to the head
+             dim 64 kernel on the same numbers (the keep mask is D = 64's).
    slopes  - the f32 slope gradients of K5b (1 and H key/value heads) and
              K2 at B 4, N = M = 1024 over 16 draws of dL/do, each within
              1e-4 of the plain version's scale, beside both sides' distance
@@ -199,6 +210,26 @@ how far it got:
 22. recipe-kernels - K1, K2, K3 and K4 graph-timed at the recipe's shape
              (B 32, text 192 x mel 896) beside their bounds, plain versions
              and library calls.
+22a. head-split - ``acoustic/core_fast`` with its heads split through
+             ``--set`` overrides (HEAD_SPLIT: encoder and decoder 12 heads
+             x 32, predictor and feature embedding 2 heads x 128), from the
+             random init: 16 bf16 steps of the recipe trainer on the dataset
+             (finite, falling loss; K1/K2 16 launches a step, 12 at head dim
+             32 and 4 at 128, K3 and K4 one; the checkpoint in the JAX
+             format), then ``Synthesizer.from_pretrained`` of it (the three
+             sentences alone and batched, 25 K1 launches a synthesis; the
+             mel on the kernels within MEL_BOUND of the plain path's, f32,
+             same noise and durations); then HEAD_SPLIT_MHA (H key/value
+             heads, every layer 128 wide) through the Trainer, 4 steps and
+             one synthesis on K5a/K5b at head dim 128. After the training,
+             K1/K2 and K5a/K5b are held against their plain versions at
+             the split's own shapes (B 32, N = M = 896 and 192 on one of
+             its batches' lengths, 12 x 32, 2 x 128, and 3 x 128 and
+             2 x 128 with H key/value heads; SPLIT_SHAPES). The kernel
+             records then add K1, K2, K5a and K5b at the fine-tuning shape
+             split as 12 x 32 and 3 x 128 (HEAD_DIM_SPLITS), each held
+             against its plain version, with these launches, and K1/K5a at
+             the serving shape (B 4, N = M = 1024, f32) at those splits.
 
 23. wav-decode - the native C++ decoder's batch against the port's Python
              reader on 32 of the dataset's WAVs: bit-equal; ms per batch of
@@ -324,16 +355,17 @@ def library_bwd_ms(q, k, v, slopes, key_lens, scale, offset, causal, do, iters=1
     return graph_ms(fn, iters=iters, stream=side)
 
 
-def mqa_inputs(B, N, M, H, dtype, symmetric, gen, kv_heads=None):
-    """Unit-scale q/k/v, trained-like ALiBi slopes and ragged lengths; k/v
-    (B, M, 64), or (B, M, kv_heads, 64) for the per-head kernels."""
+def mqa_inputs(B, N, M, H, dtype, symmetric, gen, kv_heads=None, D=64):
+    """Unit-scale q/k/v at head dim ``D``, trained-like ALiBi slopes and
+    ragged lengths; k/v (B, M, D), or (B, M, kv_heads, D) for the per-head
+    kernels."""
     import torch
 
     from isp_tts_tpu_torch.nn.embeddings import alibi_slopes
 
     dev = "cuda"
-    kv = (B, M, 64) if kv_heads is None else (B, M, kv_heads, 64)
-    q = torch.randn((B, N, H, 64), generator=gen, device=dev).to(dtype)
+    kv = (B, M, D) if kv_heads is None else (B, M, kv_heads, D)
+    q = torch.randn((B, N, H, D), generator=gen, device=dev).to(dtype)
     k = torch.randn(kv, generator=gen, device=dev).to(dtype)
     v = torch.randn(kv, generator=gen, device=dev).to(dtype)
     sl = torch.tensor(alibi_slopes(H), device=dev)
@@ -436,18 +468,39 @@ def phase_env(t0):
     return smi.splitlines()[0]
 
 
-SOURCES = ("mqa_fwd", "mqa_bwd", "mas", "ctc", "flash_fwd", "flash_bwd")
+#: the attention kernels' sources (the tensor-core tile cores: the forwards
+#: K1, K5a and the backwards K2, K5b), each built once per tile width
+ATTENTION_SOURCES = ("mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd")
+
+
+def attention_libraries() -> list[str]:
+    """The attention sources' libraries, one per (source, tile width of
+    ``HEAD_TILES``): ``mqa_fwd_d16`` .. ``flash_bwd_d128``."""
+    from isp_tts_tpu_torch.ops.flash_attention import HEAD_TILES, kernel_library
+
+    return [kernel_library(src, tile) for src in ATTENTION_SOURCES for tile in HEAD_TILES]
+
+
+def sources() -> list[str]:
+    """Every kernel library of the paths (``ops/cuda_build.py`` names)."""
+    return attention_libraries() + ["mas", "ctc"]
 
 
 def phase_build(t0):
+    """Every library of :func:`sources`, one nvcc process each, all started
+    together; each one's nvcc seconds and ptxas's register and spill lines."""
     from isp_tts_tpu_torch.ops import cuda_build
 
-    cuda_build.build_all(list(SOURCES))
-    for name in SOURCES:
+    t = time.perf_counter()
+    cuda_build.build_all(sources())
+    say("build", t0, f"{len(sources())} libraries built in {time.perf_counter() - t:.2f} s "
+        f"({len(attention_libraries())} attention libraries: 4 sources x "
+        f"{len(attention_libraries()) // 4} tile widths)")
+    for name in sources():
         info = cuda_build.BUILD_INFO[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
-        say("build", t0, f"{name}.cu nvcc {info['seconds']:.2f}s; " + " | ".join(ptxas))
+        say("build", t0, f"{name} nvcc {info['seconds']:.2f}s; " + " | ".join(ptxas))
 
 
 def cuobjdump_path() -> str:
@@ -468,10 +521,8 @@ def cuobjdump_path() -> str:
     raise RuntimeError("no cuobjdump: neither the CUDA toolkit's nor Triton's")
 
 
-#: the libraries of the tensor-core tile cores: the forwards (K1, K5a) and
-#: the backwards (K2, K5b)
-TENSOR_CORE_SOURCES = ("mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd")
-#: their kernels that run products, two instantiations (f32, bf16) each
+#: the tile cores' kernels that run products, four instantiations in each
+#: library: f32 and bf16, each at the full tile width (D == DT) and below it
 PRODUCT_KERNELS = ("attention_fwd_kernel", "attention_dq_kernel", "attention_dkv_kernel")
 
 
@@ -491,30 +542,55 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
+def full_width(mangled: str) -> bool:
+    """Whether a tile-core kernel is its library's D == DT instantiation
+    (the template's ``kFullD``, mangled ``Lb1E`` after the tile width)."""
+    return "Lb1E" in mangled
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's short name: its tile-core kernel (or the whole mangled
-    name) and its input type."""
+    name), its input type, and for a product kernel D == DT or D < DT."""
     names = PRODUCT_KERNELS + ("dkv_sum_kernel",)
     kind = next((n for n in names if n in mangled), mangled)
-    return f"{kind.replace('attention_', '')} {'bf16' if 'bfloat16' in mangled else 'f32'}"
+    width = ("" if kind not in PRODUCT_KERNELS
+             else " D=DT" if full_width(mangled) else " D<DT")
+    return (f"{kind.replace('attention_', '')} {'bf16' if 'bfloat16' in mangled else 'f32'}"
+            + width)
 
 
 def phase_sass(t0):
-    """For each library of the tensor-core tile cores: the count of HMMA
-    (tensor-core) instructions in each product kernel's SASS beside
-    ptxas's registers and spills, and the dynamic shared memory per dtype
-    as the library reports the size it launches with; raises if a product
-    kernel has no HMMA, a backward bf16 kernel spills, or no cuobjdump is
-    found."""
+    """For each library of the tensor-core tile cores, at every tile width:
+    the count of HMMA (tensor-core) instructions in each product kernel's
+    SASS beside ptxas's registers and spills, and the dynamic shared memory
+    per dtype as the library reports the size it launches with; raises if a
+    product kernel has no HMMA, a backward bf16 kernel spills at a tile
+    width up to 64 (at 128 its spills are printed), a library reports
+    another tile width than its name, or no cuobjdump is found."""
     import ctypes
 
     from isp_tts_tpu_torch.ops import cuda_build
 
     tool = cuobjdump_path()
-    for name in TENSOR_CORE_SOURCES:
+    # one cuobjdump a library, all started together
+    dumps = {name: tempfile.TemporaryFile(mode="w+") for name in attention_libraries()}
+    procs = {name: subprocess.Popen([tool, "--dump-sass", str(cuda_build.library_path(name))],
+                                    stdout=out, text=True) for name, out in dumps.items()}
+    try:
+        for name, proc in procs.items():
+            if proc.wait(timeout=300):
+                raise AssertionError(f"{tool} --dump-sass {name} exited {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, out in dumps.items():
+        source, tile = name.rsplit("_d", 1)
         usage = ptxas_usage(cuda_build.BUILD_INFO[name]["log"])
-        sass = subprocess.run([tool, "--dump-sass", str(cuda_build.library_path(name))],
-                              capture_output=True, text=True, timeout=300, check=True).stdout
+        out.seek(0)
+        sass = out.read()
+        out.close()
         counts, fn = {}, None
         for ln in sass.splitlines():
             if "Function :" in ln:
@@ -523,15 +599,19 @@ def phase_sass(t0):
             elif fn is not None and "HMMA" in ln:
                 counts[fn] += 1
         kernels = {k: n for k, n in counts.items() if any(p in k for p in PRODUCT_KERNELS)}
-        if len(kernels) != (2 if name.endswith("fwd") else 4) or min(kernels.values()) == 0:
+        if len(kernels) != (4 if source.endswith("fwd") else 8) or min(kernels.values()) == 0:
             raise AssertionError(f"{name}: HMMA instructions per kernel {counts}")
-        spilling = [k for k in kernels if name.endswith("bwd") and "bfloat16" in k
+        spilling = [k for k in kernels if source.endswith("bwd") and "bfloat16" in k
                     and sum(usage.get(k, (0, 0, 0))[1:]) > 0]
-        if spilling:
+        if spilling and int(tile) <= 64:
             raise AssertionError(f"{name}: bf16 kernels spill: "
                                  + str({k: usage[k] for k in spilling}))
-        smem = getattr(cuda_build.load(name), f"isp_{name}_smem_bytes")
+        lib = cuda_build.load(name)
+        smem = getattr(lib, f"isp_{source}_smem_bytes")
         smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        width = getattr(lib, f"isp_{source}_tile_d")()
+        if width != int(tile):
+            raise AssertionError(f"{name} reports tile width {width}")
 
         def label(k):
             regs = usage.get(k)
@@ -555,8 +635,8 @@ KERNEL_CASES = (  # B, N, M, H, dtype, symmetric, offset, causal
 
 def check_forward(q, k, v, slopes, key_lens, q_lens, offset=0, causal=False, rate=0.0,
                   seed=None, exact=False):
-    """K1 (k and v (B, M, 64)) or K5a (k and v (B, M, Hkv, 64)) against its
-    plain version on the same inputs: o within the dtype's bound, lse within
+    """K1 (k and v (B, M, D)) or K5a (k and v (B, M, Hkv, D)) against its
+    plain version on the same inputs, at the scale D ** -0.5: o within the dtype's bound, lse within
     it relative to lse's size, the same dead rows (lse +inf), and under
     dropout the kept share of the keep mask within 0.01 of thresh/256.
     With ``exact`` the plain version runs in float64 on the same inputs
@@ -574,7 +654,7 @@ def check_forward(q, k, v, slopes, key_lens, q_lens, offset=0, causal=False, rat
     fwd, plain = ((fa.mqa_fwd, fa.mqa_attention_reference) if mqa
                   else (fa.flash_fwd, fa.flash_attention_reference))
     seed = seed_tensor(0) if seed is None else seed
-    args = (q, k, v, slopes, key_lens, 64 ** -0.5, offset, q_lens, causal, rate, seed)
+    args = (q, k, v, slopes, key_lens, q.shape[3] ** -0.5, offset, q_lens, causal, rate, seed)
     o, lse = fwd(*args)
     torch.cuda.synchronize()
     o_ref, lse_ref = plain(*args)
@@ -708,6 +788,125 @@ def phase_edges_bwd(t0, gen, kv_heads=(None,)):
                     f" bound={bound:.0e}")
                 del q, k, v, w
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- head dims
+#: the ``head-dims`` phase's head dims: 8 and 16 (tile width 16; 8 fills the
+#: k-step of 16 with zeros), 12 (zero-padded to 16 by the wrappers), 32, 96
+#: (tile width 128 below its width) and 128
+HEAD_DIMS = (8, 12, 16, 32, 96, 128)
+#: (B, N, M, H, offset, causal, rate): one query against 65 keys (causal,
+#: offset 64), 63 x 65 and 65 x 63 (tile edges) causal at offsets 3 and -5,
+#: 320 x 320 (the dk/dv pass split in two: H 4 x 5 row tiles), 65 queries
+#: against one key; in every batch one row has key length 0 and one query
+#: length 0, the others short key lengths
+HEAD_DIM_SHAPES = (
+    (4, 1, 65, 4, 64, True, 0.1), (4, 63, 65, 4, 3, True, 0.1),
+    (4, 65, 63, 3, -5, True, 0.1), (4, 320, 320, 4, 0, False, 0.1),
+    (4, 65, 1, 3, 0, True, 0.0),
+)
+#: the long-key regime (K2b's TPU kernels, key-streamed above M 2048), K2 at
+#: these head dims
+HEAD_DIM_LONG, HEAD_DIM_LONG_DIMS = (1, 3072, 3072, 2, 0, False, 0.1), (32, 128)
+#: the mask check's shape: dropout 0.1 over 320 x 320
+HEAD_DIM_MASK_SHAPE = (4, 320, 320, 4, 0, False, 0.1)
+#: the attention families: K1/K2 (one key/value head, folded rows), K5a/K5b
+#: with H key/value heads (0) and with one (1)
+FAMILIES = (None, 0, 1)
+
+
+def family_label(kvh) -> str:
+    return "K1/K2" if kvh is None else ("K5a/K5b Hkv=H" if kvh == 0 else "K5a/K5b Hkv=1")
+
+
+def same_mask(D, dtype, kvh, gen) -> None:
+    """The forward kernel at head dim ``D`` against the kernel at 64 on the
+    same numbers, zero columns added to the narrower (``D`` < 64: the data
+    padded to 64; ``D`` > 64: data of 64 columns padded to ``D``), both at
+    one scale, with dropout 0.1: o (its first min(D, 64) columns) and lse
+    bit-equal, so the keep mask, whose hash does not involve D, is the
+    D = 64 kernel's bit for bit. Raises otherwise."""
+    import torch
+    import torch.nn.functional as F
+
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    B, N, M, H, offset, causal, rate = HEAD_DIM_MASK_SHAPE
+    hkv = None if kvh is None else (kvh or H)
+    fwd = fa.mqa_fwd if hkv is None else fa.flash_fwd
+    narrow = min(D, 64)
+    q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, dtype, False, gen, kv_heads=hkv, D=narrow)
+    wide = [F.pad(x, (0, max(D, 64) - narrow)).contiguous() for x in (q, k, v)]
+    seed, scale = seed_tensor(64), narrow ** -0.5
+    o_n, lse_n = fwd(q, k, v, slopes, kl, scale, offset, ql, causal, rate, seed)
+    o_w, lse_w = fwd(*wide, slopes, kl, scale, offset, ql, causal, rate, seed)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_n, o_w[..., :narrow]) and torch.equal(lse_n, lse_w)):
+        o_err = (o_n.float() - o_w[..., :narrow].float()).abs().max().item()
+        raise AssertionError(
+            f"{family_label(kvh)} D={D} {dtype}: the forward at D {narrow} and at "
+            f"{max(D, 64)} on the same numbers differ (o {o_err:.3e}, lse "
+            f"{(lse_n - lse_w).abs().max().item():.3e}): not the D = 64 keep mask")
+
+
+def phase_head_dims(t0):
+    """K1/K2, K5a/K5b (Hkv = H and 1) at every head dim of HEAD_DIMS, f32 and
+    bf16, forward and backward, at HEAD_DIM_SHAPES: the forward against its
+    plain version (check_forward: 1e-4 f32, 2e-2 bf16), the backward against
+    the plain backward on the kernel forward's o and lse (check_backward,
+    K2_BOUNDS) and its slope gradients against the same formula in float64
+    (SLOPES_F64_BOUNDS; not at M = 1, where they vanish); K2 also in the
+    long-key regime (HEAD_DIM_LONG); then every (head dim, dtype, family)'s
+    forward with dropout bit-equal to the D = 64 kernel's on the same
+    numbers (:func:`same_mask`)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for D in HEAD_DIMS:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for kvh in FAMILIES:
+                worst = [0.0] * 8  # o, lse, dq, dk, dv, dslopes, dslopes vs f64 (kernel, plain)
+                for B, N, M, H, offset, causal, rate in HEAD_DIM_SHAPES:
+                    hkv = None if kvh is None else (kvh or H)
+                    q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, dtype, False, gen,
+                                                         kv_heads=hkv, D=D)
+                    kl[1], ql[2] = 0, 0  # a row of dead queries, a row of none
+                    seed = seed_tensor(1800 + D)
+                    _, err, lse_err, fbound, _, _ = check_forward(q, k, v, slopes, kl, ql,
+                                                                  offset, causal, rate, seed)
+                    w = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+                    _, _, errs, bbound, _, _ = check_backward(
+                        q, k, v, slopes, kl, ql, w, offset, causal, rate, seed,
+                        autograd=False, slopes_f64=M > 1)
+                    worst = [max(a, b) for a, b in zip(worst, [err, lse_err] + errs + [0, 0])]
+                    del q, k, v, w
+                say("head-dims", t0, f"{family_label(kvh)} D={D} {dt} over "
+                    f"{len(HEAD_DIM_SHAPES)} shapes: forward o {worst[0]:.3e} lse "
+                    f"{worst[1]:.3e} (bound {fbound:.0e}); backward "
+                    f"{grad_errs('vs plain backward', worst[2:6])} (bound {bbound:.0e}); "
+                    f"dslopes vs float64 {worst[6]:.3e} (bound "
+                    f"{SLOPES_F64_BOUNDS[dt]:.0e}; the plain backward {worst[7]:.3e})")
+                same_mask(D, dtype, kvh, gen)
+        torch.cuda.empty_cache()
+    say("head-dims", t0, f"forward with dropout {HEAD_DIM_MASK_SHAPE[-1]} bit-equal to the "
+        f"D = 64 kernel on the same numbers at every head dim, dtype and family: the keep "
+        f"mask is the D = 64 mask")
+    B, N, M, H, offset, causal, rate = HEAD_DIM_LONG
+    for D in HEAD_DIM_LONG_DIMS:
+        for dt in ("float32", "bfloat16"):
+            q, k, v, slopes, kl, ql = mqa_inputs(B, N, M, H, getattr(torch, dt), False, gen, D=D)
+            seed = seed_tensor(1818)
+            _, err, lse_err, fbound, _, _ = check_forward(q, k, v, slopes, kl, ql, offset,
+                                                          causal, rate, seed)
+            w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+            _, _, errs, bbound, _, _ = check_backward(q, k, v, slopes, kl, ql, w, offset,
+                                                      causal, rate, seed, autograd=False)
+            say("head-dims", t0, f"K1/K2 long keys B={B} N=M={N} H={H} D={D} {dt}: o "
+                f"{err:.3e} lse {lse_err:.3e} (bound {fbound:.0e}); "
+                f"{grad_errs('vs plain backward', errs)} (bound {bbound:.0e})")
+            del q, k, v, w
+            torch.cuda.empty_cache()
 
 
 def set_flash(model, mode: str) -> None:
@@ -1498,6 +1697,7 @@ def phase_export(t0, synth, work: Path) -> int:
     launches."""
     from isp_tts_tpu_torch.export import ExportedSynthesizer, export_serving
     from isp_tts_tpu_torch.ops import cuda_build
+    from isp_tts_tpu_torch.ops.flash_attention import kernel_library
     from isp_tts_tpu_torch.serving import Synthesizer, SynthesizerConfig
 
     B, TB, FB = ARTIFACT_SHAPE
@@ -1511,8 +1711,9 @@ def phase_export(t0, synth, work: Path) -> int:
     with no_nvcc():
         ex = ExportedSynthesizer(path)
     load_s = time.perf_counter() - t
-    own = ex._libs.get("mqa_fwd")
-    if set(ex._libs) != {"mqa_fwd"} or own._handle == cuda_build.load("mqa_fwd")._handle:
+    k1_lib = kernel_library("mqa_fwd", 64)
+    own = ex._libs.get(k1_lib)
+    if set(ex._libs) != {k1_lib} or own._handle == cuda_build.load(k1_lib)._handle:
         raise AssertionError(f"the artifact's embedded libraries {ex._libs} are not its own")
     say("export", t0, f"audio artifact {TB} x {FB} x batch {B}: export {export_s:.2f} s, "
         f"{path.stat().st_size / 1e6:.1f} MB (embedded kernels {meta['precompiled']}), "
@@ -1864,7 +2065,7 @@ def attention_grads(fn, q, k, v, slopes, key_lens, q_lens, rate, offset, causal,
     import torch
 
     args = [x.detach().clone().requires_grad_() for x in (q, k, v, slopes)]
-    o = fn(*args, key_lens, 64 ** -0.5, offset, q_lens, causal, rate, seed)
+    o = fn(*args, key_lens, q.shape[3] ** -0.5, offset, q_lens, causal, rate, seed)
     torch.autograd.backward(o, w)
     return [a.grad for a in args]
 
@@ -1943,8 +2144,8 @@ def k4_pair(lp, tl, ml, g, plain=False):
 
 def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False, rate=0.0,
                    seed=None, autograd=True, slopes_f64=False):
-    """K2 (k and v (B, M, 64)) or K5b (k and v (B, M, Hkv, 64)) against its
-    plain versions, gradients against ``w`` = dL/do, relative to each
+    """K2 (k and v (B, M, D)) or K5b (k and v (B, M, Hkv, D)) against its
+    plain versions at the scale D ** -0.5, gradients against ``w`` = dL/do, relative to each
     reference's max-abs:
     - with ``autograd``, the kernel pair's autograd function against
       autograd through the plain forward: dq, dk, dv and dslopes. In bf16
@@ -1989,9 +2190,9 @@ def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False,
             raise AssertionError(f"{where}: against autograd through the plain forward, "
                                  f"relative errors dq/dk/dv/dslopes {auto} > {bound:.0e}")
         del got, ref
-    o, lse = fwd(q, k, v, slopes, key_lens, 64 ** -0.5, offset, q_lens, causal, rate, seed)
-    args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, w, 64 ** -0.5, offset, causal,
-            rate)
+    scale = q.shape[3] ** -0.5
+    o, lse = fwd(q, k, v, slopes, key_lens, scale, offset, q_lens, causal, rate, seed)
+    args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, w, scale, offset, causal, rate)
     before = bwd.launches
     got = bwd(*args)
     torch.cuda.synchronize()
@@ -2017,7 +2218,7 @@ def check_backward(q, k, v, slopes, key_lens, q_lens, w, offset=0, causal=False,
         sys.path.insert(0, str(ROOT / "tools"))
         from torch_bwd_seeds import f64_backward
 
-        exact = f64_backward(q, k, v, slopes, key_lens, seed, o, lse, w, 64 ** -0.5, offset,
+        exact = f64_backward(q, k, v, slopes, key_lens, seed, o, lse, w, scale, offset,
                              causal, rate, not mqa)[3]
         errs += [rel_err(got[3], exact), rel_err(ref[3], exact)]
         f64_bound = SLOPES_F64_BOUNDS["bfloat16" if bf16 else "float32"]
@@ -3563,33 +3764,169 @@ def k5_records(batch, launches, serve_launches, artifact_launches):
     return records
 
 
+#: the fine-tuning shape's width (H x D = 384) split at other head dims:
+#: 12 heads x 32 and 3 heads x 128
+HEAD_DIM_SPLITS = ((12, 32), (3, 128))
+
+
+def product_usage(library: str, kernel: str, dtype: str = "bfloat16") -> list:
+    """ptxas's (registers, spill store bytes, spill load bytes) of a tile
+    core kernel (``attention_fwd_kernel``, ...) of ``library`` in ``dtype``,
+    its D == DT instantiation (the one a head dim equal to the tile width
+    launches)."""
+    from isp_tts_tpu_torch.ops import cuda_build
+
+    usage = ptxas_usage(cuda_build.BUILD_INFO[library]["log"])
+    return [list(u) for k, u in usage.items() if kernel in k and full_width(k)
+            and ("bfloat16" in k) == (dtype == "bfloat16")]
+
+
+def head_dim_records(batch, launches) -> list[dict]:
+    """K1, K2 (K2a), K5a and K5b (Hkv = H) at the fine-tuning shape (B 32,
+    N = M = 320, the batch's frame counts, bf16, dropout 0.1) with its
+    width split as HEAD_DIM_SPLITS: each held against its plain version as
+    the kernel phases hold it (check_forward, check_backward: raises past
+    the bound), then graph-timed beside its bound (4*D operations per (row,
+    key) pair forward, 10*D backward, bytes at 3.35 TB/s), its plain version
+    and SDPA (dense bias), with ptxas's registers and spills of its
+    library's product kernels (bf16; f32 too for the forward, which also
+    runs at the serving shape in f32: :func:`serving_times`). ``launches``:
+    library -> launches on the full-width path (:func:`phase_head_dim_path`)."""
+    import torch
+
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    lens = batch["mel_len"].contiguous()
+    B, N, rate = lens.shape[0], MEL_LEN, 0.1
+    records = []
+    for H, D in HEAD_DIM_SPLITS:
+        for kv_heads in (None, H):
+            mqa = kv_heads is None
+            fwd, bwd, pfwd, pbwd = ((fa.mqa_fwd, fa.mqa_bwd, fa.mqa_attention_reference,
+                                     fa.mqa_bwd_reference) if mqa else
+                                    (fa.flash_fwd, fa.flash_bwd, fa.flash_attention_reference,
+                                     fa.flash_bwd_reference))
+            q, k, v, slopes, _, _ = mqa_inputs(B, N, N, H, torch.bfloat16, True, gen,
+                                               kv_heads=kv_heads, D=D)
+            seed, scale = seed_tensor(2026), D ** -0.5
+            fargs = (q, k, v, slopes, lens, scale, 0, lens, False, rate, seed)
+            _, fwd_err, _, _, _, _ = check_forward(q, k, v, slopes, lens, lens, 0, False,
+                                                   rate, seed)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+            _, _, _, _, o, lse = check_backward(q, k, v, slopes, lens, lens, do, 0, False,
+                                                rate, seed, autograd=False)
+            bargs = (q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate)
+            grads, grads_ref = bwd(*bargs), pbwd(*bargs)
+            fb = attention_bound(q, k, lens, lens)
+            bb = attention_bound(q, k, lens, lens, backward=True)
+            shape = (f"B={B} N=M={N} H={H}" + ("" if mqa else f" Hkv={H}")
+                     + f" D={D} bfloat16 dropout={rate}")
+            fsrc, bsrc = ("mqa_fwd", "mqa_bwd") if mqa else ("flash_fwd", "flash_bwd")
+            flib, blib = fa.kernel_library(fsrc, D), fa.kernel_library(bsrc, D)
+            records += [
+                {"name": f"{'K1' if mqa else 'K5a'} {fsrc}, D={D}", "route": "cuda",
+                 "source": f"isp_tts_tpu_torch/csrc/{fsrc}.cu",
+                 "replaces": "isp_tts_tpu/ops/flash_attention.py:" + ("736" if mqa else "80"),
+                 "launches": launches.get(flib, 0), "library": flib, "design": FWD_DESIGN,
+                 "max_abs_err": fwd_err,
+                 "ms": graph_ms(lambda: fwd(*fargs)),
+                 "plain_ms": cuda_ms(lambda: pfwd(*fargs), iters=5),
+                 "bound_ms": fb[0], "bound_by": fb[1],
+                 "library_ms": graph_ms(library_call(q, k, v, slopes, lens, scale)),
+                 "registers_spills": product_usage(flib, "attention_fwd_kernel"),
+                 "registers_spills_f32": product_usage(flib, "attention_fwd_kernel",
+                                                       "float32"),
+                 "shape": shape, **serving_times(fwd, gen, kv_heads, H, D)},
+                {"name": f"{'K2' if mqa else 'K5b'} {bsrc}, D={D}", "route": "cuda",
+                 "source": f"isp_tts_tpu_torch/csrc/{bsrc}.cu",
+                 "replaces": "isp_tts_tpu/ops/flash_attention.py:"
+                             + ("998 (K2a)" if mqa else "155 + :229"),
+                 "launches": launches.get(blib, 0), "library": blib, "design": BWD_DESIGN,
+                 "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                    for a, b in zip(grads, grads_ref)),
+                 "ms": graph_ms(lambda: bwd(*bargs)),
+                 "plain_ms": cuda_ms(lambda: pbwd(*bargs), iters=5),
+                 "bound_ms": bb[0], "bound_by": bb[1],
+                 "library_ms": library_bwd_ms(q, k, v, slopes, lens, scale, 0, False, do),
+                 "registers_spills": {kern: product_usage(blib, f"attention_{kern}_kernel")
+                                      for kern in ("dq", "dkv")},
+                 "shape": shape},
+            ]
+            del q, k, v, o, lse, do, grads, grads_ref
+            torch.cuda.empty_cache()
+    return records
+
+
+#: the head split's attention shapes in training, held by
+#: :func:`split_shape_checks`: (H, D, key/value heads or None for one): the
+#: encoder and decoder at 12 x 32 and the adaptor at 2 x 128 on one KV head,
+#: and the H-KV split's encoder and decoder at 3 x 128 and adaptor at 2 x 128
+SPLIT_SHAPES = ((12, 32, None), (2, 128, None), (3, 128, 3), (2, 128, 2))
+
+
+def split_shape_checks(t0, ml, tl) -> None:
+    """K1/K2 and K5a/K5b at the head split's own training shapes: B 32 at
+    N = M = RECIPE_MEL on the mel lengths ``ml`` and N = M = RECIPE_TEXT on
+    the text lengths ``tl`` of one of its batches, bf16, dropout 0.1, at
+    each of SPLIT_SHAPES: the forward against its plain version
+    (check_forward), the backward against autograd through the plain
+    forward and against the plain backward on the kernel forward's o and
+    lse (check_backward). Raises past the bound."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1819)
+    rate = 0.1
+    for label, N, lens in (("decoder", RECIPE_MEL, ml), ("encoder", RECIPE_TEXT, tl)):
+        for H, D, kv_heads in SPLIT_SHAPES:
+            q, k, v, slopes, _, _ = mqa_inputs(lens.shape[0], N, N, H, torch.bfloat16, True,
+                                               gen, kv_heads=kv_heads, D=D)
+            seed = seed_tensor(1819 + D)
+            name, err, lse_err, fbound, kept, _ = check_forward(q, k, v, slopes, lens, lens, 0,
+                                                                False, rate, seed)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+            bname, auto, errs, bbound, _, _ = check_backward(q, k, v, slopes, lens, lens, do,
+                                                             0, False, rate, seed)
+            say("head-split", t0, f"{name}/{bname} at the split's {label} shape B="
+                f"{lens.shape[0]} N=M={N} H={H}" + ("" if kv_heads is None else
+                                                   f" Hkv={kv_heads}")
+                + f" D={D} bfloat16 dropout={rate}: o err {err:.3e} lse err {lse_err:.3e} "
+                f"(bound {fbound:.0e}), kept {kept:.4f}; {grad_errs('vs autograd', auto)}; "
+                f"{grad_errs('vs plain backward', errs)} (bound {bbound:.0e})")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+
 #: the attention kernels' designs, named in their records
 FWD_DESIGN = "tensor cores (mma.sync tile core, csrc/attention_fwd.cuh)"
 BWD_DESIGN = "tensor cores (mma.sync tile core, csrc/attention_bwd.cuh)"
 
 
-def serving_times(fwd, gen, kv_heads) -> dict:
+def serving_times(fwd, gen, kv_heads, H: int = 6, D: int = 64) -> dict:
     """A forward kernel (K1 with ``kv_heads`` None, else K5a) at the serving
     decoder's shape, the batch bucket of 4 at the frame budget of 1024, f32,
-    ragged lengths: its time, its plain version's, its bound and the
-    library call's."""
+    ragged lengths, ``H`` heads of ``D``: held against its plain version
+    (check_forward, raises past F32_BOUND), then its time, its plain
+    version's, its bound and the library call's."""
     import torch
 
     from isp_tts_tpu_torch.ops.flash_attention import (flash_attention_reference,
                                                        mqa_attention_reference)
 
-    H, scale = 6, 64 ** -0.5
+    scale = D ** -0.5
     q, k, v, sl, kl, ql = mqa_inputs(4, 1024, 1024, H, torch.float32, True, gen,
-                                     kv_heads=kv_heads)
+                                     kv_heads=kv_heads, D=D)
+    _, err, _, _, _, _ = check_forward(q, k, v, sl, kl, ql)
     plain = mqa_attention_reference if kv_heads is None else flash_attention_reference
     bound = attention_bound(q, k, kl, ql)
-    out = {"serving_ms": graph_ms(lambda: fwd(q, k, v, sl, kl, scale, 0, ql)),
+    out = {"serving_max_abs_err": err,
+           "serving_ms": graph_ms(lambda: fwd(q, k, v, sl, kl, scale, 0, ql)),
            "serving_plain_ms": cuda_ms(lambda: plain(q, k, v, sl, kl, scale, 0, ql), iters=5),
            "serving_bound_ms": bound[0], "serving_bound_by": bound[1],
            "serving_library_ms": graph_ms(library_call(q, k, v, sl, kl, scale)),
            "serving_shape": f"B=4 N=M=1024 H={H}"
                             + ("" if kv_heads is None else f" Hkv={kv_heads}")
-                            + " D=64 float32 ragged lengths"}
+                            + f" D={D} float32 ragged lengths"}
     del q, k, v
     torch.cuda.empty_cache()
     return out
@@ -3873,6 +4210,223 @@ def phase_recipe(t0, settings: dict, out: Path):
     return trainer, launches, evals_made
 
 
+# -------------------------------------------------- the full-width head split
+_ATTN = "model.{}.transformer_layer.attention"
+_ADAPTOR = "model.temporal_adaptor.{}.transformer.transformer_layer.attention"
+#: ``acoustic/core``'s architecture (6 + 6 layers x 384, one KV head, the
+#: adaptor 256 wide) with its head splits set through ``--set``: the encoder
+#: (and so the decoder, which interpolates its layer) at 12 heads x 32, the
+#: duration/pitch/energy predictor and the feature embedding at 2 heads x 128
+HEAD_SPLIT = {
+    f"{_ATTN.format('encoder')}.heads": 12, f"{_ATTN.format('encoder')}.head_dim": 32,
+    **{f"{_ADAPTOR.format(m)}.{k}": v for m in ("predictor", "embedding")
+       for k, v in (("heads", 2), ("head_dim", 128))},
+}
+#: the same with H key/value heads in every layer, the encoder and decoder at
+#: 3 heads x 128: every layer on K5a/K5b at head dim 128
+HEAD_SPLIT_MHA = {
+    **HEAD_SPLIT, f"{_ATTN.format('encoder')}.heads": 3,
+    f"{_ATTN.format('encoder')}.head_dim": 128, f"{_ATTN.format('encoder')}.one_kv_head": False,
+    **{f"{_ADAPTOR.format(m)}.one_kv_head": False for m in ("predictor", "embedding")},
+}
+HEAD_SPLIT_STEPS, HEAD_SPLIT_MHA_STEPS = 16, 4
+#: the recipe runs from the random init (no warm start), no evaluation, one
+#: checkpoint at the last step
+HEAD_SPLIT_BASE = {
+    "trainer.batch_size": RECIPE_BATCH, "trainer.do_eval": False,
+    "trainer.save_steps": HEAD_SPLIT_STEPS, "trainer.logging_steps": 1,
+    "trainer.log_with": [], "trainer.metric_for_best_model": None,
+}
+#: the full-width path's attention launches a training step and a synthesis:
+#: encoder 6 + decoder 6 + predictor 3 + embedding 1, and with the
+#: predictor's 4 flow steps 6 + 3 x 4 + 1 + 6
+SPLIT_STEP_LAUNCHES, SPLIT_SYNTH_LAUNCHES = 16, 25
+
+
+def split_launches(per: int, count: int, kernels: tuple) -> dict:
+    """library -> launches that ``count`` units (steps or syntheses) of
+    ``per`` attention calls each make on the head split's one-KV-head model:
+    ``kernels`` (sources) at head dim 32 (the encoder and decoder, 12 of
+    each unit's calls) and 128 (the rest)."""
+    from isp_tts_tpu_torch.ops.flash_attention import kernel_library
+
+    enc_dec = 12
+    want = {}
+    for src in kernels:
+        want[kernel_library(src, 32)] = enc_dec * count
+        want[kernel_library(src, 128)] = (per - enc_dec) * count
+    return want
+
+
+def serve_split(t0, synth, kernel: str, label: str) -> dict:
+    """The three sentences one at a time and as one batch through
+    ``synth`` (a model trained a few steps from the random init: its
+    durations are whatever those steps learned), the launch counts zeroed
+    just before and read just after: finite mels of mel_dim columns within
+    the frame budget, ``kernel`` alone launched, SPLIT_SYNTH_LAUNCHES a
+    synthesis at head dims 32 and 128. Returns the libraries' launches."""
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    launch_counts(reset=True)
+    fa.LIBRARY_LAUNCHES.clear()
+    mels = [m for text in SENTENCES + [SENTENCES] for m in synth(text)]
+    launches = {k: v for k, v in launch_counts().items() if v}
+    libs = dict(fa.LIBRARY_LAUNCHES)
+    budget = synth.config.frame_budgets[-1]
+    for m in mels:
+        if not (m.ndim == 2 and m.shape[1] == synth.model.mel_dim and m.shape[0] <= budget
+                and np.isfinite(m).all()):
+            raise AssertionError(f"{label}: bad mel, shape {m.shape}, finite "
+                                 f"{np.isfinite(m).all()}")
+    calls = len(SENTENCES) + 1
+    if (launches != {kernel: SPLIT_SYNTH_LAUNCHES * calls}
+            or libs != split_launches(SPLIT_SYNTH_LAUNCHES, calls, ("mqa_fwd",))):
+        raise AssertionError(f"{label}: {SPLIT_SYNTH_LAUNCHES} launches of {kernel} a "
+                             f"synthesis (12 at head dim 32, 13 at 128) and no other "
+                             f"attention kernel expected: {launches}, by library {libs}")
+    say("head-split", t0, f"{label}: the three sentences alone and batched, frames "
+        f"{[m.shape[0] for m in mels]}, launches {launches} by library {libs} "
+        f"({SPLIT_SYNTH_LAUNCHES} a synthesis)")
+    return libs
+
+
+def phase_head_dim_path(t0, settings: dict, out: Path) -> dict:
+    """The full-width model of HEAD_SPLIT (12 x 32 and 2 x 128 on one model)
+    through the port's entry points: (a) the recipe trainer
+    (``acoustic/core_fast`` at its shape, bf16, batch 32 x 192 x 896) from
+    the random init, HEAD_SPLIT_STEPS steps on the smoke's dataset, the
+    launch counts zeroed just before ``train()`` and read just after: finite
+    losses that fall, K1, K2, K3 and K4 at their counts a step (K1/K2 at
+    head dims 32 and 128), one checkpoint in the JAX package's format, then
+    K1/K2 and K5a/K5b at the split's own shapes on one of its batches
+    (:func:`split_shape_checks`); (b)
+    ``Synthesizer.from_pretrained`` of that checkpoint: the three sentences
+    alone and batched, 25 K1 launches a synthesis, and the batch's mel on
+    the kernels within MEL_BOUND of the plain path's, f32, with the same
+    noise and durations; (c) HEAD_SPLIT_MHA (every layer 128 wide with H
+    key/value heads) through the Trainer for HEAD_SPLIT_MHA_STEPS steps and
+    one synthesis: K5a and K5b at head dim 128. Returns each library's
+    launches over the three."""
+    import torch
+
+    from isp_tts_tpu_torch.checkpoint import load_checkpoint
+    from isp_tts_tpu_torch.nn.attention import Attention
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+    from isp_tts_tpu_torch.serving import Synthesizer
+
+    total: dict[str, int] = {}
+
+    def add(libs):
+        for k, v in libs.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the recipe trainer from the random init
+    trainer, _ = recipe_trainer({**settings, **HEAD_SPLIT}, out / "split", base={
+        **HEAD_SPLIT_BASE, "trainer.max_steps": HEAD_SPLIT_STEPS, "trainer.label": "split"})
+    model = trainer.model
+    dims = sorted({(m.heads, m.head_dim, m.one_kv_head) for m in model.modules()
+                   if isinstance(m, Attention)})
+    if (dims != [(2, 128, True), (12, 32, True)] or model.config.text_dim != RECIPE_DIM
+            or len(model.decoder.layers) != RECIPE_LAYERS
+            or trainer.collator.config.max_mel_len != RECIPE_MEL):
+        raise AssertionError(f"the head split is not core_fast's widths: heads {dims}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    fa.LIBRARY_LAUNCHES.clear()
+    t = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, libs = launch_counts(), dict(fa.LIBRARY_LAUNCHES)
+    add(libs)
+    loss = step_losses(trainer)
+    n = HEAD_SPLIT_STEPS
+    want = {"K1 mqa_fwd": SPLIT_STEP_LAUNCHES * n, "K2 mqa_bwd": SPLIT_STEP_LAUNCHES * n,
+            "K3 mas": n, "K4 ctc_fwd": n, "K4 ctc_bwd": n, "K5a flash_fwd": 0,
+            "K5b flash_bwd": 0}
+    want_libs = split_launches(SPLIT_STEP_LAUNCHES, n, ("mqa_fwd", "mqa_bwd"))
+    if launches != want or libs != want_libs:
+        raise AssertionError(f"the head split's training launches {launches} by library "
+                             f"{libs}; expected {want}, {want_libs}")
+    if sorted(loss) != list(range(1, n + 1)) or not all(np.isfinite(list(loss.values()))):
+        raise AssertionError(f"non-finite or missing losses: {loss}")
+    first, last = np.mean([loss[s] for s in range(1, 5)]), np.mean([loss[s] for s in
+                                                                     range(n - 3, n + 1)])
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: {loss}")
+    ckpt = trainer.run_dir / "checkpoint_last.ckpt"
+    blob = load_checkpoint(ckpt)
+    if blob["format"] != "isp_tts_tpu.v1" or blob["experiment"]["state"]["global_step"] != n:
+        raise AssertionError(f"{ckpt}: format {blob['format']}, step "
+                             f"{blob['experiment']['state']['global_step']}")
+    say("head-split", t0, f"(a) {RECIPE} with {HEAD_SPLIT} from the random init: "
+        f"{sum(p.numel() for p in model.parameters())} parameters, heads x head dim x one "
+        f"KV head {dims}; {n} bf16 steps in {wall:.2f} s, loss "
+        + ", ".join(f"{loss[s]:.4f}" for s in sorted(loss)) + f" (first 4 mean {first:.4f}, "
+        f"last 4 {last:.4f}); launches {launches}, by library {libs}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; {ckpt.name} in the JAX "
+        f"package's format at step {n}")
+    split_batch = next(iter(trainer.train_loader))
+    split_shape_checks(t0, *(torch.from_numpy(split_batch[key]).cuda().contiguous()
+                             for key in ("mel_len", "text_vector_len")))
+    del trainer, model, blob, split_batch
+    torch.cuda.empty_cache()
+
+    # (b) served from that checkpoint, and the kernel path against the plain path
+    synth = Synthesizer.from_pretrained(ckpt)
+    add(serve_split(t0, synth, "K1 mqa_fwd", "(b) Synthesizer.from_pretrained"))
+    tok, ln, fb, B, noise = batch_draws(synth)
+    durations = torch.where(tok > 0, 4.0, 0.0)  # 4 frames a token
+    kernel_vs_plain(t0, synth.model, tok, ln, fb, B, noise, durations)
+    del synth
+    torch.cuda.empty_cache()
+
+    # (c) H key/value heads, every layer at head dim 128
+    trainer, _ = recipe_trainer({**settings, **HEAD_SPLIT_MHA}, out / "split_mha", base={
+        **HEAD_SPLIT_BASE, "trainer.max_steps": HEAD_SPLIT_MHA_STEPS,
+        "trainer.save_strategy": "no", "trainer.label": "split_mha"})
+    dims = sorted({(m.heads, m.head_dim, m.one_kv_head) for m in trainer.model.modules()
+                   if isinstance(m, Attention)})
+    if dims != [(2, 128, False), (3, 128, False)]:
+        raise AssertionError(f"the multi-KV-head split: heads {dims}")
+    launch_counts(reset=True)
+    fa.LIBRARY_LAUNCHES.clear()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches, libs = {k: v for k, v in launch_counts().items() if v}, dict(fa.LIBRARY_LAUNCHES)
+    add(libs)
+    n = HEAD_SPLIT_MHA_STEPS
+    want = {"K5a flash_fwd": SPLIT_STEP_LAUNCHES * n, "K5b flash_bwd": SPLIT_STEP_LAUNCHES * n,
+            "K3 mas": n, "K4 ctc_fwd": n, "K4 ctc_bwd": n}
+    want_libs = {fa.kernel_library("flash_fwd", 128): SPLIT_STEP_LAUNCHES * n,
+                 fa.kernel_library("flash_bwd", 128): SPLIT_STEP_LAUNCHES * n}
+    loss = step_losses(trainer)
+    if launches != want or libs != want_libs or not all(np.isfinite(list(loss.values()))):
+        raise AssertionError(f"the multi-KV-head split: launches {launches} by library "
+                             f"{libs}, losses {loss}")
+    say("head-split", t0, f"(c) {RECIPE} with {HEAD_SPLIT_MHA}: heads x head dim x one KV "
+        f"head {dims}; {n} bf16 steps through the Trainer, loss "
+        + ", ".join(f"{loss[s]:.4f}" for s in sorted(loss)) + f"; launches {launches}, by "
+        f"library {libs}")
+    synth = Synthesizer(trainer.model.eval())
+    launch_counts(reset=True)
+    fa.LIBRARY_LAUNCHES.clear()
+    mel = synth(SENTENCES[0])[0]
+    launches, libs = {k: v for k, v in launch_counts().items() if v}, dict(fa.LIBRARY_LAUNCHES)
+    add(libs)
+    if (launches != {"K5a flash_fwd": SPLIT_SYNTH_LAUNCHES}
+            or libs != {fa.kernel_library("flash_fwd", 128): SPLIT_SYNTH_LAUNCHES}
+            or not np.isfinite(mel).all()):
+        raise AssertionError(f"the multi-KV-head split's synthesis: launches {launches} by "
+                             f"library {libs}, finite {np.isfinite(mel).all()}")
+    say("head-split", t0, f"(c) one synthesis: frames {mel.shape[0]}, launches {launches} by "
+        f"library {libs}")
+    del trainer, synth
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_resume(t0, settings: dict, out: Path, first):
     """A second uninterrupted run (the control) and a run resumed from the
     first's step-8 checkpoint in a fresh Trainer: the resumed run's steps
@@ -3953,7 +4507,7 @@ def recipe_records(t0, trainer, launches, eval_launches) -> list[dict]:
         grads = mqa_bwd(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0, False, rate)
         grads_ref = mqa_bwd_reference(q, k, v, slopes, lens, lens, seed, o, lse, do, scale, 0,
                                       False, rate)
-        fb, bb = attention_bound(q, k, lens, lens), attention_bound(q, k, lens, lens, True)
+        fb, bb = attention_bound(q, k, lens, lens), attention_bound(q, k, lens, lens, backward=True)
         shape = f"recipe {label}: B={B} N=M={N} H={H} D=64 bfloat16 dropout={rate}"
         say("recipe-kernels", t0, f"{shape}: K1 o err {fwd_err:.3e} lse err {lse_err:.3e} "
             f"(bound {fwd_bound:.0e}), kept {kept:.4f}; K2 {grad_errs('vs autograd', auto)}; "
@@ -4411,6 +4965,7 @@ def main() -> int:
     phase_kernel_mha(t0)
     phase_tp_heads(t0)
     phase_slope_draws(t0)
+    phase_head_dims(t0)
     synth, serve_launches, reference = phase_slice(t0)
     phase_profile(t0, lambda: synth(SENTENCES[0]), "one sentence")
     phase_profile(t0, lambda: synth(SENTENCES), "batch of 3")
@@ -4461,6 +5016,9 @@ def main() -> int:
                       f"one recipe training step ({RECIPE_TEXT} x {RECIPE_MEL}, bf16)")
         records += recipe_records(t0, recipe, recipe_launches, recipe_eval_launches)
         del recipe
+        torch.cuda.empty_cache()
+        split = phase_head_dim_path(t0, data, work / "split")
+        records += head_dim_records(batch, split)
         torch.cuda.empty_cache()
         phase_wav_decode(t0, data)
         gdata = gan_data(data)

@@ -66,6 +66,24 @@
 // 1) or before its first needed query (pass 2, causal) are neither loaded
 // nor computed.
 //
+// The tile width DT (attention_common.cuh): every tile is 64 rows x DT
+// columns, zero past the head dim. Up to DT = 64 each warp holds its two A
+// operands (Q and dO in pass 1, K and V in pass 2) as fragments in
+// registers, as described above. At DT = 128 the accumulators alone fill
+// a thread: pass 1's dQ sum is 64 registers, pass 2's dK and dV sums 128,
+// and resident A operands would add 64 (bf16) or 128 (f32) more. So at
+// DT = 128 both passes stage their A operands' 64 rows in shared memory
+// once per block (Q and dO, or K and V: 2 x 64 x (128 + pad) elements,
+// 34 KB bf16, 68 KB f32, beside the double-buffered tiles) and each warp
+// reads a k-step's fragment there as it goes (BwdMma, attention_mma.cuh's
+// shared A operand); pass 2 walks half tiles of 32 rows in f32 too. dK and
+// dV stay in registers, summed in a fixed order, with no float atomics: a
+// bf16 block then holds 160 accumulator and logit registers of its 255
+// (2 blocks an SM, 105 KB of shared memory each); f32 spills some (ptxas's
+// counts in chip_smoke.py's build phase). Splitting the columns over two
+// warps would recompute S^T and dP^T twice, and dK/dV in shared memory
+// would put a read-modify-write of 2 x 16 x 128 f32 on every row tile.
+//
 // Include only from the backward sources: every includer is its own
 // translation unit, so the helpers sit in an anonymous namespace.
 
@@ -108,34 +126,77 @@ struct BwdParams {
   int splits;
   int hash_heads;       // the dropout index's head count (H on one rank)
   uint32_t seed_shift;  // the dropout index of this call's first element
+  int D;                // head dim: a multiple of 8, at most the tile width
 };
 
-// The A operand of the backward: f32 keeps its values and splits at each
-// use, since each warp holds two operands (Q and dO, or K and V).
-template <typename T>
-struct BwdMma {
-  using type = Mma<T>;
-};
-template <>
-struct BwdMma<float> {
-  using type = MmaTf32<false>;
-};
-
-// Dynamic shared memory of a block: pass 1, two stages of K and of V;
-// pass 2, two stages of Q and of dO rows and of their lse and delta.
-template <typename T>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  return 4 * ATT_KEYS * tile_row<T>() * static_cast<int>(sizeof(T));
+// Whether the A operands sit in shared memory at this tile width.
+template <int DT>
+__host__ __device__ constexpr bool bwd_shared_a() {
+  return DT > 64;
 }
-template <typename T>
+
+// The A operands of the backward: f32 keeps its values and splits at each
+// use, since each warp holds two operands (Q and dO, or K and V); at
+// DT = 128 both dtypes read them from shared memory.
+template <typename T, int DT>
+struct BwdMma {
+  using type = MmaBf16<DT, bwd_shared_a<DT>()>;
+};
+template <int DT>
+struct BwdMma<float, DT> {
+  using type = MmaTf32<false, DT, bwd_shared_a<DT>()>;
+};
+
+// Rows a warp of pass 2 takes at once: half a tile in bf16 (a whole tile's
+// logits, the dK and dV sums and the split of P would spill), and in f32
+// at DT = 128; f32 spills either way up to DT = 64 and runs faster on whole
+// tiles there.
+template <typename T, int DT>
+__host__ __device__ constexpr int dkv_part() {
+  return sizeof(T) == 2 || DT > 64 ? ATT_KEYS / 2 : ATT_KEYS;
+}
+
+// Dynamic shared memory of a block: pass 1, two stages of K and of V (and
+// at DT = 128 the block's Q and dO rows); pass 2, two stages of Q and of
+// dO rows and of their lse and delta (and at DT = 128 the block's K and V
+// rows).
+template <typename T, int DT>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return (4 * ATT_KEYS + (bwd_shared_a<DT>() ? 2 * ATT_ROWS : 0)) * tile_row<T, DT>() *
+         static_cast<int>(sizeof(T));
+}
+template <typename T, int DT>
 __host__ __device__ constexpr int dkv_smem_bytes() {
-  return 4 * ATT_KEYS * tile_row<T>() * static_cast<int>(sizeof(T)) +
+  return (4 * ATT_KEYS + (bwd_shared_a<DT>() ? 2 * ATT_ROWS : 0)) * tile_row<T, DT>() *
+             static_cast<int>(sizeof(T)) +
          4 * ATT_KEYS * static_cast<int>(sizeof(float));
 }
 
 // The larger of the two for the entry points' dtype code (0 f32, 1 bf16).
+template <int DT>
 inline int bwd_smem_bytes_of(int dtype) {
-  return dtype == 0 ? dkv_smem_bytes<float>() : dtype == 1 ? dkv_smem_bytes<__nv_bfloat16>() : 0;
+  return dtype == 0   ? dkv_smem_bytes<float, DT>()
+         : dtype == 1 ? dkv_smem_bytes<__nv_bfloat16, DT>()
+                      : 0;
+}
+
+// 64 rows of a (rows x D) operand into a shared (64 x S) tile by cp.async,
+// row i from `row(i)` (null: a row past the operand), zero past D and on
+// null rows; `base` is any valid address of the operand, the source named
+// where nothing is read. The caller commits.
+template <typename T, int DT, typename RowFn>
+__device__ __forceinline__ void stage_rows(T* dst, const T* base, RowFn row, int D) {
+  constexpr int S = tile_row<T, DT>();
+  constexpr int CHUNKS = DT * static_cast<int>(sizeof(T)) / 16;
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int u = 0; u < ATT_ROWS * CHUNKS / ATT_THREADS; ++u) {
+    const int x = threadIdx.x + u * ATT_THREADS;
+    const int i = x / CHUNKS, ch = x % CHUNKS;
+    const T* src = row(i);
+    const bool ok = src != nullptr && ch * PER < D;
+    cp_async16(dst + i * S + ch * PER, ok ? src + ch * PER : base, ok);
+  }
 }
 
 // --------------------------------------------------------------- pass 1
@@ -151,17 +212,21 @@ struct BwdRow {
   double lo2d, hi2d, lse2d;  // f32 kernels: the same from float64 products
 };
 
-template <typename T, typename Rows>
+template <typename T, int DT, bool kFullD, typename Rows>
 __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS : 1)
     attention_dq_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  constexpr int S = tile_row<T>();
+  constexpr int S = tile_row<T, DT>();
   constexpr int TILE = ATT_KEYS * S;
+  constexpr int DS = DT / 8;  // 8-column slices of dQ
+  constexpr bool kSharedA = bwd_shared_a<DT>();
   T* ks = reinterpret_cast<T*>(bwd_smem);  // [2 stages][64 keys][S]
   T* vs = ks + 2 * TILE;
-  using Ops = typename BwdMma<T>::type;
+  T* qs = vs + 2 * TILE;                    // DT = 128: [64 rows][S] Q, then dO
+  using Ops = typename BwdMma<T, DT>::type;
 
-  const Rows rows(p);
+  const int D = kFullD ? DT : p.D;  // the head dim
+  const Rows rows(p, D);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int key_len = max(min(p.key_lens[rows.b], p.M), 0);
@@ -211,17 +276,20 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
         r.hi2d = static_cast<double>(p.slopes[p.H + h]) * LOG2E_D;
       }
       r.hseed = rows.hash_base(i) + seed;
-      // delta over this thread's 16 dims of the row, then over the quad
+      // delta over this thread's 8-column chunks of the row (columns
+      // 8t + 32u), then over the quad
       float part = 0.f;
       if (r.in_range) {
-        const size_t off = rows.q_offset(i) + 16 * t;
+        const size_t off = rows.q_offset(i) + 8 * t;
         float a[8], b[8];
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          widen8(dout + off + 8 * u, a);
-          widen8(o + off + 8 * u, b);
+        for (int u = 0; u < (DT + 31) / 32; ++u) {
+          if (8 * t + 32 * u < D) {
+            widen8(dout + off + 32 * u, a);
+            widen8(o + off + 32 * u, b);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) part = fmaf(a[e], b[e], part);
+            for (int e = 0; e < 8; ++e) part = fmaf(a[e], b[e], part);
+          }
         }
       }
       part += __shfl_xor_sync(0xffffffffu, part, 1);
@@ -237,30 +305,42 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
       qrow[half] = used ? q + rows.q_offset(i) : nullptr;
       drow[half] = used ? dout + rows.q_offset(i) : nullptr;
     }
-    qa.load_q(qrow[0], qrow[1], t);
-    da.load_q(drow[0], drow[1], t);
+    if constexpr (kSharedA) {
+      // the block's Q and dO rows, staged with the first K/V tile
+      const bool any = block_kend > 0;
+      stage_rows<T, DT>(qs, q, [&](int i) {
+        return any && i < nrows ? q + rows.q_offset(i) : nullptr; }, D);
+      stage_rows<T, DT>(qs + ATT_ROWS * S, dout, [&](int i) {
+        return any && i < nrows ? dout + rows.q_offset(i) : nullptr; }, D);
+      qa.bind(qs + w0 * S, lane);
+      da.bind(qs + (ATT_ROWS + w0) * S, lane);
+    } else {
+      qa.load_q(qrow[0], qrow[1], t, D);
+      da.load_q(drow[0], drow[1], t, D);
+    }
   }
 
-  float dq[8][4];
+  float dq[DS][4];
 #pragma unroll
-  for (int d = 0; d < 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+  for (int d = 0; d < DS; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
   float dsl[2][2] = {};  // [half][lower, upper]: sum of ds * -|c - c*|
   const float one[2] = {1.f, 1.f};
 
-  // K/V rows c0 .. c0 + 63 into a stage; rows past block_kend zero-filled
+  // K/V rows c0 .. c0 + 63 into a stage; rows past block_kend and columns
+  // past D zero-filled
   const T* kb = static_cast<const T*>(p.k) + rows.kv_offset();
   const T* vb = static_cast<const T*>(p.v) + rows.kv_offset();
   const size_t kstride = rows.kv_stride();
-  constexpr int CHUNKS = ATT_D * static_cast<int>(sizeof(T)) / 16;  // per row
-  constexpr int PER = 16 / static_cast<int>(sizeof(T));            // elements
+  constexpr int CHUNKS = DT * static_cast<int>(sizeof(T)) / 16;  // per tile row
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));         // elements
   auto load_tile = [&](int c0, int stage) {
 #pragma unroll
     for (int u = 0; u < ATT_KEYS * CHUNKS / ATT_THREADS; ++u) {
       const int x = threadIdx.x + u * ATT_THREADS;
       const int j = x / CHUNKS, ch = x % CHUNKS;
       const int c = c0 + j;
-      const bool ok = c < block_kend;
-      const size_t src = (ok ? c : 0) * kstride + ch * PER;
+      const bool ok = c < block_kend && ch * PER < D;
+      const size_t src = ok ? c * kstride + ch * PER : 0;
       const int dst = stage * TILE + j * S + ch * PER;
       cp_async16(ks + dst, kb + src, ok);
       cp_async16(vs + dst, vb + src, ok);
@@ -358,8 +438,11 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
     if (!rs[half].in_range) continue;
     T* row = dqo + rows.q_offset(w0 + g + 8 * half);
 #pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      Ops::store2(row + 8 * d + 2 * t, dq[d][2 * half] * p.scale, dq[d][2 * half + 1] * p.scale);
+    for (int d = 0; d < DS; ++d) {
+      if (8 * d < D) {
+        Ops::store2(row + 8 * d + 2 * t, dq[d][2 * half] * p.scale,
+                    dq[d][2 * half + 1] * p.scale);
+      }
     }
   }
 
@@ -388,24 +471,25 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
 }
 
 // --------------------------------------------------------------- pass 2
-template <typename T, typename Keys>
+template <typename T, int DT, bool kFullD, typename Keys>
 __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS : 1)
     attention_dkv_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  constexpr int S = tile_row<T>();
+  constexpr int S = tile_row<T, DT>();
   constexpr int TILE = ATT_KEYS * S;
-  // rows a warp takes at once: half a tile in bf16 (a whole tile's logits,
-  // the dK and dV sums and the split of P would spill); f32 spills either
-  // way and runs faster on whole tiles
-  constexpr int PART = sizeof(T) == 2 ? ATT_KEYS / 2 : ATT_KEYS;
-  constexpr int SL = PART / 8;  // 8-row slices of a part
+  constexpr int DS = DT / 8;  // 8-column slices of dK and dV
+  constexpr bool kSharedA = bwd_shared_a<DT>();
+  constexpr int PART = dkv_part<T, DT>();  // rows a warp takes at once
+  constexpr int SL = PART / 8;             // 8-row slices of a part
   T* qs = reinterpret_cast<T*>(bwd_smem);  // [2 stages][64 rows][S]
   T* gs = qs + 2 * TILE;                   // dO rows, the same
   float* ls = reinterpret_cast<float*>(gs + 2 * TILE);  // [2 stages][64] lse
   float* dl = ls + 2 * ATT_KEYS;                        // [2 stages][64] delta
-  using Ops = typename BwdMma<T>::type;
+  T* kvs = reinterpret_cast<T*>(dl + 2 * ATT_KEYS);     // DT = 128: [64 keys][S] K, then V
+  using Ops = typename BwdMma<T, DT>::type;
 
-  const Keys keys(p);
+  const int D = kFullD ? DT : p.D;  // the head dim
+  const Keys keys(p, D);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int key_len = max(min(p.key_lens[keys.b], p.M), 0);
@@ -431,22 +515,33 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   {
     const T* k = static_cast<const T*>(p.k) + keys.kv_offset();
     const T* v = static_cast<const T*>(p.v) + keys.kv_offset();
-    const T* krow[2];
-    const T* vrow[2];
+    if constexpr (kSharedA) {
+      // the block's K and V rows, staged with the first row tile
+      const bool any = it1 > it0;
+      stage_rows<T, DT>(kvs, k, [&](int i) {
+        return any && c0 + i < p.M ? k + (c0 + i) * keys.kv_stride() : nullptr; }, D);
+      stage_rows<T, DT>(kvs + ATT_ROWS * S, v, [&](int i) {
+        return any && c0 + i < p.M ? v + (c0 + i) * keys.kv_stride() : nullptr; }, D);
+      ka.bind(kvs + 16 * warp * S, lane);
+      va.bind(kvs + (ATT_ROWS + 16 * warp) * S, lane);
+    } else {
+      const T* krow[2];
+      const T* vrow[2];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = cw + g + 8 * half;
-      const bool used = c < p.M && cw < key_len && it1 > it0;
-      krow[half] = used ? k + c * keys.kv_stride() : nullptr;
-      vrow[half] = used ? v + c * keys.kv_stride() : nullptr;
+      for (int half = 0; half < 2; ++half) {
+        const int c = cw + g + 8 * half;
+        const bool used = c < p.M && cw < key_len && it1 > it0;
+        krow[half] = used ? k + c * keys.kv_stride() : nullptr;
+        vrow[half] = used ? v + c * keys.kv_stride() : nullptr;
+      }
+      ka.load_q(krow[0], krow[1], t, D);
+      va.load_q(vrow[0], vrow[1], t, D);
     }
-    ka.load_q(krow[0], krow[1], t);
-    va.load_q(vrow[0], vrow[1], t);
   }
 
-  float dk[8][4], dv[8][4];
+  float dk[DS][4], dv[DS][4];
 #pragma unroll
-  for (int d = 0; d < 8; ++d) {
+  for (int d = 0; d < DS; ++d) {
     dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
     dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
   }
@@ -457,8 +552,8 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   const T* qb = static_cast<const T*>(p.q);
   const T* db = static_cast<const T*>(p.dout);
   const size_t qstride = keys.q_stride();
-  constexpr int CHUNKS = ATT_D * static_cast<int>(sizeof(T)) / 16;  // per row
-  constexpr int PER = 16 / static_cast<int>(sizeof(T));            // elements
+  constexpr int CHUNKS = DT * static_cast<int>(sizeof(T)) / 16;  // per tile row
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));         // elements
   auto load_tile = [&](int item, int stage) {
     const int h = h_lo + item / ntq;
     const int n0 = n_start + (item % ntq) * ATT_KEYS;
@@ -467,8 +562,8 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
     for (int u = 0; u < ATT_KEYS * CHUNKS / ATT_THREADS; ++u) {
       const int x = threadIdx.x + u * ATT_THREADS;
       const int j = x / CHUNKS, ch = x % CHUNKS;
-      const bool ok = n0 + j < q_len;
-      const size_t src = (ok ? base + j * qstride : 0) + ch * PER;
+      const bool ok = n0 + j < q_len && ch * PER < D;
+      const size_t src = ok ? base + j * qstride + ch * PER : 0;
       const int dst = stage * TILE + j * S + ch * PER;
       cp_async16(qs + dst, qb + src, ok);
       cp_async16(gs + dst, db + src, ok);
@@ -571,7 +666,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   cp_async_wait<0>();
 
   // the warp's keys: dK and dV, or this split's f32 partial sums
-  const size_t plane = static_cast<size_t>(p.B) * p.M * p.Hkv * ATT_D;
+  const size_t plane = static_cast<size_t>(p.B) * p.M * p.Hkv * D;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int c = cw + g + 8 * half;
@@ -581,18 +676,23 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
       T* dkr = static_cast<T*>(p.dk) + off;
       T* dvr = static_cast<T*>(p.dv) + off;
 #pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        Ops::store2(dkr + 8 * d, dk[d][2 * half] * p.scale, dk[d][2 * half + 1] * p.scale);
-        Ops::store2(dvr + 8 * d, dv[d][2 * half], dv[d][2 * half + 1]);
+      for (int d = 0; d < DS; ++d) {
+        if (8 * d < D) {
+          Ops::store2(dkr + 8 * d, dk[d][2 * half] * p.scale, dk[d][2 * half + 1] * p.scale);
+          Ops::store2(dvr + 8 * d, dv[d][2 * half], dv[d][2 * half + 1]);
+        }
       }
     } else {
       float* wk = p.work + 2 * static_cast<size_t>(keys.split()) * plane + off;
       float* wv = wk + plane;
 #pragma unroll
-      for (int d = 0; d < 8; ++d) {
-        *reinterpret_cast<float2*>(wk + 8 * d) =
-            make_float2(dk[d][2 * half] * p.scale, dk[d][2 * half + 1] * p.scale);
-        *reinterpret_cast<float2*>(wv + 8 * d) = make_float2(dv[d][2 * half], dv[d][2 * half + 1]);
+      for (int d = 0; d < DS; ++d) {
+        if (8 * d < D) {
+          *reinterpret_cast<float2*>(wk + 8 * d) =
+              make_float2(dk[d][2 * half] * p.scale, dk[d][2 * half + 1] * p.scale);
+          *reinterpret_cast<float2*>(wv + 8 * d) =
+              make_float2(dv[d][2 * half], dv[d][2 * half + 1]);
+        }
       }
     }
   }
@@ -622,11 +722,11 @@ __global__ void dkv_sum_kernel(const float* __restrict__ work, T* __restrict__ d
 // key-stationary ones (y: splits, times H for per-head K/V). The shared
 // memory limits are raised once per device, so the launches can be
 // captured in a CUDA graph. Returns the first CUDA error.
-template <typename T, typename Rows, typename Keys>
-cudaError_t launch_attention_bwd(dim3 grid1, dim3 grid2, const BwdParams& p, cudaStream_t st) {
-  constexpr auto dq_kernel = attention_dq_kernel<T, Rows>;
-  constexpr auto dkv_kernel = attention_dkv_kernel<T, Keys>;
-  constexpr int dq_bytes = dq_smem_bytes<T>(), dkv_bytes = dkv_smem_bytes<T>();
+template <typename T, int DT, bool kFullD, typename Rows, typename Keys>
+cudaError_t launch_bwd_kernels(dim3 grid1, dim3 grid2, const BwdParams& p, cudaStream_t st) {
+  constexpr auto dq_kernel = attention_dq_kernel<T, DT, kFullD, Rows>;
+  constexpr auto dkv_kernel = attention_dkv_kernel<T, DT, kFullD, Keys>;
+  constexpr int dq_bytes = dq_smem_bytes<T, DT>(), dkv_bytes = dkv_smem_bytes<T, DT>();
   cudaError_t err = raise_smem_once<dq_kernel>(dq_bytes);
   if (err == cudaSuccess) err = raise_smem_once<dkv_kernel>(dkv_bytes);
   if (err != cudaSuccess) return err;
@@ -636,11 +736,18 @@ cudaError_t launch_attention_bwd(dim3 grid1, dim3 grid2, const BwdParams& p, cud
   dkv_kernel<<<grid2, ATT_THREADS, dkv_bytes, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
-  const size_t plane = static_cast<size_t>(p.B) * p.M * p.Hkv * ATT_D;
+  const size_t plane = static_cast<size_t>(p.B) * p.M * p.Hkv * p.D;
   const unsigned blocks = static_cast<unsigned>((plane / 4 + 255) / 256);
   dkv_sum_kernel<T><<<blocks, 256, 0, st>>>(p.work, static_cast<T*>(p.dk),
                                             static_cast<T*>(p.dv), plane, p.splits);
   return cudaGetLastError();
+}
+
+// The instantiations for p.D: the full-width ones at D == DT.
+template <typename T, int DT, typename Rows, typename Keys>
+cudaError_t launch_attention_bwd(dim3 grid1, dim3 grid2, const BwdParams& p, cudaStream_t st) {
+  return p.D == DT ? launch_bwd_kernels<T, DT, true, Rows, Keys>(grid1, grid2, p, st)
+                   : launch_bwd_kernels<T, DT, false, Rows, Keys>(grid1, grid2, p, st);
 }
 
 }  // namespace

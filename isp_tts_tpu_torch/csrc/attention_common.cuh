@@ -5,6 +5,18 @@
 // difference between the folded-MQA kernels (K1, K2) and the per-head ones
 // (K5a, K5b).
 //
+// Head dims: the tile cores are templates on the tile width DT (16, 32, 64
+// or 128 columns of every Q, K, V and dO tile); the kernel parameters carry
+// the head dim D (a multiple of 8, D <= DT), the row stride of every tensor
+// in device memory. Columns D .. DT - 1 of a tile are zero in shared memory
+// and in the A fragments: they add nothing to a product over the head dim,
+// and the output columns they give (of o, dq, dk, dv) are never stored.
+// Each kernel has two instantiations a width: kFullD (D == DT, the head dim
+// a compile-time constant, so the column checks and strides fold away as
+// they did when every head dim was 64) and the general one (D < DT). Each
+// source is built once per DT, with -DATT_TILE_D=DT (ops/cuda_build.py),
+// and the wrapper picks the least DT >= D.
+//
 // Every .cu file that includes this header is its own translation unit, so
 // the helpers sit in an anonymous namespace there.
 
@@ -17,7 +29,13 @@
 
 namespace {
 
-constexpr int ATT_D = 64;         // head dim (every recipe)
+#ifndef ATT_TILE_D
+#error "build each attention source with -DATT_TILE_D=16, 32, 64 or 128 (ops/cuda_build.py)"
+#endif
+// the tile width this translation unit instantiates its kernels at
+constexpr int ATT_DT = ATT_TILE_D;
+static_assert(ATT_DT == 16 || ATT_DT == 32 || ATT_DT == 64 || ATT_DT == 128,
+              "ATT_TILE_D must be 16, 32, 64 or 128");
 constexpr int ATT_ROWS = 64;      // rows (queries, or keys) per block
 constexpr int ATT_KEYS = 64;      // rows per shared-memory tile
 constexpr int ATT_THREADS = 128;  // 4 warps of 16 rows
@@ -67,8 +85,8 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
 // ------------------------------------------------------- row geometries
 // The ALiBi bias of key c for query n is (c <= n + offset ? lo[h] :
 // hi[h]) * -|c - n - offset|; the dropout keep bit hashes an index that is
-// linear in c. Both families lay q, o, dO and dq out as (B, N, H, 64); K1
-// and K2 fold row r = n*H + h of the (B, N*H, 64) view onto the one K/V
+// linear in c. Both families lay q, o, dO and dq out as (B, N, H, D); K1
+// and K2 fold row r = n*H + h of the (B, N*H, D) view onto the one K/V
 // head, K5a and K5b give each head its own block of rows.
 //
 // The dropout index is over the global batch and heads: a data rank's
@@ -90,18 +108,18 @@ struct FoldedRows {
   // 3 bf16 blocks an SM: 4 (at 128 registers, with spills) measured slower
   // at the decoder's training shape (PERF.md §6)
   static constexpr int kBf16Blocks = 3;
-  int b, r0, R, N, M, H, HH;
+  int b, r0, R, N, M, H, HH, D;
 
   template <typename P>
-  __device__ explicit FoldedRows(const P& p)
+  __device__ FoldedRows(const P& p, int d)
       : b(blockIdx.y), r0(blockIdx.x * ATT_ROWS), R(p.N * p.H), N(p.N), M(p.M), H(p.H),
-        HH(p.hash_heads) {}
+        HH(p.hash_heads), D(d) {}
   __device__ int count() const { return min(ATT_ROWS, R - r0); }
   __device__ int query(int i) const { return (r0 + i) / H; }
   __device__ int head(int i) const { return (r0 + i) % H; }
   __device__ int head_stride() const { return H; }
   __device__ size_t q_offset(int i) const {
-    return (static_cast<size_t>(b) * R + r0 + i) * ATT_D;
+    return (static_cast<size_t>(b) * R + r0 + i) * D;
   }
   __device__ size_t lse_index(int i) const { return static_cast<size_t>(b) * R + r0 + i; }
   // ((b*N + n)*HH + h)*M, wrapping in uint32 as the TPU kernel's int32
@@ -111,29 +129,29 @@ struct FoldedRows {
              static_cast<uint32_t>(query(i))) * static_cast<uint32_t>(HH) +
             static_cast<uint32_t>(head(i))) * static_cast<uint32_t>(M);
   }
-  __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * ATT_D; }
-  __device__ size_t kv_stride() const { return ATT_D; }
+  __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * D; }
+  __device__ size_t kv_stride() const { return D; }
 };
 
 // Tile row i of block (x, h, b) is query n0 + i of head h, whose K/V head
-// is h (Hkv = H) or 0 (Hkv = 1), keys Hkv*64 elements apart.
+// is h (Hkv = H) or 0 (Hkv = 1), keys Hkv*D elements apart.
 struct HeadRows {
   // 4 bf16 blocks an SM (128 registers, with spills): faster than 3 at the
   // decoder's training shape, where each block reads its own head's K/V
   // (PERF.md §6)
   static constexpr int kBf16Blocks = 4;
-  int b, h, n0, N, H, M, Hkv, HH;
+  int b, h, n0, N, H, M, Hkv, HH, D;
 
   template <typename P>
-  __device__ explicit HeadRows(const P& p)
+  __device__ HeadRows(const P& p, int d)
       : b(blockIdx.z), h(blockIdx.y), n0(blockIdx.x * ATT_ROWS), N(p.N), H(p.H), M(p.M),
-        Hkv(p.Hkv), HH(p.hash_heads) {}
+        Hkv(p.Hkv), HH(p.hash_heads), D(d) {}
   __device__ int count() const { return min(ATT_ROWS, N - n0); }
   __device__ int query(int i) const { return n0 + i; }
   __device__ int head(int) const { return h; }
   __device__ int head_stride() const { return 1; }
   __device__ size_t q_offset(int i) const {
-    return ((static_cast<size_t>(b) * N + n0 + i) * H + h) * ATT_D;
+    return ((static_cast<size_t>(b) * N + n0 + i) * H + h) * D;
   }
   __device__ size_t lse_index(int i) const {
     return (static_cast<size_t>(b) * H + h) * N + n0 + i;
@@ -145,9 +163,9 @@ struct HeadRows {
             static_cast<uint32_t>(n0 + i)) * static_cast<uint32_t>(M);
   }
   __device__ size_t kv_offset() const {
-    return (static_cast<size_t>(b) * M * Hkv + (Hkv == 1 ? 0 : h)) * ATT_D;
+    return (static_cast<size_t>(b) * M * Hkv + (Hkv == 1 ? 0 : h)) * D;
   }
-  __device__ size_t kv_stride() const { return static_cast<size_t>(Hkv) * ATT_D; }
+  __device__ size_t kv_stride() const { return static_cast<size_t>(Hkv) * D; }
 };
 
 // Key-stationary blocks (the backward's dk/dv pass): block (x, y, b) holds
@@ -160,20 +178,20 @@ struct HeadRows {
 
 // K2: every head reads the one K/V head.
 struct FoldedKeys {
-  int b, N, M, H, HH;
+  int b, N, M, H, HH, D;
 
   template <typename P>
-  __device__ explicit FoldedKeys(const P& p)
-      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), HH(p.hash_heads) {}
+  __device__ FoldedKeys(const P& p, int d)
+      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), HH(p.hash_heads), D(d) {}
   __device__ int split() const { return blockIdx.y; }
   __device__ int head_lo() const { return 0; }
   __device__ int head_hi() const { return H; }
-  __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * ATT_D; }
-  __device__ size_t kv_stride() const { return ATT_D; }
+  __device__ size_t kv_offset() const { return static_cast<size_t>(b) * M * D; }
+  __device__ size_t kv_stride() const { return D; }
   __device__ size_t q_offset(int n, int h) const {
-    return ((static_cast<size_t>(b) * N + n) * H + h) * ATT_D;
+    return ((static_cast<size_t>(b) * N + n) * H + h) * D;
   }
-  __device__ size_t q_stride() const { return static_cast<size_t>(H) * ATT_D; }
+  __device__ size_t q_stride() const { return static_cast<size_t>(H) * D; }
   __device__ size_t lse_index(int n, int h) const {
     return (static_cast<size_t>(b) * N + n) * H + h;
   }
@@ -191,22 +209,22 @@ struct FoldedKeys {
 // The block's split and head are read from blockIdx at each use, so the
 // policy holds no more registers than FoldedKeys.
 struct HeadKeys {
-  int b, N, M, H, Hkv, HH;
+  int b, N, M, H, Hkv, HH, D;
 
   template <typename P>
-  __device__ explicit HeadKeys(const P& p)
-      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), Hkv(p.Hkv), HH(p.hash_heads) {}
+  __device__ HeadKeys(const P& p, int d)
+      : b(blockIdx.z), N(p.N), M(p.M), H(p.H), Hkv(p.Hkv), HH(p.hash_heads), D(d) {}
   __device__ int split() const { return Hkv == 1 ? blockIdx.y : blockIdx.y / H; }
   __device__ int head_lo() const { return Hkv == 1 ? 0 : blockIdx.y % H; }
   __device__ int head_hi() const { return Hkv == 1 ? H : head_lo() + 1; }
   __device__ size_t kv_offset() const {
-    return (static_cast<size_t>(b) * M * Hkv + head_lo()) * ATT_D;
+    return (static_cast<size_t>(b) * M * Hkv + head_lo()) * D;
   }
-  __device__ size_t kv_stride() const { return static_cast<size_t>(Hkv) * ATT_D; }
+  __device__ size_t kv_stride() const { return static_cast<size_t>(Hkv) * D; }
   __device__ size_t q_offset(int n, int h) const {
-    return ((static_cast<size_t>(b) * N + n) * H + h) * ATT_D;
+    return ((static_cast<size_t>(b) * N + n) * H + h) * D;
   }
-  __device__ size_t q_stride() const { return static_cast<size_t>(H) * ATT_D; }
+  __device__ size_t q_stride() const { return static_cast<size_t>(H) * D; }
   __device__ size_t lse_index(int n, int h) const {
     return (static_cast<size_t>(b) * H + h) * N + n;
   }

@@ -4,12 +4,14 @@
 // row geometry supplied by a small policy.
 //
 // Block: 4 warps (128 threads) over 64 query rows, 16 rows a warp. Key and
-// value tiles of 64 keys arrive in shared memory by cp.async, double
-// buffered, so that tile j+1 loads while tile j is in the MMAs; nothing is
-// widened in shared memory (rows padded by one 16-byte chunk, so ldmatrix
-// and the f32 value reads are free of bank conflicts). Each warp keeps its
-// Q tile as A fragments in registers, loaded once, and its 16 x 64 logits
-// and 16 x 64 output accumulator in registers: the logits' fragment element
+// value tiles of 64 keys x DT columns (the tile width of attention_common.cuh,
+// columns past the head dim zero-filled by the copy) arrive in shared memory
+// by cp.async, double buffered, so that tile j+1 loads while tile j is in
+// the MMAs; nothing is widened in shared memory (rows padded by one 16-byte
+// chunk, so ldmatrix and the f32 value reads are free of bank conflicts).
+// Each warp keeps its Q tile as A fragments in registers, loaded once, and
+// its 16 x 64 logits and 16 x DT output accumulator in registers: the
+// logits' fragment element
 // (row lane/4 or lane/4 + 8, column 2*(lane%4) + {0,1}) is where the bias,
 // the masks, the dropout hash and the online softmax act, in f32 on the
 // CUDA cores, and the same registers become the A fragment of P.V.
@@ -27,6 +29,13 @@
 // element the distance is one add off a per-row base (exact in f32), the
 // dropout hash one add off a per-row product (it is linear in the key
 // before its mix), and 1/(1 - rate) is applied once, to the output.
+//
+// The tile width: at DT = 128 the output accumulator alone is 64 registers a
+// thread and the bf16 Q fragments 32, so a bf16 block is held to 2 an SM
+// (255 registers) rather than 3 or 4, and an f32 block keeps Q's f32 values
+// and splits them at each use (FwdMma) instead of 128 registers of hi and
+// lo. The key tile stays 64 wide; K and V take 2 x 2 x 64 x (128 + 4) x 4
+// bytes = 135 KB of shared memory in f32 (one block an SM), 70 KB in bf16.
 //
 // Skipped work: key tiles past the block's last needed key (the key length,
 // and under `causal` the diagonal of its last live row) are neither loaded
@@ -63,17 +72,29 @@ struct FwdParams {
   float inv_keep;
   int hash_heads;       // the dropout index's head count (H on one rank)
   uint32_t seed_shift;  // the dropout index of this call's first element
+  int D;                // head dim: a multiple of 8, at most the tile width
 };
 
 // Dynamic shared memory of one block: two stages of K and of V.
-template <typename T>
+template <typename T, int DT>
 __host__ __device__ constexpr int fwd_smem_bytes() {
-  return 4 * ATT_KEYS * tile_row<T>() * static_cast<int>(sizeof(T));
+  return 4 * ATT_KEYS * tile_row<T, DT>() * static_cast<int>(sizeof(T));
 }
 
 // The same for the entry points' dtype code (0 f32, 1 bf16), 0 for another.
+template <int DT>
 inline int fwd_smem_bytes_of(int dtype) {
-  return dtype == 0 ? fwd_smem_bytes<float>() : dtype == 1 ? fwd_smem_bytes<__nv_bfloat16>() : 0;
+  return dtype == 0   ? fwd_smem_bytes<float, DT>()
+         : dtype == 1 ? fwd_smem_bytes<__nv_bfloat16, DT>()
+                      : 0;
+}
+
+// Blocks an SM the launch bound asks for: bf16 Rows::kBf16Blocks up to
+// DT = 64, 2 at DT = 128 (255 registers a thread); f32 blocks take what
+// they need.
+template <typename T, int DT, typename Rows>
+__host__ __device__ constexpr int fwd_min_blocks() {
+  return sizeof(T) != 2 ? 1 : DT > 64 ? 2 : Rows::kBf16Blocks;
 }
 
 // ------------------------------------------------------------ the kernel
@@ -89,18 +110,22 @@ struct RowState {
 };
 
 // Rows is a row-stationary geometry of attention_common.cuh (FoldedRows,
-// HeadRows). bf16 blocks are held to Rows::kBf16Blocks an SM (170 registers a thread
-// for 3, 128 for 4); f32 blocks take what they need.
-template <typename T, typename Rows>
-__global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Blocks : 1)
+// HeadRows), DT the tile width, kFullD whether D == DT. bf16 blocks are held
+// to fwd_min_blocks an SM (170 registers a thread for 3, 128 for 4, 255 for
+// 2).
+template <typename T, int DT, bool kFullD, typename Rows>
+__global__ void __launch_bounds__(ATT_THREADS, fwd_min_blocks<T, DT, Rows>())
     attention_fwd_kernel(const FwdParams p) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
-  constexpr int S = tile_row<T>();
+  using Ops = typename FwdMma<T, DT>::type;
+  constexpr int S = tile_row<T, DT>();
+  constexpr int DS = DT / 8;  // 8-column slices of the output
   constexpr int TILE = ATT_KEYS * S;
   T* ks = reinterpret_cast<T*>(fwd_smem);  // [2 stages][64 keys][S]
   T* vs = ks + 2 * TILE;
 
-  const Rows rows(p);
+  const int D = kFullD ? DT : p.D;  // the head dim
+  const Rows rows(p, D);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int key_len = max(min(p.key_lens[rows.b], p.M), 0);
@@ -126,7 +151,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Block
   const int wn_max = rows.query(min(w0 + 15, nrows - 1)) + p.offset;
 
   RowState rs[2];
-  Mma<T> mma;
+  Ops mma;
   {
     const T* q = static_cast<const T*>(p.q);
     const T* qrow[2];
@@ -147,27 +172,28 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Block
       r.l = 0.f;
       qrow[half] = r.in_range && warp_kend > 0 ? q + rows.q_offset(i) : nullptr;
     }
-    mma.load_q(qrow[0], qrow[1], t);
+    mma.load_q(qrow[0], qrow[1], t, D);
   }
 
-  float o[8][4];
+  float o[DS][4];
 #pragma unroll
-  for (int d = 0; d < 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int d = 0; d < DS; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
 
-  // K/V rows c0 .. c0 + 63 into a stage; rows past block_kend zero-filled
+  // K/V rows c0 .. c0 + 63 into a stage; rows past block_kend and columns
+  // past D zero-filled
   const T* kb = static_cast<const T*>(p.k) + rows.kv_offset();
   const T* vb = static_cast<const T*>(p.v) + rows.kv_offset();
   const size_t kstride = rows.kv_stride();
-  constexpr int CHUNKS = ATT_D * static_cast<int>(sizeof(T)) / 16;  // per row
-  constexpr int PER = 16 / static_cast<int>(sizeof(T));            // elements
+  constexpr int CHUNKS = DT * static_cast<int>(sizeof(T)) / 16;  // per tile row
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));         // elements
   auto load_tile = [&](int c0, int stage) {
 #pragma unroll
     for (int u = 0; u < ATT_KEYS * CHUNKS / ATT_THREADS; ++u) {
       const int x = threadIdx.x + u * ATT_THREADS;
       const int j = x / CHUNKS, ch = x % CHUNKS;
       const int c = c0 + j;
-      const bool ok = c < block_kend;
-      const size_t src = (ok ? c : 0) * kstride + ch * PER;
+      const bool ok = c < block_kend && ch * PER < D;
+      const size_t src = ok ? c * kstride + ch * PER : 0;
       const int dst = stage * TILE + j * S + ch * PER;
       cp_async16(ks + dst, kb + src, ok);
       cp_async16(vs + dst, vb + src, ok);
@@ -251,7 +277,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Block
           }
         }
       }
-      Mma<T>::template pv<FWD_P_TERMS>(o, s, alpha, vs + stage * TILE, lane);
+      Ops::template pv<FWD_P_TERMS>(o, s, alpha, vs + stage * TILE, lane);
     }
     __syncthreads();  // the stage is free for the load two tiles on
   }
@@ -269,8 +295,10 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Block
     const float inv = ok ? p.inv_keep / l : 0.f;  // dropout's 1/(1 - rate) here
     T* orow = out + rows.q_offset(i);
 #pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      Mma<T>::store2(orow + 8 * d + 2 * t, o[d][2 * half] * inv, o[d][2 * half + 1] * inv);
+    for (int d = 0; d < DS; ++d) {
+      if (8 * d < D) {
+        Ops::store2(orow + 8 * d + 2 * t, o[d][2 * half] * inv, o[d][2 * half + 1] * inv);
+      }
     }
     if (t == 0) p.lse[rows.lse_index(i)] = ok ? (r.m + log2f(l)) * LN2 : INFINITY;
   }
@@ -279,14 +307,21 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? Rows::kBf16Block
 // Launch one instantiation on `st` with its dynamic shared memory (the
 // limit raised once per device, so the launch can be captured in a CUDA
 // graph). Returns the CUDA error of the attribute call or the launch.
-template <typename T, typename Rows>
-cudaError_t launch_attention_fwd(dim3 grid, const FwdParams& p, cudaStream_t st) {
-  constexpr auto kernel = attention_fwd_kernel<T, Rows>;
-  constexpr int bytes = fwd_smem_bytes<T>();
+template <typename T, int DT, bool kFullD, typename Rows>
+cudaError_t launch_fwd_kernel(dim3 grid, const FwdParams& p, cudaStream_t st) {
+  constexpr auto kernel = attention_fwd_kernel<T, DT, kFullD, Rows>;
+  constexpr int bytes = fwd_smem_bytes<T, DT>();
   const cudaError_t err = raise_smem_once<kernel>(bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, ATT_THREADS, bytes, st>>>(p);
   return cudaGetLastError();
+}
+
+// The instantiation for p.D: the full-width one at D == DT.
+template <typename T, int DT, typename Rows>
+cudaError_t launch_attention_fwd(dim3 grid, const FwdParams& p, cudaStream_t st) {
+  return p.D == DT ? launch_fwd_kernel<T, DT, true, Rows>(grid, p, st)
+                   : launch_fwd_kernel<T, DT, false, Rows>(grid, p, st);
 }
 
 }  // namespace

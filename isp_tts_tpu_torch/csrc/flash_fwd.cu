@@ -4,7 +4,7 @@
 // Replaces the TPU kernel isp_tts_tpu/ops/flash_attention.py:_fwd_kernel
 // (wrapper _flash_fwd, entry flash_attention), the core of every
 // self-attention layer with one key/value head per query head. Layouts are
-// the projections' own: q and o (B, N, H, 64), k and v (B, M, Hkv, 64) with
+// the projections' own: q and o (B, N, H, D), k and v (B, M, Hkv, D) with
 // Hkv = H, or Hkv = 1 (every head reads the one key/value head).
 // The bias is recomputed from the per-head slopes, never read from memory:
 //   dist = -|c - n - offset|,  bias = (c <= n + offset ? lo[h] : hi[h]) * dist
@@ -19,47 +19,52 @@
 // the index ((b*HH + h)*N + n)*M + c plus the seed and seed_shift, in
 // uint32 arithmetic (HH = H and no shift on one rank; a rank's global head
 // count and first row's and head's index under a split), so
-// the backward regenerates it bit for bit.
+// the backward regenerates it bit for bit. The index does not involve D.
 //
-// What bounds it on an H100: bytes. At the decoder's bf16 training shape
-// (B 32, N = M = 320, H 6, Hkv 6) it moves q, o and H heads of K/V, ~32 MB:
-// 9.5 us at 3.35 TB/s, against at most 5.0 GFLOP (4*64 operations per
-// (query, key) pair, every length full), 5.1 us at the bf16 tensor-core
-// peak; in f32 at the serving shape (B 4, N = M = 1024) the work, at most
-// 6.4 GFLOP: 39 us at the 3xTF32 rate (three TF32 MMAs a product, 495
-// TFLOP/s over 3). So the design keeps the logits and probabilities out of
-// device memory and the arithmetic on the tensor cores: the tile core of
-// attention_fwd.cuh (mma.sync, cp.async double-buffered K/V tiles), one
-// block per (batch, head, 64 queries). In bf16 P.V takes P as p_hi + p_lo,
-// two bf16 MMAs, since the TPU kernel computes P.V in f32.
+// What bounds it on an H100: bytes. It moves q, o and Hkv heads of K/V
+// (2*D bytes a row each in bf16) and does 4*D operations per (query, key)
+// pair. At the decoder's bf16 training shape (B 32, N = M = 320, H 6,
+// Hkv 6, D 64) that is ~32 MB, 9.5 us at 3.35 TB/s, against at most 5.0
+// GFLOP (every length full), 5.1 us at the bf16 tensor-core peak; in f32
+// at the serving shape (B 4, N = M = 1024) the work, at most 6.4 GFLOP:
+// 39 us at the 3xTF32 rate (three TF32 MMAs a product, 495 TFLOP/s over
+// 3). So the design keeps the logits and probabilities out of device
+// memory and the arithmetic on the tensor cores: the tile core of
+// attention_fwd.cuh (mma.sync, cp.async double-buffered K/V tiles of the
+// tile width ATT_TILE_D >= D), one block per (batch, head, 64 queries). In
+// bf16 P.V takes P as p_hi + p_lo, two bf16 MMAs, since the TPU kernel
+// computes P.V in f32.
 //
 // Plain C interface for ctypes; the launch goes on the caller's stream and
-// the function returns the CUDA error of the launch.
+// the function returns the CUDA error of the launch. Built once per tile
+// width (-DATT_TILE_D=16, 32, 64 or 128): it takes head dims D that are
+// multiples of 8 up to that width.
 
 #include "attention_fwd.cuh"
 
 extern "C" int isp_flash_fwd(const void* q, const void* k, const void* v,
                              const void* slopes, const void* key_lens,
                              const void* q_lens, const void* seed, void* o,
-                             void* lse, int B, int N, int M, int H, int Hkv,
+                             void* lse, int B, int N, int M, int H, int Hkv, int D,
                              int offset, int causal, float scale, int thresh,
                              float inv_keep, int hash_heads,
                              unsigned int seed_shift, int dtype, void* stream) {
-  if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H) || hash_heads < H) {
+  if (H > 65535 || B > 65535 || !(Hkv == 1 || Hkv == H) || hash_heads < H || D < 8 ||
+      D > ATT_DT || D % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FwdParams p{q, k, v, static_cast<const float*>(slopes),
                     static_cast<const int*>(key_lens), static_cast<const int*>(q_lens),
                     static_cast<const int*>(seed), o, static_cast<float*>(lse),
                     N, M, H, Hkv, offset, causal, scale, thresh, inv_keep, hash_heads,
-                    seed_shift};
+                    seed_shift, D};
   const dim3 grid((N + ATT_ROWS - 1) / ATT_ROWS, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_attention_fwd<float, HeadRows>(grid, p, st);
+    err = launch_attention_fwd<float, ATT_DT, HeadRows>(grid, p, st);
   } else if (dtype == 1) {
-    err = launch_attention_fwd<__nv_bfloat16, HeadRows>(grid, p, st);
+    err = launch_attention_fwd<__nv_bfloat16, ATT_DT, HeadRows>(grid, p, st);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -67,4 +72,7 @@ extern "C" int isp_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory of one block of the dtype's kernel, in bytes.
-extern "C" int isp_flash_fwd_smem_bytes(int dtype) { return fwd_smem_bytes_of(dtype); }
+extern "C" int isp_flash_fwd_smem_bytes(int dtype) { return fwd_smem_bytes_of<ATT_DT>(dtype); }
+
+// The tile width this library was built for: the largest head dim it takes.
+extern "C" int isp_flash_fwd_tile_d() { return ATT_DT; }

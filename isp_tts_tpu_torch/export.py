@@ -80,6 +80,20 @@ def kernel_fingerprint(device: torch.device) -> dict:
             "torch": torch.__version__, "sources": sources_hash()}
 
 
+def kernel_libraries(program) -> list[str]:
+    """The kernel libraries an exported program's registered attention
+    forwards launch: each node's source at its q's head dim
+    (:func:`~isp_tts_tpu_torch.ops.flash_attention.kernel_library`)."""
+    from .ops.flash_attention import kernel_library
+
+    libs = set()
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name in KERNEL_OPS:
+            libs.add(kernel_library(KERNEL_OPS[name], node.args[0].meta["val"].shape[-1]))
+    return sorted(libs)
+
+
 def kernel_nodes(program) -> dict[str, int]:
     """``{op name: nodes}`` of the registered attention forwards in an
     exported program's graph."""
@@ -172,7 +186,7 @@ def export_serving(synth, path, text_bucket: int, frame_budget: int, batch: int 
     elif precompile:
         from .ops.cuda_build import build_all
 
-        names = sorted({KERNEL_OPS[op] for op in kernel_nodes(exported)})
+        names = kernel_libraries(exported)
         libs = {name: p.read_bytes() for name, p in build_all(names).items()}
         fingerprint = kernel_fingerprint(device)
         logger.info("embedded kernel libraries %s (%.1f MB) for %s", names,
@@ -274,6 +288,8 @@ class ExportedSynthesizer:
 
                 program = move_to_device_pass(program, str(self.device))
             self.kernel_nodes = kernel_nodes(program)
+            #: the kernel libraries those nodes launch
+            self.kernel_libraries = kernel_libraries(program)
             #: kernel name -> embedded library serving this artifact's launches
             self._libs = {}
             if self.device.type == "cuda":
@@ -286,7 +302,7 @@ class ExportedSynthesizer:
         calls alone; else the package's, built from its sources."""
         from .ops import cuda_build
 
-        names = sorted({KERNEL_OPS[op] for op in self.kernel_nodes})
+        names = self.kernel_libraries
         want = self.meta.get("precompiled")
         have = kernel_fingerprint(self.device)
         if want and {k: want.get(k) for k in have} == have:

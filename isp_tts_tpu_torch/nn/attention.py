@@ -71,7 +71,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..ops.flash_attention import (HEAD_DIM, _geometry, drop_params, flash_attention,
+from ..ops.flash_attention import (HEAD_DIM_MAX, _geometry, drop_params, flash_attention,
                                    flash_attention_reference, masked_attention,
                                    mqa_attention, mqa_attention_reference)
 from ..ops.ring_attention import ring_attention
@@ -107,10 +107,10 @@ class AttentionConfig:
 
     def __post_init__(self):
         head_dim = self.head_dim or self.dim // self.heads
-        if self.flash != "off" and head_dim != HEAD_DIM:
+        if self.flash != "off" and head_dim > HEAD_DIM_MAX:
             raise NotImplementedError(
-                f"head_dim {head_dim}: the port's attention kernels take head dim "
-                f"{HEAD_DIM}; set flash: off for the plain version")
+                f"head_dim {head_dim}: the port's attention kernels take head dims up to "
+                f"{HEAD_DIM_MAX}; set flash: off for the plain version")
 
 
 class Attention(nn.Module):

@@ -8,6 +8,12 @@ library's file name carries a hash of the source, of the shared headers
 unchanged one is built once. Nothing is built at import time: :func:`load`
 builds at first use. Inside :func:`libraries` it returns libraries the
 caller loaded itself (an exported artifact's embedded ones) instead.
+
+A library is named by its source, ``mas`` for ``csrc/mas.cu``, or, for the
+attention sources built once per tile width, by the source and the width:
+``mqa_fwd_d128`` is ``csrc/mqa_fwd.cu`` built with ``-DATT_TILE_D=128``.
+Each (source, width) is its own nvcc process, so :func:`build_all` builds
+them in parallel.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import contextvars
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -51,8 +58,19 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def nvcc_command(source: Path, out: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(source)]
+def unit(name: str, csrc: Path | None = None) -> tuple[Path, tuple[str, ...]]:
+    """(source, macro definitions) of library ``name`` in ``csrc`` (the
+    package's sources by default): ``<source>``, or ``<source>_d<width>``
+    for a source built once per tile width."""
+    csrc = CSRC if csrc is None else csrc
+    m = re.fullmatch(r"(\w+)_d(\d+)", name)
+    if m and not (csrc / f"{name}.cu").exists() and (csrc / f"{m[1]}.cu").exists():
+        return csrc / f"{m[1]}.cu", (f"-DATT_TILE_D={m[2]}",)
+    return csrc / f"{name}.cu", ()
+
+
+def nvcc_command(source: Path, out: Path, defines: tuple[str, ...] = ()) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(out), str(source)]
 
 
 def sources_hash() -> str:
@@ -63,22 +81,22 @@ def sources_hash() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
+    source, defines = unit(name)
     # the shared headers count too: an edited header rebuilds every source
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(source.read_bytes() + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(NVCC_FLAGS + defines).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
+    """Compile library ``name`` (:func:`unit`) unless its hashed file exists."""
     return build_all([name])[name]
 
 
 def build_all(names: list[str]) -> dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` whose hashed library is missing, one
-    nvcc process per source, all started together; raise if any fails."""
+    """Compile every library of ``names`` whose hashed file is missing, one
+    nvcc process per library, all started together; raise if any fails."""
     out = {name: library_path(name) for name in names}
     todo = [n for n in names if not out[n].exists()]
     for name in names:
@@ -96,7 +114,8 @@ def build_all(names: list[str]) -> dict[str, Path]:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             log = tempfile.TemporaryFile(mode="w+")
-            proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", Path(tmp)),
+            source, defines = unit(name)
+            proc = subprocess.Popen(nvcc_command(source, Path(tmp), defines),
                                     stdout=log, stderr=subprocess.STDOUT, text=True)
             jobs[name] = (proc, tmp, log)
         pending = set(todo)
@@ -105,13 +124,13 @@ def build_all(names: list[str]) -> dict[str, Path]:
                 proc, tmp, log = jobs[name]
                 if proc.poll() is None:
                     if time.perf_counter() - t0 > 600:
-                        raise RuntimeError(f"nvcc took over 600 s for {name}.cu")
+                        raise RuntimeError(f"nvcc took over 600 s for {name}")
                     continue
                 pending.discard(name)
                 log.seek(0)
                 BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": log.read()}
             time.sleep(0.05)
-        failed = [f"nvcc failed for {name}.cu:\n{BUILD_INFO[name]['log']}"
+        failed = [f"nvcc failed for {name}:\n{BUILD_INFO[name]['log']}"
                   for name, (proc, _, _) in jobs.items() if proc.returncode != 0]
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -141,8 +160,8 @@ def launch_stream(device):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library, or return the
-    one that an enclosing :func:`libraries` names."""
+    """Build (if needed) and load library ``name`` (:func:`unit`), or return
+    the one that an enclosing :func:`libraries` names."""
     lib = _OVERRIDE.get().get(name) or _LOADED.get(name)
     if lib is None:
         lib = _LOADED[name] = ctypes.CDLL(str(build(name)))

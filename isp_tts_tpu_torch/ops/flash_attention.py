@@ -30,6 +30,15 @@ kernels are held against on the card. Any other device raises. Every
 function takes q in the projection's natural (B, N, H, D) layout, so the
 projections need no transposes. Symmetric ALiBi is two equal slope rows.
 
+Head dims: the kernels take every D from 1 to :data:`HEAD_DIM_MAX` (128).
+Each source is built once per tile width of :data:`HEAD_TILES`, and a call
+launches the least width >= D (:func:`kernel_library`). A D that is a
+multiple of 8 launches as it is; any other D is zero-padded along the head
+dim to the next multiple of 8 (:func:`pad_head_dim`, one copy a tensor),
+launched and sliced back, which is exact: the caller's scale is kept, and
+zero columns add nothing to q.k and give zero columns of o, dq, dk and dv.
+A larger D raises. The plain versions take any D.
+
 Dropout acts on the post-softmax probabilities, as in the JAX package: the
 normaliser uses the undropped probabilities, the value product the dropped
 ones. The keep mask is a pure integer hash of a global element index plus
@@ -59,7 +68,10 @@ from ..utils.autocast import no_autocast
 from .cuda_build import launch_stream
 
 NEG_INF = -1e30
-HEAD_DIM = 64
+#: the largest head dim the kernels take
+HEAD_DIM_MAX = 128
+#: the tile widths each attention source is built at (``-DATT_TILE_D``)
+HEAD_TILES = (16, 32, 64, 128)
 _M32 = 0xFFFFFFFF
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -371,14 +383,50 @@ def masked_attention(q, k, v, scale, bias=None, mask=None, causal=False, drop=No
     return torch.einsum("bhnm,bmhd->bnhd", probs, _heads(v, H)).to(q.dtype)
 
 
-def _check(q, k, v, slopes, key_lens, q_lens, seed, *more, per_head=False):
-    """Raise on what the kernels do not take. k and v are (B, M, D) for the
-    folded-MQA kernels, (B, M, Hkv, D) with Hkv in {1, H} with ``per_head``."""
+def head_tile(D: int) -> int:
+    """The tile width a kernel of head dim ``D`` (1 .. HEAD_DIM_MAX) runs at."""
+    for tile in HEAD_TILES:
+        if D <= tile:
+            return tile
+    raise ValueError(f"the attention kernels take head dims up to {HEAD_DIM_MAX}, got {D}; "
+                     "set flash: off for the plain version")
+
+
+def kernel_library(source: str, D: int) -> str:
+    """The library (``ops/cuda_build.py``) of attention ``source`` that a
+    call of head dim ``D`` launches: the source built at :func:`head_tile`."""
+    return f"{source}_d{head_tile(D)}"
+
+
+def pad_head_dim(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each tensor zero-padded along its last (head) dim to the next multiple
+    of 8, in one copy: the kernels' operands for a head dim they do not
+    launch at directly."""
+    D = xs[0].shape[-1]
+    pad = -D % 8
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
+def _head_dim(q) -> int:
+    """q's head dim; raises on a q that is not (B, N, H, D) or on D past
+    :data:`HEAD_DIM_MAX`."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, N, H, D), got {tuple(q.shape)}")
-    B, N, H, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"the attention kernels take head dim {HEAD_DIM}, got {D}")
+    D = q.shape[3]
+    if not 1 <= D <= HEAD_DIM_MAX:
+        raise ValueError(f"the attention kernels take head dims up to {HEAD_DIM_MAX}, "
+                         f"got {D}; set flash: off for the plain version")
+    return D
+
+
+def _check(q, k, v, slopes, key_lens, q_lens, seed, *more, per_head=False):
+    """Raise on what the kernels do not take. k and v are (B, M, D) for the
+    folded-MQA kernels, (B, M, Hkv, D) with Hkv in {1, H} with ``per_head``;
+    D a multiple of 8 up to :data:`HEAD_DIM_MAX` (the wrappers pad another)."""
+    D = _head_dim(q)
+    B, N, H, _ = q.shape
+    if D % 8:
+        raise ValueError(f"the kernels launch at head dims that are multiples of 8, got {D}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention kernels take float32 or bfloat16, got {q.dtype}")
     if per_head:
@@ -410,6 +458,18 @@ def _check(q, k, v, slopes, key_lens, q_lens, seed, *more, per_head=False):
             raise ValueError(f"argument {i} must be 16-byte aligned")
 
 
+#: kernel launches by library (:func:`kernel_library`) since the counts were
+#: last cleared: each wrapper adds one here where it adds one to its own
+#: ``launches`` (CPU calls never count)
+LIBRARY_LAUNCHES: dict[str, int] = {}
+
+
+def _counted(fn, library: str) -> None:
+    """One launch of ``library`` by wrapper ``fn``."""
+    fn.launches += 1
+    LIBRARY_LAUNCHES[library] = LIBRARY_LAUNCHES.get(library, 0) + 1
+
+
 def _kernel(name: str, symbol: str, argtypes: list):
     """A built kernel entry point, with its C signature declared."""
     from .cuda_build import load
@@ -439,8 +499,9 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     """Folded-MQA attention forward.
 
     Args:
-      q: (B, N, H, 64) float32 or bfloat16; row n*H + h is query n, head h.
-      k, v: (B, M, 64), q's dtype — the one shared key/value head.
+      q: (B, N, H, D) float32 or bfloat16, D <= 128; row n*H + h is query
+        n, head h.
+      k, v: (B, M, D), q's dtype — the one shared key/value head.
       slopes: (2, H) float32 [lower, upper] ALiBi slopes (equal rows for
         symmetric ALiBi; zeros disable the bias).
       key_lens: (B,) int32 valid key counts.
@@ -452,7 +513,7 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
         whose dropout mask it must slice (the module docstring).
 
     Returns:
-      (o (B, N, H, 64) in q's dtype, lse (B, N*H) float32 row logsumexp,
+      (o (B, N, H, D) in q's dtype, lse (B, N*H) float32 row logsumexp,
       +inf on rows that attended nothing).
     """
     q_lens, seed = _defaults(q, q_lens, seed)
@@ -462,6 +523,11 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
                                        heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {q.device}")
+    D = _head_dim(q)
+    if D % 8:
+        o, lse = mqa_fwd(*pad_head_dim(q, k, v), slopes, key_lens, scale, offset, q_lens,
+                         causal, dropout_rate, seed, batch0, head0, heads_total)
+        return o[..., :D].contiguous(), lse
     _check(q, k, v, slopes, key_lens, q_lens, seed)
     B, N, H, _ = q.shape
     M = k.shape[1]
@@ -471,17 +537,18 @@ def mqa_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
         return o, lse
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
     hh, shift = hash_origin(True, N, M, H, batch0, head0, heads_total)
-    fn = _kernel("mqa_fwd", "isp_mqa_fwd",
-                 [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _U, _I, _P])
+    lib = kernel_library("mqa_fwd", D)
+    fn = _kernel(lib, "isp_mqa_fwd",
+                 [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _U, _I, _P])
     with launch_stream(q.device) as stream:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
                  key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), B, N, M, H, int(offset), int(bool(causal)),
+                 lse.data_ptr(), B, N, M, H, D, int(offset), int(bool(causal)),
                  float(scale), thresh, inv_keep, hh, shift, _DTYPE_CODES[q.dtype],
                  stream)
     if err != 0:
         raise RuntimeError(f"K1 mqa_fwd launch failed: CUDA error {err}")
-    mqa_fwd.launches += 1
+    _counted(mqa_fwd, lib)
     return o, lse
 
 
@@ -511,7 +578,7 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     """Folded-MQA attention backward: (dq, dk, dv, dslopes (2, H) f32).
 
     The arguments are K1's, its outputs o and lse, and do = dL/do. dk and
-    dv are (B, M, 64), summed over the H heads that share the key/value row.
+    dv are (B, M, D), summed over the H heads that share the key/value row.
     """
     if q.device.type == "cpu":
         return mqa_bwd_reference(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do,
@@ -519,6 +586,14 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
                                  heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K2 runs on cuda or cpu tensors, not {q.device}")
+    D = _head_dim(q)
+    if D % 8:
+        qp, kp, vp, op, dop = pad_head_dim(q, k, v, o, do)
+        dq, dk, dv, dslopes = mqa_bwd(qp, kp, vp, slopes, key_lens, q_lens, seed, op, lse,
+                                      dop, scale, offset, causal, dropout_rate, batch0,
+                                      head0, heads_total)
+        return (dq[..., :D].contiguous(), dk[..., :D].contiguous(),
+                dv[..., :D].contiguous(), dslopes)
     _check(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -537,19 +612,20 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     work = _dkv_work(splits, k)
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
     hh, shift = hash_origin(True, N, M, H, batch0, head0, heads_total)
-    fn = _kernel("mqa_bwd", "isp_mqa_bwd",
-                 [_P] * 16 + [_I] * 6 + [_F, _I, _F, _I, _I, _U, _I, _P])
+    lib = kernel_library("mqa_bwd", D)
+    fn = _kernel(lib, "isp_mqa_bwd",
+                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _I, _U, _I, _P])
     with launch_stream(q.device) as stream:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
                  key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
-                 None if work is None else work.data_ptr(), B, N, M, H, int(offset),
+                 None if work is None else work.data_ptr(), B, N, M, H, D, int(offset),
                  int(bool(causal)), float(scale), thresh, inv_keep, splits, hh, shift,
                  _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"K2 mqa_bwd launch failed: CUDA error {err}")
-    mqa_bwd.launches += 1
+    _counted(mqa_bwd, lib)
     return dq, dk, dv, dslopes
 
 
@@ -563,15 +639,16 @@ def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
     """Per-head attention forward.
 
     Args:
-      q: (B, N, H, 64) float32 or bfloat16 (the q projection's layout).
-      k, v: (B, M, Hkv, 64), q's dtype, Hkv = H (one key/value head per
+      q: (B, N, H, D) float32 or bfloat16, D <= 128 (the q projection's
+        layout).
+      k, v: (B, M, Hkv, D), q's dtype, Hkv = H (one key/value head per
         query head) or 1 (one shared by all).
       slopes, key_lens, scale, offset, q_lens, causal, dropout_rate, seed,
         batch0, head0, heads_total: as in :func:`mqa_fwd`; the dropout mask
         is the per-head hash.
 
     Returns:
-      (o (B, N, H, 64) in q's dtype, lse (B, H, N) float32 row logsumexp,
+      (o (B, N, H, D) in q's dtype, lse (B, H, N) float32 row logsumexp,
       +inf on rows that attended nothing).
     """
     q_lens, seed = _defaults(q, q_lens, seed)
@@ -581,6 +658,11 @@ def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
                                          heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K5a runs on cuda or cpu tensors, not {q.device}")
+    D = _head_dim(q)
+    if D % 8:
+        o, lse = flash_fwd(*pad_head_dim(q, k, v), slopes, key_lens, scale, offset, q_lens,
+                           causal, dropout_rate, seed, batch0, head0, heads_total)
+        return o[..., :D].contiguous(), lse
     _check(q, k, v, slopes, key_lens, q_lens, seed, per_head=True)
     B, N, H, _ = q.shape
     M, Hkv = k.shape[1], k.shape[2]
@@ -590,17 +672,18 @@ def flash_fwd(q, k, v, slopes, key_lens, scale, offset=0, q_lens=None,
         return o, lse
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
     hh, shift = hash_origin(False, N, M, H, batch0, head0, heads_total)
-    fn = _kernel("flash_fwd", "isp_flash_fwd",
-                 [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _U, _I, _P])
+    lib = kernel_library("flash_fwd", D)
+    fn = _kernel(lib, "isp_flash_fwd",
+                 [_P] * 9 + [_I] * 8 + [_F, _I, _F, _I, _U, _I, _P])
     with launch_stream(q.device) as stream:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
                  key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), B, N, M, H, Hkv, int(offset), int(bool(causal)),
+                 lse.data_ptr(), B, N, M, H, Hkv, D, int(offset), int(bool(causal)),
                  float(scale), thresh, inv_keep, hh, shift, _DTYPE_CODES[q.dtype],
                  stream)
     if err != 0:
         raise RuntimeError(f"K5a flash_fwd launch failed: CUDA error {err}")
-    flash_fwd.launches += 1
+    _counted(flash_fwd, lib)
     return o, lse
 
 
@@ -622,6 +705,14 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
                                    heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"K5b runs on cuda or cpu tensors, not {q.device}")
+    D = _head_dim(q)
+    if D % 8:
+        qp, kp, vp, op, dop = pad_head_dim(q, k, v, o, do)
+        dq, dk, dv, dslopes = flash_bwd(qp, kp, vp, slopes, key_lens, q_lens, seed, op, lse,
+                                        dop, scale, offset, causal, dropout_rate, batch0,
+                                        head0, heads_total)
+        return (dq[..., :D].contiguous(), dk[..., :D].contiguous(),
+                dv[..., :D].contiguous(), dslopes)
     _check(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, per_head=True)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -641,19 +732,20 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     work = _dkv_work(splits, k)
     thresh, inv_keep = drop_params(dropout_rate) or (256, 1.0)
     hh, shift = hash_origin(False, N, M, H, batch0, head0, heads_total)
-    fn = _kernel("flash_bwd", "isp_flash_bwd",
-                 [_P] * 16 + [_I] * 7 + [_F, _I, _F, _I, _I, _U, _I, _P])
+    lib = kernel_library("flash_bwd", D)
+    fn = _kernel(lib, "isp_flash_bwd",
+                 [_P] * 16 + [_I] * 8 + [_F, _I, _F, _I, _I, _U, _I, _P])
     with launch_stream(q.device) as stream:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
                  key_lens.data_ptr(), q_lens.data_ptr(), seed.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), dslopes.data_ptr(), delta.data_ptr(),
-                 None if work is None else work.data_ptr(), B, N, M, H, Hkv, int(offset),
+                 None if work is None else work.data_ptr(), B, N, M, H, Hkv, D, int(offset),
                  int(bool(causal)), float(scale), thresh, inv_keep, splits, hh, shift,
                  _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"K5b flash_bwd launch failed: CUDA error {err}")
-    flash_bwd.launches += 1
+    _counted(flash_bwd, lib)
     return dq, dk, dv, dslopes
 
 

@@ -3,10 +3,10 @@ and the bf16 residual stream, on the CPU.
 
 - ``build_config`` raises on a key its dataclass does not declare, on a
   value no package takes (a mesh axis below 1), and a declared option the
-  port does not compute (a head dim other than 64 with ``flash`` on, in a
-  layer or in a model's stack) raises at any value but the JAX default;
-  cross-attention's ``context_dim`` and a model axis beside a pipeline
-  axis build. Keys that cannot change what the port computes are listed per
+  port does not compute (a head dim past 128 with the kernels, ``flash``
+  not ``off``) raises at any value but the JAX default; head dims up to
+  128 build with the kernels, cross-attention's ``context_dim`` and a model
+  axis beside a pipeline axis build. Keys that cannot change what the port computes are listed per
   dataclass (``IGNORED_KEYS``); the committed checkpoint's embedded config
   has no other undeclared key.
 - ``sigma`` and ``detach_inputs`` of the adaptor's temporal modules give
@@ -48,15 +48,9 @@ CKPT = "docs/assets/scale_r5/acoustic_scratch10k_r5.f16.ckpt"
     (TrainerConfig, {"pipeline_microbatches": 0}, ValueError),
     (TrainerConfig, {"precision": "int8"}, ValueError),
     (TrainerConfig, {"deepspeed": True}, ValueError),
-    (AttentionConfig, {"context_dim": 128, "heads": 2, "head_dim": 128}, NotImplementedError),
     (AttentionConfig, {"kv_cache": True}, ValueError),
-    (AcousticModelConfig, dict(SMALL, encoder=dict(SMALL["encoder"], transformer_layer=dict(
-        SMALL["encoder"]["transformer_layer"], attention=dict(
-            SMALL["encoder"]["transformer_layer"]["attention"], head_dim=32)))),
-     NotImplementedError),
     (AcousticModelConfig, dict(SMALL, vocoder="vocos"), ValueError),
-    (AttentionConfig, {"heads": 2, "head_dim": 32}, NotImplementedError),
-    (AttentionConfig, {"dim": 256, "heads": 2, "head_dim": None}, NotImplementedError),
+    (AttentionConfig, {"heads": 2, "head_dim": 256, "flash": "auto"}, NotImplementedError),
 ])
 def test_options_the_port_does_not_compute_raise(cls, cfg, error):
     with pytest.raises(error):
@@ -64,10 +58,29 @@ def test_options_the_port_does_not_compute_raise(cls, cfg, error):
 
 
 def test_head_dims_other_than_64_build_with_flash_off():
-    """The refusal is of the kernels: the plain version takes any head dim."""
-    cfg = build_config(AttentionConfig, {"heads": 2, "head_dim": 32, "flash": "off"})
-    assert cfg.head_dim == 32
+    """The refusal is of the kernels: the plain version takes any head dim,
+    past the kernels' 128 too."""
+    cfg = build_config(AttentionConfig, {"heads": 2, "head_dim": 256, "flash": "off"})
+    assert cfg.head_dim == 256
     assert build_config(AttentionConfig, {"dim": 256, "heads": 4, "head_dim": None}).dim == 256
+
+
+@pytest.mark.parametrize("head_dim", [8, 12, 32, 128])
+def test_head_dims_up_to_128_build_with_the_kernels(head_dim):
+    """Head dims up to 128 build with ``flash: auto`` (the kernels launch
+    multiples of 8 as they are and zero-pad the others), in a layer, in
+    cross-attention, in a model's stack, and as ``dim // heads``."""
+    cfg = build_config(AttentionConfig, {"heads": 2, "head_dim": head_dim, "flash": "auto"})
+    assert cfg.head_dim == head_dim
+    assert build_config(AttentionConfig, {"dim": 2 * head_dim, "heads": 2,
+                                          "head_dim": None}).dim == 2 * head_dim
+    assert build_config(AttentionConfig, {"context_dim": 128, "heads": 2,
+                                          "head_dim": head_dim}).context_dim == 128
+    layer = SMALL["encoder"]["transformer_layer"]
+    model = build_config(AcousticModelConfig, dict(SMALL, encoder=dict(
+        SMALL["encoder"], transformer_layer=dict(layer, attention=dict(
+            layer["attention"], head_dim=head_dim)))))
+    assert model.encoder.transformer_layer.attention.head_dim == head_dim
 
 
 def test_defaults_ignored_and_meta_keys_build():

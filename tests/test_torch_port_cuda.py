@@ -73,11 +73,15 @@ def test_k1_matches_plain_version(card, B, N, M, H, offset, symmetric, causal, r
 
 
 def test_k1_refuses_what_it_does_not_take(card):
-    q = torch.zeros((1, 4, 2, 32), device=card)
-    k = torch.zeros((1, 4, 32), device=card)
+    """A head dim past 128 and a k whose head dim is not q's."""
     lens = torch.full((1,), 4, dtype=torch.int32, device=card)
+    slopes = torch.zeros((2, 2), device=card)
+    q = torch.zeros((1, 4, 2, 256), device=card)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        mqa_fwd(q, q[:, :, 0], q[:, :, 0], slopes, lens, 0.1, q_lens=lens)
+    q, k = torch.zeros((1, 4, 2, 32), device=card), torch.zeros((1, 4, 16), device=card)
     with pytest.raises(ValueError):
-        mqa_fwd(q, k, k, torch.zeros((2, 2), device=card), lens, 0.1, q_lens=lens)
+        mqa_fwd(q, k, k, slopes, lens, 0.1, q_lens=lens)
 
 
 def test_synthesizer_kernel_path_matches_plain_path(card):
@@ -409,6 +413,56 @@ def test_k5b_matches_plain_version_at_tile_edges(card, B, N, M, H, Hkv, offset, 
     seed = torch.tensor([41], dtype=torch.int32, device=card)
     _kernel_vs_plain_bwd(flash_fwd, flash_bwd, flash_bwd_reference, q, k, v, slopes, key_lens,
                          q_lens, seed, w, offset, causal, rate, bound)
+
+
+# Head dims other than 64: 8 (tile width 16), 12 (zero-padded to 16 by the
+# wrappers), 32, 96 (tile width 128 below its width) and 128, each family,
+# causal at an offset with dropout, ragged lengths with a key length of 0
+# and a query length of 0; the forward and the backward (on the kernel
+# forward's o and lse) against their plain versions, one launch each.
+HEAD_DIM_CASES = [(D, hkv, dtype, bound) for D in (8, 12, 32, 96, 128)
+                  for hkv in (None, 4, 1)
+                  for dtype, bound in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))]
+
+
+@pytest.mark.parametrize("D,Hkv,dtype,bound", HEAD_DIM_CASES)
+def test_kernels_match_plain_versions_at_head_dim(card, D, Hkv, dtype, bound):
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    B, N, M, H, offset = 4, 130, 97, 4, -3
+    rng = np.random.RandomState(D)
+    kv = (B, M, D) if Hkv is None else (B, M, Hkv, D)
+    q = torch.from_numpy(rng.randn(B, N, H, D).astype(np.float32)).to(card, dtype)
+    k = torch.from_numpy(rng.randn(*kv).astype(np.float32)).to(card, dtype)
+    v = torch.from_numpy(rng.randn(*kv).astype(np.float32)).to(card, dtype)
+    sl = np.asarray(alibi_slopes(H), np.float32)
+    slopes = torch.from_numpy(np.stack([sl, sl * 0.5])).to(card)
+    key_lens = torch.tensor([M, 0, M // 2 + 3, M - 9], dtype=torch.int32, device=card)
+    q_lens = torch.tensor([N, N // 2, 0, N - 3], dtype=torch.int32, device=card)
+    seed = torch.tensor([43], dtype=torch.int32, device=card)
+    fwd, bwd, pfwd, pbwd = ((fa.mqa_fwd, fa.mqa_bwd, fa.mqa_attention_reference,
+                             fa.mqa_bwd_reference) if Hkv is None else
+                            (fa.flash_fwd, fa.flash_bwd, fa.flash_attention_reference,
+                             fa.flash_bwd_reference))
+    scale = D ** -0.5
+    before = fwd.launches
+    o, lse = fwd(q, k, v, slopes, key_lens, scale, offset, q_lens, True, 0.1, seed)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1 and o.shape == q.shape
+    o_ref, lse_ref = pfwd(q, k, v, slopes, key_lens, scale, offset, q_lens, True, 0.1, seed)
+    assert (o.float() - o_ref.float()).abs().max().item() <= bound
+    live = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[live] - lse_ref[live]).abs().max().item() <= 1e-4 * (
+        1 + lse_ref[live].abs().max().item())
+    w = _do(card, q, D)
+    args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, w, scale, offset, True, 0.1)
+    before = bwd.launches
+    got = bwd(*args)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    assert [g.shape for g in got[:3]] == [q.shape, k.shape, v.shape]
+    _assert_within(got, pbwd(*args), bound)
 
 
 # The f32 slope gradients at B 4, N = M = 1024 (a sum of 4M products of

@@ -1,11 +1,13 @@
 """The port's CUDA kernels built with g++ for the CPU emulation of
 ``tools/cuda_emu`` and held against their plain versions, on the CPU, at
 the bounds the card is held to:
-- the attention kernels (K1, K5a forwards; K2, K5b backwards): fragment
-  layouts, tile indexing, masks, dropout hashes (also a shard's, placed
-  in a global call by its first row and head) and row splits. The
-  emulation sums each MMA in double and rounds once (f32 1e-4, bf16 2e-2 of
-  the plain version's max-abs);
+- the attention kernels (K1, K5a forwards; K2, K5b backwards) at head dim
+  64 (their other head dims are in
+  ``test_torch_port_cuda_emulated_head_dims.py``): fragment layouts, tile
+  indexing, masks, dropout hashes (also a shard's, placed in a global call
+  by its first row and head) and row splits. The emulation sums each MMA
+  in double and rounds once (f32 1e-4, bf16 2e-2 of the plain version's
+  max-abs);
 - the aligner's DP kernels, K3 (MAS, equal to its plain version) and K4
   (banded CTC forward and backward, loss 1e-5 and gradient 1e-4 of the f64
   plain version): the lane layout, the staging ring, the row split over
@@ -33,7 +35,7 @@ def libs(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulated kernels")
     return emu.emubuild.build(ROOT / "isp_tts_tpu_torch/csrc",
-                              ["mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd", "mas", "ctc"],
+                              emu.libraries((64,)) + ["mas", "ctc"],
                               tmp_path_factory.mktemp("cuda_emu"))
 
 

@@ -9,11 +9,13 @@ Each case prints the kernel's error relative to the plain version's
 max-abs (o and lse forward; dq, dk, dv and dslopes backward). The bounds
 are the card's: f32 1e-4, bf16 2e-2. With one key (M = 1) dq, dk and
 dslopes vanish in exact arithmetic, so they are read on dv's scale (times
-the largest distance for dslopes), as the ``cuda`` tests do. ``--sweep``
-adds row and key counts of 1, 63, 64, 65 and 70 in both types, causal and
-not, with and without row splits. A case takes about a second; the
-emulation says nothing of speed, registers or races between warps: only
-the card does.
+the largest distance for dslopes), as the ``cuda`` tests do. The cases
+run at head dim 64 (the tile width 64), and ``HEAD_DIM_CASES`` at head
+dims 8, 32, 96 and 128 (tile widths 16, 32 and 128, 96 below its tile's
+width). ``--sweep`` adds row and key counts of 1, 63, 64, 65 and 70 in
+both types, causal and not, with and without row splits. A case takes
+about a second; the emulation says nothing of speed, registers or races
+between warps: only the card does.
 """
 
 from __future__ import annotations
@@ -39,14 +41,14 @@ P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 SCALE = 0.125
 
 
-def inputs(B, N, M, H, Hkv, dtype, seed=3):
-    """q, k, v, dO in ``dtype``, slopes, ragged lengths (with B > 2 a key
-    length of 0 and a query length of 0)."""
+def inputs(B, N, M, H, Hkv, dtype, seed=3, D=64):
+    """q, k, v, dO in ``dtype`` at head dim ``D``, slopes, ragged lengths
+    (with B > 2 a key length of 0 and a query length of 0)."""
     g = torch.Generator().manual_seed(seed)
-    kv = (B, M, 64) if Hkv is None else (B, M, Hkv, 64)
-    q = torch.randn(B, N, H, 64, generator=g).to(dtype)
+    kv = (B, M, D) if Hkv is None else (B, M, Hkv, D)
+    q = torch.randn(B, N, H, D, generator=g).to(dtype)
     k, v = torch.randn(kv, generator=g).to(dtype), torch.randn(kv, generator=g).to(dtype)
-    do = torch.randn(B, N, H, 64, generator=g).to(dtype)
+    do = torch.randn(B, N, H, D, generator=g).to(dtype)
     sl = torch.rand(2, H, generator=g) * 0.3
     kl = torch.randint(M // 2, M + 1, (B,), generator=g, dtype=torch.int32)
     ql = torch.randint(N // 2, N + 1, (B,), generator=g, dtype=torch.int32)
@@ -61,10 +63,16 @@ def rel(a, b, scale=None):
     return (d / (b if scale is None else scale).float().abs().max().clamp_min(1e-30)).item()
 
 
-def forward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, origin=(0, 0, None)):
+def libraries(D_values=(64,)) -> list[str]:
+    """The attention libraries the cases at head dims ``D_values`` launch."""
+    return sorted({fa.kernel_library(src, D) for src in ("mqa_fwd", "flash_fwd", "mqa_bwd",
+                                                         "flash_bwd") for D in D_values})
+
+
+def forward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, origin=(0, 0, None), D=64):
     """Kernel against plain version; ``origin`` = (batch0, head0,
     heads_total) places the call in a global one's dropout hash."""
-    q, k, v, _, sl, kl, ql = inputs(B, N, M, H, Hkv, dtype)
+    q, k, v, _, sl, kl, ql = inputs(B, N, M, H, Hkv, dtype, D=D)
     sd = torch.tensor([77], dtype=torch.int32)
     thresh, inv = fa.drop_params(rate) or (256, 1.0)
     hh, shift = fa.hash_origin(Hkv is None, N, M, H, *origin)
@@ -73,17 +81,17 @@ def forward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, origin=(0, 0, No
     code = 0 if dtype == torch.float32 else 1
     if Hkv is None:
         lse = torch.empty(B, N * H)
-        fn = libs["mqa_fwd"].isp_mqa_fwd
-        fn.argtypes = [P] * 9 + [I] * 6 + [F, I, F, I, U, I, P]
-        err = fn(*ptrs, lse.data_ptr(), B, N, M, H, offset, int(causal), SCALE, thresh, inv,
+        fn = libs[fa.kernel_library("mqa_fwd", D)].isp_mqa_fwd
+        fn.argtypes = [P] * 9 + [I] * 7 + [F, I, F, I, U, I, P]
+        err = fn(*ptrs, lse.data_ptr(), B, N, M, H, D, offset, int(causal), SCALE, thresh, inv,
                  hh, shift, code, None)
         ref, lref = fa.mqa_attention_reference(q, k, v, sl, kl, SCALE, offset, ql, causal, rate,
                                                sd, *origin)
     else:
         lse = torch.empty(B, H, N)
-        fn = libs["flash_fwd"].isp_flash_fwd
-        fn.argtypes = [P] * 9 + [I] * 7 + [F, I, F, I, U, I, P]
-        err = fn(*ptrs, lse.data_ptr(), B, N, M, H, Hkv, offset, int(causal), SCALE, thresh,
+        fn = libs[fa.kernel_library("flash_fwd", D)].isp_flash_fwd
+        fn.argtypes = [P] * 9 + [I] * 8 + [F, I, F, I, U, I, P]
+        err = fn(*ptrs, lse.data_ptr(), B, N, M, H, Hkv, D, offset, int(causal), SCALE, thresh,
                  inv, hh, shift, code, None)
         ref, lref = fa.flash_attention_reference(q, k, v, sl, kl, SCALE, offset, ql, causal,
                                                  rate, sd, *origin)
@@ -94,8 +102,8 @@ def forward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, origin=(0, 0, No
 
 
 def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1,
-             origin=(0, 0, None)):
-    q, k, v, do, sl, kl, ql = inputs(B, N, M, H, Hkv, dtype)
+             origin=(0, 0, None), D=64):
+    q, k, v, do, sl, kl, ql = inputs(B, N, M, H, Hkv, dtype, D=D)
     sd = torch.tensor([77], dtype=torch.int32)
     thresh, inv = fa.drop_params(rate) or (256, 1.0)
     hh, shift = fa.hash_origin(Hkv is None, N, M, H, *origin)
@@ -111,15 +119,15 @@ def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1,
     ptrs.append(None if work is None else work.data_ptr())
     code = 0 if dtype == torch.float32 else 1
     if Hkv is None:
-        fn = libs["mqa_bwd"].isp_mqa_bwd
-        fn.argtypes = [P] * 16 + [I] * 6 + [F, I, F, I, I, U, I, P]
-        err = fn(*ptrs, B, N, M, H, offset, int(causal), SCALE, thresh, inv, splits, hh, shift,
-                 code, None)
-    else:
-        fn = libs["flash_bwd"].isp_flash_bwd
+        fn = libs[fa.kernel_library("mqa_bwd", D)].isp_mqa_bwd
         fn.argtypes = [P] * 16 + [I] * 7 + [F, I, F, I, I, U, I, P]
-        err = fn(*ptrs, B, N, M, H, Hkv, offset, int(causal), SCALE, thresh, inv, splits, hh,
+        err = fn(*ptrs, B, N, M, H, D, offset, int(causal), SCALE, thresh, inv, splits, hh,
                  shift, code, None)
+    else:
+        fn = libs[fa.kernel_library("flash_bwd", D)].isp_flash_bwd
+        fn.argtypes = [P] * 16 + [I] * 8 + [F, I, F, I, I, U, I, P]
+        err = fn(*ptrs, B, N, M, H, Hkv, D, offset, int(causal), SCALE, thresh, inv, splits,
+                 hh, shift, code, None)
     assert err == 0, err
     one_key = M == 1
     dv_scale, far = ref[2], N + abs(offset)
@@ -152,6 +160,22 @@ ORIGIN_CASES = [
 ]
 
 
+#: other head dims (the last element): tile widths 16 (D 8), 32 and 128, and
+#: D 96 below its tile's width; both families, f32 and bf16, causal at an
+#: offset with dropout, splits 1 (forward and backward) and 2 (backward)
+HEAD_DIM_CASES = [
+    ((3, 20, 70, 4, None, torch.float32, True, -5, 0.1, 1), 8),
+    ((2, 70, 40, 3, 3, torch.bfloat16, False, 0, 0.1, 2), 8),
+    ((3, 37, 45, 3, 1, torch.bfloat16, True, 3, 0.1, 1), 32),
+    ((2, 66, 33, 2, None, torch.float32, False, 0, 0.0, 2), 32),
+    ((3, 20, 70, 2, None, torch.bfloat16, True, -5, 0.1, 1), 128),
+    ((2, 40, 66, 2, 2, torch.float32, True, 26, 0.1, 1), 128),
+    ((2, 70, 40, 2, 1, torch.float32, False, 0, 0.1, 2), 128),
+    ((2, 65, 63, 2, None, torch.bfloat16, False, 0, 0.1, 2), 128),
+    ((3, 37, 45, 2, 2, torch.bfloat16, True, 3, 0.1, 1), 96),
+]
+
+
 def sweep():
     for (N, M), kv, causal, dtype, splits in itertools.product(
             [(1, 1), (63, 65), (64, 64), (65, 63), (1, 70), (70, 1)], ["H", 1, None],
@@ -167,7 +191,8 @@ def main() -> int:
     args = ap.parse_args()
     with tempfile.TemporaryDirectory(prefix="cuda_emu_") as tmp:
         libs = emubuild.build(ROOT / "isp_tts_tpu_torch/csrc",
-                              ["mqa_fwd", "flash_fwd", "mqa_bwd", "flash_bwd"], args.out or Path(tmp))
+                              libraries((64,) + tuple(D for _, D in HEAD_DIM_CASES)),
+                              args.out or Path(tmp))
         bad = []
         for case in CASES + (list(sweep()) if args.sweep else []):
             B, N, M, H, Hkv, dtype, causal, offset, rate, splits = case
@@ -188,6 +213,14 @@ def main() -> int:
             ok = all(e <= bound for e in errs)
             bad += [] if ok else [(case, origin, errs)]
             print(f"{'ok  ' if ok else 'FAIL'} {case} origin={origin}: "
+                  + " ".join(f"{e:.1e}" for e in errs), flush=True)
+        for case, D in HEAD_DIM_CASES:
+            bound = 1e-4 if case[5] == torch.float32 else 2e-2
+            errs = (forward(libs, *case[:-1], D=D) if case[-1] == 1 else []) + \
+                backward(libs, *case, D=D)
+            ok = all(e <= bound for e in errs)
+            bad += [] if ok else [(case, D, errs)]
+            print(f"{'ok  ' if ok else 'FAIL'} {case} D={D}: "
                   + " ".join(f"{e:.1e}" for e in errs), flush=True)
     print(f"{len(bad)} failing" if bad else "all within bounds")
     return 1 if bad else 0

@@ -18,9 +18,13 @@ import ctypes
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE.parent.parent))
+
+from isp_tts_tpu_torch.ops.cuda_build import unit  # noqa: E402
 #: PTX helper -> the body that emulates it
 REPLACE = {
     "cp_async16": "{ if (pred) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16); }",
@@ -63,8 +67,9 @@ def transform(text: str) -> str:
 
 
 def build(csrc: Path, names, out: Path) -> dict[str, ctypes.CDLL]:
-    """g++ each ``csrc/<name>.cu`` for the emulation into ``out``; returns
-    the loaded libraries."""
+    """g++ each library of ``names`` (as ``ops/cuda_build.unit`` names them:
+    ``mas``, or ``mqa_fwd_d128`` for a source at one tile width) for the
+    emulation into ``out``; returns the loaded libraries."""
     src = out / "src"
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
@@ -73,14 +78,15 @@ def build(csrc: Path, names, out: Path) -> dict[str, ctypes.CDLL]:
     procs = []
     for name in names:
         so = out / f"lib{name}.so"
-        cmd = ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(HERE), "-x", "c++",
-               str(src / f"{name}.cu"), "-o", str(so)]
+        source, defines = unit(name, csrc)
+        cmd = ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", str(HERE), *defines,
+               "-x", "c++", str(src / source.name), "-o", str(so)]
         procs.append((name, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, so, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"g++ failed for {name}.cu:\n{log[:8000]}")
+            raise SystemExit(f"g++ failed for {name}:\n{log[:8000]}")
         libs[name] = ctypes.CDLL(str(so))
     return libs

@@ -179,8 +179,15 @@ def build(variants: list[Variant], wanted) -> None:
         for name in v.sources:
             if name not in wanted:
                 continue
-            out = v.build_mod.library_path(name)
-            cmd = v.build_mod.nvcc_command(v.build_mod.CSRC / f"{name}.cu", out)
+            if v.name == "parent" and not hasattr(v.build_mod, "unit"):
+                # a checkout from before the tile widths: one library a source
+                out = v.build_mod.library_path(name)
+                cmd = v.build_mod.nvcc_command(v.build_mod.CSRC / f"{name}.cu", out)
+            else:  # the head dim 64 libraries, which these shapes launch
+                lib = f"{name}_d64"
+                out = v.build_mod.library_path(lib)
+                cmd = v.build_mod.nvcc_command(*v.build_mod.unit(lib)[:1], out,
+                                               v.build_mod.unit(lib)[1])
             jobs.append((v.name, name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                         stderr=subprocess.STDOUT, text=True)))
     for variant, name, proc in jobs:
@@ -291,7 +298,7 @@ def gates(args, work: Path) -> None:
     c.phase_env(t0)
     if args.variant != "built" or args.parent:
         var = Variant("parent" if args.parent else args.variant, work, args.parent)
-        build([var], set(c.SOURCES) & set(var.sources))
+        build([var], set(KERNELS) & set(var.sources))
         if var.name == "parent":  # its own wrappers: the C signatures may differ
             for name in KERNELS:
                 setattr(fa, name, getattr(var.ops, name))

@@ -636,7 +636,7 @@ def main(argv=None) -> int:
         print(cards.stdout.strip(), flush=True)
         from isp_tts_tpu_torch.ops import cuda_build
 
-        cuda_build.build_all(list(smoke.SOURCES))
+        cuda_build.build_all(smoke.sources())
         say("env", t0, f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}; kernels built")
     work = Path(tempfile.mkdtemp(dir=ROOT, prefix="_multi_gpu_"))

@@ -124,7 +124,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from isp_tts_tpu_torch.ops import cuda_build
 
-    cuda_build.build_all(["mqa_fwd", "mqa_bwd", "flash_fwd", "flash_bwd"])
+    cuda_build.build_all([f"{name}_d64" for name in smoke.ATTENTION_SOURCES])
     print(f"{torch.cuda.get_device_name(0)}; slope gradient relative to max-abs, o absolute, "
           "against float64", flush=True)
     result = {}

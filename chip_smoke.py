@@ -33,6 +33,11 @@ how far it got:
              f32 and bf16 with and without dropout, 4 heads, causal with an
              offset, one shared key/value head (bf16 too), and M 3072; then
              K5a and K5b at the tile edges with H and with 1 key/value head.
+             Then K2 and K5b (H and 1 key/value heads) at the recipe
+             decoder's shape and at 3 x 128 in f32, and the model's text
+             embedding on a recipe batch's 32 x 192 ids, each called 20
+             times on the same inputs: every gradient bit-equal to the first
+             call's (a resumed training run retraces the uninterrupted one).
    head-dims - K1/K2 and K5a/K5b (H and 1 key/value heads) at head dims 8,
              12, 16, 32, 96 and 128 (HEAD_DIMS), f32 and bf16, at one query
              against 65 keys, 63 x 65, 65 x 63, 320 x 320 and 65 x 1, causal
@@ -551,12 +556,66 @@ def full_width(mangled: str) -> bool:
 def kernel_label(mangled: str) -> str:
     """A kernel's short name: its tile-core kernel (or the whole mangled
     name), its input type, and for a product kernel D == DT or D < DT."""
-    names = PRODUCT_KERNELS + ("dkv_sum_kernel",)
+    names = PRODUCT_KERNELS + ("dkv_sum_kernel", "slope_sum_kernel")
     kind = next((n for n in names if n in mangled), mangled)
     width = ("" if kind not in PRODUCT_KERNELS
              else " D=DT" if full_width(mangled) else " D<DT")
     return (f"{kind.replace('attention_', '')} {'bf16' if 'bfloat16' in mangled else 'f32'}"
             + width)
+
+
+#: the f32 forwards at tile width 128 of the parent design (Q resident in
+#: registers, double-buffered 64-key K/V tiles; ptxas on the H100's
+#: toolkit): (library, D == DT) -> (registers, spill store bytes, spill
+#: load bytes, dynamic shared memory bytes, blocks an SM)
+F32_WIDE_FWD_PARENT = {
+    ("mqa_fwd_d128", True): (255, 912, 704, 135168, 1),
+    ("mqa_fwd_d128", False): (255, 784, 704, 135168, 1),
+    ("flash_fwd_d128", True): (255, 904, 704, 135168, 1),
+    ("flash_fwd_d128", False): (255, 776, 704, 135168, 1),
+}
+#: blocks an SM the f32 forwards at tile width 128 must fit (registers and
+#: dynamic shared memory, as the occupancy calculator counts them)
+F32_WIDE_FWD_BLOCKS = 2
+
+
+def f32_wide_forward_gate(t0, name: str, lib, usage: dict, kernels) -> None:
+    """The f32 forward at tile width 128 (``mqa_fwd_d128``,
+    ``flash_fwd_d128``: ``attention_fwd_kernel_staged``, Q staged in shared
+    memory, K and V split once a tile): its
+    two instantiations' ptxas registers and spills, dynamic shared memory
+    and blocks an SM beside the parent's (F32_WIDE_FWD_PARENT); raises if
+    either spills, if ptxas's log is missing, or if fewer than
+    F32_WIDE_FWD_BLOCKS blocks fit an SM."""
+    import ctypes
+
+    source = name.rsplit("_d", 1)[0]
+    smem = getattr(lib, f"isp_{source}_smem_bytes")
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    blocks = getattr(lib, f"isp_{source}_blocks_per_sm")
+    blocks.argtypes, blocks.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    f32 = [k for k in kernels if "bfloat16" not in k]
+    if len(f32) != 2:
+        raise AssertionError(f"{name}: f32 forward kernels {f32}")
+    for k in sorted(f32, key=full_width, reverse=True):
+        full = full_width(k)
+        if k not in usage:
+            raise AssertionError(f"{name}: no ptxas line for {k} (a library built before this "
+                                 "run: remove isp_tts_tpu_torch/_build)")
+        regs, store, load = usage[k]
+        n = blocks(0, int(full))
+        parent = F32_WIDE_FWD_PARENT[name, full]
+        say("sass", t0, f"{name} f32 forward {kernel_label(k)}: registers {regs}, spill bytes "
+            f"{store}/{load}, dynamic shared memory {smem(0)} bytes, blocks an SM {n} (parent: "
+            f"registers {parent[0]}, spill bytes {parent[1]}/{parent[2]}, shared memory "
+            f"{parent[3]} bytes, blocks an SM {parent[4]})")
+        if store or load:
+            raise AssertionError(f"{name}: the f32 forward {kernel_label(k)} spills "
+                                 f"{store}/{load} bytes")
+        if n < F32_WIDE_FWD_BLOCKS:
+            raise AssertionError(f"{name}: the f32 forward {kernel_label(k)} fits {n} blocks "
+                                 f"an SM (registers {regs}, shared memory {smem(0)} bytes), "
+                                 f"fewer than {F32_WIDE_FWD_BLOCKS}")
 
 
 def phase_sass(t0):
@@ -565,8 +624,10 @@ def phase_sass(t0):
     SASS beside ptxas's registers and spills, and the dynamic shared memory
     per dtype as the library reports the size it launches with; raises if a
     product kernel has no HMMA, a backward bf16 kernel spills at a tile
-    width up to 64 (at 128 its spills are printed), a library reports
-    another tile width than its name, or no cuobjdump is found."""
+    width up to 64 (at 128 its spills are printed), an f32 forward at tile
+    width 128 spills or fits fewer than two blocks an SM
+    (:func:`f32_wide_forward_gate`), a library reports another tile width
+    than its name, or no cuobjdump is found."""
     import ctypes
 
     from isp_tts_tpu_torch.ops import cuda_build
@@ -621,6 +682,8 @@ def phase_sass(t0):
 
         say("build", t0, f"{name} ({tool}): " + "; ".join(label(k) for k in sorted(kernels))
             + f"; dynamic shared memory f32 {smem(0)}, bf16 {smem(1)} bytes")
+        if source.endswith("fwd") and int(tile) == 128:
+            f32_wide_forward_gate(t0, name, lib, usage, kernels)
 
 
 KERNEL_CASES = (  # B, N, M, H, dtype, symmetric, offset, causal
@@ -2403,6 +2466,73 @@ K5_CASES = (  # B, N, M, H, Hkv, dtype, rate, offset, causal
 )
 
 
+#: the recipe decoder's attention backward (B 32, N = M = 896, H 6, bf16,
+#: dropout 0.1) and the f32 backward at the serving width (B 4, N = M = 1024,
+#: 3 heads x 128): (B, N, H, D, dtype, rate)
+REPEAT_CASES = [(32, 896, 6, 64, "bfloat16", 0.1), (4, 1024, 3, 128, "float32", 0.1)]
+REPEAT_CALLS = 20
+
+
+def phase_bwd_repeat(t0):
+    """K2 and K5b (Hkv = H and 1) called REPEAT_CALLS times on the same
+    inputs: dq, dk, dv and dslopes bit-equal to the first call's, as a
+    training run and its resumption from a checkpoint need (the slope
+    gradients are summed in a fixed order, with no float atomics). Then
+    the text embedding's weight gradient (``nn/embeddings.py:Embedding``,
+    41 x 384) on 32 x 192 ids, two thirds of them the padding id 0, the
+    same way, beside how many of PyTorch's embedding backward calls differ
+    (a record)."""
+    import torch
+
+    from isp_tts_tpu_torch.nn.embeddings import Embedding
+    from isp_tts_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, mqa_bwd, mqa_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for B, N, H, D, dt, rate in REPEAT_CASES:
+        for name, hkv, fwd, bwd in (("K2", None, mqa_fwd, mqa_bwd),
+                                    ("K5b", H, flash_fwd, flash_bwd),
+                                    ("K5b", 1, flash_fwd, flash_bwd)):
+            q, k, v, slopes, kl, ql = mqa_inputs(B, N, N, H, getattr(torch, dt), False, gen,
+                                                 kv_heads=hkv, D=D)
+            seed, scale = seed_tensor(7), D ** -0.5
+            o, lse = fwd(q, k, v, slopes, kl, scale, 0, ql, False, rate, seed)
+            w = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+            args = (q, k, v, slopes, kl, ql, seed, o, lse, w, scale, 0, False, rate)
+            first = bwd(*args)
+            differ = [i for _ in range(REPEAT_CALLS - 1)
+                      for i, (a, b) in enumerate(zip(first, bwd(*args))) if not torch.equal(a, b)]
+            torch.cuda.synchronize()
+            if differ:
+                raise AssertionError(f"{name} Hkv={hkv or 1} B={B} N=M={N} H={H} D={D} {dt}: "
+                                     f"outputs {sorted(set(differ))} (dq, dk, dv, dslopes) "
+                                     "differ between calls on the same inputs")
+            say("kernel", t0, f"{name if hkv is None else f'{name} Hkv={hkv}'} B={B} N=M={N} "
+                f"H={H} D={D} {dt} dropout={rate}: {REPEAT_CALLS} calls, dq, dk, dv and "
+                f"dslopes bit-equal")
+            del q, k, v, o, lse, w, first
+    torch.cuda.empty_cache()
+
+    emb = Embedding(41, 384).cuda()
+    ids = torch.randint(0, 41, (32, 192), generator=gen, device="cuda")
+    ids[:, 64:] = 0
+    g = torch.randn((32, 192, 384), generator=gen, device="cuda")
+    grads = {}
+    for name, lookup in (("Embedding", emb), ("F.embedding", lambda x: torch.nn.functional
+                                              .embedding(x, emb.weight))):
+        calls = []
+        for _ in range(REPEAT_CALLS):
+            emb.weight.grad = None
+            lookup(ids).backward(g)
+            calls.append(emb.weight.grad)
+        grads[name] = sum(not torch.equal(calls[0], x) for x in calls[1:])
+    if grads["Embedding"]:
+        raise AssertionError(f"the text embedding's weight gradient differs in "
+                             f"{grads['Embedding']} of {REPEAT_CALLS - 1} calls")
+    say("kernel", t0, f"text embedding 41 x 384 on 32 x 192 ids: {REPEAT_CALLS} calls, the "
+        f"weight gradient bit-equal; PyTorch's embedding backward differs from its first call "
+        f"in {grads['F.embedding']} of {REPEAT_CALLS - 1} (a record)")
+
+
 def phase_kernel_mha(t0):
     """K5a and K5b against their plain versions (the backward as
     :func:`check_backward` holds it), with ragged lengths and one key length
@@ -3789,8 +3919,9 @@ def head_dim_records(batch, launches) -> list[dict]:
     the bound), then graph-timed beside its bound (4*D operations per (row,
     key) pair forward, 10*D backward, bytes at 3.35 TB/s), its plain version
     and SDPA (dense bias), with ptxas's registers and spills of its
-    library's product kernels (bf16; f32 too for the forward, which also
-    runs at the serving shape in f32: :func:`serving_times`). ``launches``:
+    library's product kernels (bf16 and f32). The forward also runs at the
+    serving shape in f32 (:func:`serving_times`), and at D 128 the backward
+    in f32 at B 2, N = M = 3072 (:func:`f32_backward_times`). ``launches``:
     library -> launches on the full-width path (:func:`phase_head_dim_path`)."""
     import torch
 
@@ -3851,11 +3982,41 @@ def head_dim_records(batch, launches) -> list[dict]:
                  "library_ms": library_bwd_ms(q, k, v, slopes, lens, scale, 0, False, do),
                  "registers_spills": {kern: product_usage(blib, f"attention_{kern}_kernel")
                                       for kern in ("dq", "dkv")},
-                 "shape": shape},
+                 "registers_spills_f32": {kern: product_usage(blib, f"attention_{kern}_kernel",
+                                                              "float32")
+                                          for kern in ("dq", "dkv")},
+                 "shape": shape,
+                 **(f32_backward_times(bwd, pfwd, gen, kv_heads, H, D) if D == 128 else {})},
             ]
             del q, k, v, o, lse, do, grads, grads_ref
             torch.cuda.empty_cache()
     return records
+
+
+def f32_backward_times(bwd, plain_fwd, gen, kv_heads, H: int, D: int) -> dict:
+    """A backward kernel (K2 with ``kv_heads`` None, else K5b) in f32 at B 2,
+    N = M = 3072, random lengths, dropout 0.1, ``H`` heads of ``D``, from
+    the plain forward's o and lse: its graph-timed ms beside its bound (10*D
+    operations per (row, key) pair at the 3xTF32 rate, bytes at 3.35 TB/s)
+    and SDPA's autograd backward (:func:`library_bwd_ms`). Records only."""
+    import torch
+
+    B, N, rate, scale = 2, 3072, 0.1, D ** -0.5
+    q, k, v, sl, kl, ql = mqa_inputs(B, N, N, H, torch.float32, True, gen, kv_heads=kv_heads,
+                                     D=D)
+    seed = seed_tensor(2027)
+    o, lse = plain_fwd(q, k, v, sl, kl, scale, 0, ql, False, rate, seed)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    bound = attention_bound(q, k, kl, ql, backward=True)
+    out = {"f32_ms": graph_ms(lambda: bwd(q, k, v, sl, kl, ql, seed, o, lse, do, scale, 0,
+                                          False, rate), iters=3),
+           "f32_bound_ms": bound[0], "f32_bound_by": bound[1],
+           "f32_library_ms": library_bwd_ms(q, k, v, sl, kl, scale, 0, False, do, iters=3),
+           "f32_shape": f"B={B} N=M={N} H={H}" + ("" if kv_heads is None else f" Hkv={kv_heads}")
+                        + f" D={D} float32 dropout={rate} random lengths"}
+    del q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return out
 
 
 #: the head split's attention shapes in training, held by
@@ -4963,6 +5124,7 @@ def main() -> int:
     phase_kernel(t0)
     phase_kernel_train(t0)
     phase_kernel_mha(t0)
+    phase_bwd_repeat(t0)
     phase_tp_heads(t0)
     phase_slope_draws(t0)
     phase_head_dims(t0)

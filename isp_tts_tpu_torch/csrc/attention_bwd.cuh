@@ -24,9 +24,12 @@
 //      tile S = Q.K^T and dP = dO.V^T (qk), dS in S's registers, dQ += dS.K
 //      (pv, K read transposed). It writes delta for pass 2 and sums the
 //      slope gradients: per element ds * (c - c*) by triangle, per row in
-//      registers, over the block in a fixed order, then one float atomic
-//      per (head, block, triangle). The terms of a slope's sum (B * N * M
-//      of them) cancel to a small total, so in the f32 kernels this pass
+//      registers, over the block in a fixed order, into the block's
+//      partials, which a small launch sums over the blocks in a fixed order
+//      (no float atomics: a call's dslopes are the same bits on every run,
+//      so a training run resumed from a checkpoint retraces the
+//      uninterrupted one). The terms of a slope's sum (B * N * M of them)
+//      cancel to a small total, so in the f32 kernels this pass
 //      takes each logit less lse in float64 (the slopes, the scale and lse
 //      in float64): the rounding of their base-2 forms, one per head and
 //      one per row, enters every term of a head or row alike and piled up
@@ -116,7 +119,7 @@ struct BwdParams {
   void* dq;
   void* dk;
   void* dv;
-  float* dslopes;  // (2, H), zeroed by the caller
+  float* dslopes;  // (2, H), then the dq pass's partials [2][H][slope_parts], zeroed by the caller
   float* delta;    // lse's layout, written by pass 1
   float* work;     // splits > 1: [splits][dk, dv][k's elements] f32
   int B, N, M, H, Hkv, offset, causal;
@@ -127,6 +130,7 @@ struct BwdParams {
   int hash_heads;       // the dropout index's head count (H on one rank)
   uint32_t seed_shift;  // the dropout index of this call's first element
   int D;                // head dim: a multiple of 8, at most the tile width
+  int slope_parts;      // the dq pass's (batch, row block) pairs: B * grid1.x
 };
 
 // Whether the A operands sit in shared memory at this tile width.
@@ -447,7 +451,7 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
   }
 
   // slope gradients: each row's sum over its quad, then over the block's
-  // rows of each head in a fixed order, one atomic per (head, triangle)
+  // rows of each head in a fixed order, into the block's partials
   float* red = reinterpret_cast<float*>(bwd_smem);  // [2][64]; the tiles are done
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -466,7 +470,8 @@ __global__ void __launch_bounds__(ATT_THREADS, sizeof(T) == 2 ? BWD_BF16_BLOCKS 
     const int tri = threadIdx.x / lead, i0 = threadIdx.x % lead;
     float sum = 0.f;
     for (int i = i0; i < nrows; i += stride) sum += red[tri * ATT_ROWS + i];
-    atomicAdd(&p.dslopes[tri * p.H + rows.head(i0)], sum);
+    const int j = tri * p.H + rows.head(i0);  // (triangle, head)
+    p.dslopes[2 * p.H + static_cast<size_t>(j) * p.slope_parts + rows.part()] = sum;
   }
 }
 
@@ -718,10 +723,31 @@ __global__ void dkv_sum_kernel(const float* __restrict__ work, T* __restrict__ d
   store1(dv + i + 3, sv.w);
 }
 
-// Launch the passes on `st`: grid1 the row-stationary blocks, grid2 the
-// key-stationary ones (y: splits, times H for per-head K/V). The shared
-// memory limits are raised once per device, so the launches can be
-// captured in a CUDA graph. Returns the first CUDA error.
+// dslopes[j] as the sum of (triangle, head) j's slope_parts partials (from
+// dslopes + 2H, one row each), in a fixed order: block j's threads strided
+// over the row, each warp by the shuffle tree, then the warps in order.
+__global__ void slope_sum_kernel(float* __restrict__ dslopes, int n, int parts) {
+  extern __shared__ __align__(16) unsigned char sum_smem[];
+  float* warps = reinterpret_cast<float*>(sum_smem);  // [ATT_THREADS / 32]
+  const float* row = dslopes + n + static_cast<size_t>(blockIdx.x) * parts;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < parts; i += ATT_THREADS) s += row[i];
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  if (threadIdx.x % 32 == 0) warps[threadIdx.x / 32] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (int w = 0; w < ATT_THREADS / 32; ++w) total += warps[w];
+    dslopes[blockIdx.x] = total;
+  }
+}
+
+// Launch the passes on `st`: grid1 the row-stationary blocks, then the
+// slope sums, grid2 the key-stationary ones (y: splits, times H for
+// per-head K/V). The shared memory limits are raised once per device, so
+// the launches can be captured in a CUDA graph. Returns the first CUDA
+// error.
 template <typename T, int DT, bool kFullD, typename Rows, typename Keys>
 cudaError_t launch_bwd_kernels(dim3 grid1, dim3 grid2, const BwdParams& p, cudaStream_t st) {
   constexpr auto dq_kernel = attention_dq_kernel<T, DT, kFullD, Rows>;
@@ -731,6 +757,10 @@ cudaError_t launch_bwd_kernels(dim3 grid1, dim3 grid2, const BwdParams& p, cudaS
   if (err == cudaSuccess) err = raise_smem_once<dkv_kernel>(dkv_bytes);
   if (err != cudaSuccess) return err;
   dq_kernel<<<grid1, ATT_THREADS, dq_bytes, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  slope_sum_kernel<<<2 * p.H, ATT_THREADS, ATT_THREADS / 32 * sizeof(float), st>>>(
+      p.dslopes, 2 * p.H, p.slope_parts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkv_kernel<<<grid2, ATT_THREADS, dkv_bytes, st>>>(p);

@@ -118,6 +118,8 @@ struct FoldedRows {
   __device__ int query(int i) const { return (r0 + i) / H; }
   __device__ int head(int i) const { return (r0 + i) % H; }
   __device__ int head_stride() const { return H; }
+  // the block's slot among the backward's slope partials: b * blocks + x
+  __device__ int part() const { return b * gridDim.x + blockIdx.x; }
   __device__ size_t q_offset(int i) const {
     return (static_cast<size_t>(b) * R + r0 + i) * D;
   }
@@ -150,6 +152,9 @@ struct HeadRows {
   __device__ int query(int i) const { return n0 + i; }
   __device__ int head(int) const { return h; }
   __device__ int head_stride() const { return 1; }
+  // the block's slot among the backward's slope partials, (b, x): the
+  // heads' blocks of one slot write their own heads
+  __device__ int part() const { return b * gridDim.x + blockIdx.x; }
   __device__ size_t q_offset(int i) const {
     return ((static_cast<size_t>(b) * N + n0 + i) * H + h) * D;
   }

@@ -32,10 +32,11 @@
 //
 // The tile width: at DT = 128 the output accumulator alone is 64 registers a
 // thread and the bf16 Q fragments 32, so a bf16 block is held to 2 an SM
-// (255 registers) rather than 3 or 4, and an f32 block keeps Q's f32 values
-// and splits them at each use (FwdMma) instead of 128 registers of hi and
-// lo. The key tile stays 64 wide; K and V take 2 x 2 x 64 x (128 + 4) x 4
-// bytes = 135 KB of shared memory in f32 (one block an SM), 70 KB in bf16.
+// (255 registers) rather than 3 or 4; its K and V stages take 2 x 2 x 64 x
+// (128 + 8) x 2 bytes = 70 KB. f32 at DT = 128 runs its own kernel
+// (attention_fwd_kernel_staged, below): kept resident, Q's f32 values were
+// 64 registers a thread more, the kernel spilled ~900 bytes a thread, and
+// its double-buffered K and V took 135 KB, one block an SM.
 //
 // Skipped work: key tiles past the block's last needed key (the key length,
 // and under `causal` the diagonal of its last live row) are neither loaded
@@ -75,10 +76,20 @@ struct FwdParams {
   int D;                // head dim: a multiple of 8, at most the tile width
 };
 
-// Dynamic shared memory of one block: two stages of K and of V.
+// The staged kernel's per-thread words in shared memory: for each of a
+// thread's two rows nb, the two slopes and the hash index of RowState and
+// a flag (0 a row past the tile, 1 a dead query, 2 a live one); then the
+// output accumulator's last FWD_SHARED_SLICES 8-column slices.
+constexpr int FWD_SHARED_SLICES = 4;
+constexpr int FWD_ROW_WORDS = (2 * 5 + 4 * FWD_SHARED_SLICES) * ATT_THREADS;
+
+// Dynamic shared memory of one block: two stages of K and of V; the staged
+// kernel's K/V tile, its lo tile, Q's rows and the per-thread words.
 template <typename T, int DT>
 __host__ __device__ constexpr int fwd_smem_bytes() {
-  return 4 * ATT_KEYS * tile_row<T, DT>() * static_cast<int>(sizeof(T));
+  return FwdMma<T, DT>::kStagedQ
+             ? (2 * ATT_KEYS + ATT_ROWS) * tile_row<T, DT>() * 4 + FWD_ROW_WORDS * 4
+             : 4 * ATT_KEYS * tile_row<T, DT>() * static_cast<int>(sizeof(T));
 }
 
 // The same for the entry points' dtype code (0 f32, 1 bf16), 0 for another.
@@ -304,17 +315,331 @@ __global__ void __launch_bounds__(ATT_THREADS, fwd_min_blocks<T, DT, Rows>())
   }
 }
 
+// ------------------------------------------- the f32 kernel at DT = 128
+// The same function as attention_fwd_kernel, for f32 at DT = 128, where
+// resident Q and two stages of K and V do not fit the registers and two
+// blocks' shared memory:
+// - the block's 64 Q rows are staged in shared memory once (33 KB), and qk
+//   reads and splits each k-step's fragment there (FwdMma's MmaTf32Wide);
+// - K and V take turns in one 64-key tile (33 KB), and each is split there
+//   once for the block, hi over the tile and lo into a second one (33 KB;
+//   MmaTf32Wide::split_tile), where the other kernel's warps each split
+//   every K and V value they read. K of tile j+1 loads after tile j's
+//   P.V, V of tile j while tile j's probabilities are computed. Q, the two
+//   tiles and the per-thread words below take 112 KB, so two blocks share
+//   an SM (8 warps; the serving decoder's 192 blocks, B 4 x 1024 rows x 3
+//   heads, run in one wave), and one block's loads run under the other's
+//   products;
+// - the copy loops stay rolled: unrolled, their hoisted addresses cost
+//   registers the kernel does not have at 255 a thread; for the same
+//   reason each thread's row constants (nb, slopes, hash index, a flag for
+//   the end) and the last four of its 16 output slices wait in shared
+//   memory (13 KB; FWD_SHARED_SLICES): two blocks' shared memory leaves
+//   room for no more, and the registers for no fewer;
+// - P.V reads V rows as 16-byte vectors (MmaTf32Wide's interleaved output
+//   columns), and the epilogue stores o as 16-byte vectors through
+//   column().
+// The key tile stays 64 wide and every split and sum is the other
+// kernel's, so on the same numbers (zero columns added) o and lse equal
+// the D = 64 kernel's bit for bit. The per-element work below is
+// attention_fwd_kernel's.
+template <int DT, bool kFullD, typename Rows>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+    attention_fwd_kernel_staged(const FwdParams p) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  using T = float;
+  using Ops = typename FwdMma<T, DT>::type;
+  constexpr int S = tile_row<T, DT>();
+  constexpr int DS = DT / 8;  // 8-column slices of the output
+  constexpr int DR = DS - FWD_SHARED_SLICES;  // those in registers
+  constexpr int TILE = ATT_KEYS * S;
+  T* kv = reinterpret_cast<T*>(fwd_smem);  // [64 keys][S]: K or V, then its hi
+  T* lo = kv + TILE;                       // [64 keys][S]: its lo
+  T* qs = lo + TILE;                       // [64 rows][S]
+  // [half][nb, lo2, hi2, hseed, flag][thread], then [slice d - DR][4][thread]
+  uint32_t* rc = reinterpret_cast<uint32_t*>(qs + ATT_ROWS * S) + threadIdx.x;
+  float* os = reinterpret_cast<float*>(rc + 10 * ATT_THREADS);
+
+  const int D = kFullD ? DT : p.D;  // the head dim
+  const Rows rows(p, D);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_len = max(min(p.key_lens[rows.b], p.M), 0);
+  const int q_len = min(p.q_lens[rows.b], p.N);
+  const int nrows = rows.count();
+  const bool drop = p.thresh < 256;
+  const uint32_t thresh24 = static_cast<uint32_t>(p.thresh) << 24;  // keep: hash < this
+  const uint32_t seed = static_cast<uint32_t>(p.seed[0]) + p.seed_shift;
+  const float scale2 = p.scale * LOG2E;
+
+  // the keys a span of tile rows [i0, i1] needs: [0, kend)
+  auto needed = [&](int i0, int i1) {
+    if (i0 >= nrows || rows.query(i0) >= q_len) return 0;
+    if (!p.causal) return key_len;
+    const int n_last = min(rows.query(min(i1, nrows - 1)), q_len - 1);
+    return min(key_len, max(n_last + p.offset + 1, 0));
+  };
+  const int block_kend = needed(0, ATT_ROWS - 1);
+  const int w0 = 16 * warp;
+  const int warp_kend = needed(w0, w0 + 15);
+  // the warp's query span, for tiles that need no per-element compare
+  const int wn_min = rows.query(min(w0, nrows - 1)) + p.offset;
+  const int wn_max = rows.query(min(w0 + 15, nrows - 1)) + p.offset;
+
+  float m[2], l[2];  // the rows' running max (base 2) and this thread's share of the sum
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = w0 + g + 8 * half;
+    const int n = rows.query(i);
+    const int h = i < nrows ? rows.head(i) : 0;
+    const int nb = n + p.offset;
+    uint32_t* c = rc + 5 * ATT_THREADS * half;
+    c[0] = static_cast<uint32_t>(nb);
+    c[ATT_THREADS] = __float_as_uint(p.slopes[h] * LOG2E);
+    c[2 * ATT_THREADS] = __float_as_uint(p.slopes[p.H + h] * LOG2E);
+    c[3 * ATT_THREADS] = rows.hash_base(i) + seed;
+    c[4 * ATT_THREADS] = i >= nrows ? 0u : n < q_len ? 2u : 1u;
+    m[half] = ATT_NEG_INF;
+    l[half] = 0.f;
+  }
+  Ops mma;
+  mma.bind(qs + w0 * S, lane);
+
+  float o[DR][4];
+#pragma unroll
+  for (int d = 0; d < DR; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+#pragma unroll
+  for (int x = 0; x < 4 * FWD_SHARED_SLICES; ++x) os[x * ATT_THREADS] = 0.f;
+  // output slice d's element r: in registers, or in shared memory from DR on
+  auto out = [&](int d, int r) { return d < DR ? o[d][r] : os[(4 * (d - DR) + r) * ATT_THREADS]; };
+
+  const T* q = static_cast<const T*>(p.q);
+  // the block's K/V rows: one offset from both parameters, and the key
+  // stride (Hkv * D) in 32 bits
+  const size_t kvo = rows.kv_offset();
+  const int kstride = static_cast<int>(rows.kv_stride());
+  const T* kb = static_cast<const T*>(p.k) + kvo;
+  const T* vb = static_cast<const T*>(p.v) + kvo;
+  constexpr int CHUNKS = DT / 4;  // 16-byte chunks a row
+  // 64 rows into a shared tile, row i from `row(i)` (null: zeros), columns
+  // past D zero-filled; `base` any address of the operand
+  auto stage = [&](T* dst, const T* base, auto row) {
+#pragma unroll 1
+    for (int u = 0; u < ATT_ROWS * CHUNKS / ATT_THREADS; ++u) {
+      const int x = threadIdx.x + u * ATT_THREADS;
+      const int i = x / CHUNKS, ch = x % CHUNKS;
+      const T* src = row(i);
+      const bool ok = src != nullptr && 4 * ch < D;
+      cp_async16(dst + i * S + 4 * ch, ok ? src + 4 * ch : base, ok);
+    }
+  };
+  // K or V rows c0 .. c0 + 63, zero past block_kend, as one commit group
+  auto stage_keys = [&](T* dst, const T* base, int c0) {
+    stage(dst, base, [&](int i) {
+      return c0 + i < block_kend ? base + static_cast<size_t>(c0 + i) * kstride : nullptr; });
+    cp_async_commit();
+  };
+
+  // one commit group at a time: Q with K of tile 0, then V of each tile and
+  // K of the next as the tile frees
+  if (block_kend > 0) {
+    stage(qs, q, [&](int i) { return i < nrows ? q + rows.q_offset(i) : nullptr; });
+    stage_keys(kv, kb, 0);
+  }
+  for (int c0 = 0; c0 < block_kend; c0 += ATT_KEYS) {
+    const bool mine = c0 < warp_kend;
+    float s[8][4];
+    float alpha[2];  // the rows' rescale of o by their new running max
+    cp_async_wait<0>();  // K (and Q)
+    __syncthreads();
+    Ops::split_tile(kv, lo);
+    __syncthreads();
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      mma.qk(s, kv, lo, lane);
+    }
+    __syncthreads();  // the tile is free
+    stage_keys(kv, vb, c0);
+    if (mine) {
+      // every key valid for every row, and all on one side of the diagonal
+      const bool lower = c0 + ATT_KEYS - 1 <= wn_min;
+      const bool upper = !p.causal && c0 > wn_max;
+      const bool full = c0 + ATT_KEYS <= key_len && (lower || upper);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t* c = rc + 5 * ATT_THREADS * half;
+        RowState r;
+        r.nb = static_cast<int>(c[0]);
+        r.lim = p.causal ? min(key_len, max(r.nb + 1, 0)) : key_len;
+        r.lo2 = __uint_as_float(c[ATT_THREADS]);
+        r.hi2 = __uint_as_float(c[2 * ATT_THREADS]);
+        r.hseed = c[3 * ATT_THREADS];
+        r.m = m[half];
+        r.l = l[half];
+        // element (j, e) is key c = c0 + 2t + 8j + e at distance d0 + 8j + e
+        const int cb = c0 + 2 * t;
+        const float d0 = static_cast<float>(cb - r.nb);  // c - n - offset
+        const float sl = lower ? r.lo2 : -r.hi2;
+        float mt = ATT_NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dist = d0 + static_cast<float>(8 * j + e);  // exact
+            float x;
+            if (full) {
+              x = fmaf(s[j][2 * half + e], scale2, sl * dist);
+            } else {
+              const float slope = dist <= 0.f ? r.lo2 : -r.hi2;
+              x = cb + 8 * j + e < r.lim ? fmaf(s[j][2 * half + e], scale2, slope * dist)
+                                         : ATT_NEG_INF;
+            }
+            s[j][2 * half + e] = x;
+            mt = fmaxf(mt, x);
+          }
+        }
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(r.m, mt);
+        alpha[half] = fast_exp2(r.m - m_new);
+        r.m = m_new;
+        // a masked logit is ATT_NEG_INF, whose exp2 is 0 against any finite
+        // max; a row with no valid key yet takes 0 as its max instead
+        const float m_use = m_new == ATT_NEG_INF ? 0.f : m_new;
+        float lsum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * half + e];
+            x = fast_exp2(x - m_use);
+            lsum += x;
+          }
+        }
+        r.l = r.l * alpha[half] + lsum;
+        if (drop) {  // the normaliser keeps the undropped probabilities
+          const uint32_t u0 = (r.hseed + static_cast<uint32_t>(cb)) * KEEP_MUL;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t u = keep_mix(u0 + static_cast<uint32_t>(8 * j + e) * KEEP_MUL);
+              if (u >= thresh24) s[j][2 * half + e] = 0.f;
+            }
+          }
+        }
+        m[half] = r.m;
+        l[half] = r.l;
+      }
+    }
+    cp_async_wait<0>();  // V
+    __syncthreads();
+    Ops::split_tile(kv, lo);
+    __syncthreads();
+    if (mine) {
+      Ops::pv(s, kv, lo, lane, [&](int d0, const float (&acc)[Ops::G][4]) {
+#pragma unroll
+        for (int i = 0; i < Ops::G; ++i) {  // rescale_add
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int d = d0 + i;
+            if (d < DR) {
+              o[d][r] = fmaf(o[d][r], alpha[r / 2], acc[i][r]);
+            } else {
+              float& x = os[(4 * (d - DR) + r) * ATT_THREADS];
+              x = fmaf(x, alpha[r / 2], acc[i][r]);
+            }
+          }
+        }
+      });
+    }
+    __syncthreads();  // the tile is free
+    if (c0 + ATT_KEYS < block_kend) stage_keys(kv, kb, c0 + ATT_KEYS);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const uint32_t flag = rc[(5 * half + 4) * ATT_THREADS];
+    if (flag == 0) continue;
+    const int i = w0 + g + 8 * half;
+    const bool ok = flag == 2 && sum > 0.f;
+    const float inv = ok ? p.inv_keep / sum : 0.f;  // dropout's 1/(1 - rate) here
+    T* orow = static_cast<T*>(p.o) + rows.q_offset(i);
+    // slices d .. d + 3 hold columns c .. c + 3 at fragment column 2t and
+    // c + 4 .. c + 7 at 2t + 1 (MmaTf32Wide::column): two 16-byte stores
+#pragma unroll
+    for (int d = 0; d < DS; d += 4) {
+      const int c = Ops::column(d, 2 * t);
+      if (c < D) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          *reinterpret_cast<float4*>(orow + c + 4 * e) =
+              make_float4(out(d, 2 * half + e) * inv, out(d + 1, 2 * half + e) * inv,
+                          out(d + 2, 2 * half + e) * inv, out(d + 3, 2 * half + e) * inv);
+        }
+      }
+    }
+    if (t == 0) p.lse[rows.lse_index(i)] = ok ? (m[half] + log2f(sum)) * LN2 : INFINITY;
+  }
+}
+
+// The kernel of an instantiation: the staged one for f32 at DT = 128.
+template <typename T, int DT, bool kFullD, typename Rows>
+constexpr auto fwd_kernel() {
+  if constexpr (FwdMma<T, DT>::kStagedQ) {
+    return attention_fwd_kernel_staged<DT, kFullD, Rows>;
+  } else {
+    return attention_fwd_kernel<T, DT, kFullD, Rows>;
+  }
+}
+
 // Launch one instantiation on `st` with its dynamic shared memory (the
 // limit raised once per device, so the launch can be captured in a CUDA
 // graph). Returns the CUDA error of the attribute call or the launch.
 template <typename T, int DT, bool kFullD, typename Rows>
 cudaError_t launch_fwd_kernel(dim3 grid, const FwdParams& p, cudaStream_t st) {
-  constexpr auto kernel = attention_fwd_kernel<T, DT, kFullD, Rows>;
+  constexpr auto kernel = fwd_kernel<T, DT, kFullD, Rows>();
   constexpr int bytes = fwd_smem_bytes<T, DT>();
   const cudaError_t err = raise_smem_once<kernel>(bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, ATT_THREADS, bytes, st>>>(p);
   return cudaGetLastError();
+}
+
+// Blocks of one instantiation that fit an SM of the current device, as the
+// occupancy calculator counts them from its registers and its dynamic
+// shared memory (the limit raised as a launch raises it); -1 on a CUDA
+// error.
+template <typename T, int DT, bool kFullD, typename Rows>
+int fwd_blocks_per_sm() {
+  constexpr auto kernel = fwd_kernel<T, DT, kFullD, Rows>();
+  constexpr int bytes = fwd_smem_bytes<T, DT>();
+  int blocks = 0;
+  if (raise_smem_once<kernel>(bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, ATT_THREADS, bytes) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+// The same for the entry points' dtype code (0 f32, 1 bf16) and `full`
+// (the D == DT instantiation, else D < DT); -1 for another dtype.
+template <int DT, typename Rows>
+inline int fwd_blocks_per_sm_of(int dtype, int full) {
+  if (dtype == 0) {
+    return full ? fwd_blocks_per_sm<float, DT, true, Rows>()
+                : fwd_blocks_per_sm<float, DT, false, Rows>();
+  }
+  if (dtype == 1) {
+    return full ? fwd_blocks_per_sm<__nv_bfloat16, DT, true, Rows>()
+                : fwd_blocks_per_sm<__nv_bfloat16, DT, false, Rows>();
+  }
+  return -1;
 }
 
 // The instantiation for p.D: the full-width one at D == DT.

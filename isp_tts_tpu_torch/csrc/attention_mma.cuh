@@ -5,12 +5,12 @@
 //
 // A warp owns a 16-row tile. Its A operand (16 rows x DT dims, DT the tile
 // width of attention_common.cuh) sits in registers as mma fragments, or,
-// where a core holds too many other registers (the backward at DT = 128),
-// in shared memory, read as fragments at each reduction step; the B operand
-// (kSlices * 8 rows x DT dims) is a tile in shared memory, rows
-// tile_row<T, DT>() elements apart (padded by one 16-byte chunk, so
-// ldmatrix and the f32 reads are free of bank conflicts at every DT). Two
-// products cover every product of both cores:
+// where a core holds too many other registers (the backward at DT = 128,
+// the f32 forward at DT = 128), in shared memory, read as fragments at each
+// reduction step; the B operand (kSlices * 8 rows x DT dims) is a tile in
+// shared memory, rows tile_row<T, DT>() elements apart (padded by one
+// 16-byte chunk, so ldmatrix and the f32 reads are free of bank conflicts
+// at every DT). Two products cover every product of both cores:
 //   qk: s (16 x 8 kSlices) = A . B^T   (the logits Q.K^T; dO.V^T; K.Q^T; V.dO^T)
 //   pv: o (16 x DT) += P . B           (P.V; dS.K; P^T.dO; dS^T.Q)
 // with P in qk's accumulator layout: element (row lane/4 or lane/4 + 8,
@@ -420,16 +420,140 @@ struct MmaTf32 {
   }
 };
 
-// The forward's A operand (Q), resident: pre-split in f32 up to DT = 64; at
-// DT = 128 the pre-split Q alone would be 128 registers a thread, so the
-// f32 values are kept and split at each use.
+// The f32 forward at DT = 128 (attention_fwd.cuh's staged kernel): Q staged
+// in shared memory as MmaTf32's shared mode reads it (qk splits it at each
+// k-step), and K and V split once a tile, for the whole block, into hi and
+// lo tiles (split_tile) that qk and pv read as they are: in MmaTf32 every
+// warp splits every K and V value it reads, four times the work of the
+// block. pv's output slices interleave the columns: slice d of the group
+// of G slices over columns 8G dh .. 8G dh + 8G - 1 holds, at fragment
+// column n, output column 8G dh + 32 (i / 4) + 4n + i % 4 (i = d % G;
+// column()), so the V values a thread takes for four slices (columns
+// 4g .. 4g + 3 of a block of 32) are one 16-byte read. The splits are
+// MmaTf32's, and every output element is the same sum of the same
+// products in the same order, so s and o are bit for bit MmaTf32's.
+template <int DT>
+struct MmaTf32Wide : MmaTf32<false, DT, true> {
+  using Base = MmaTf32<false, DT, true>;
+  using typename Base::T;
+  using Base::S;
+  using Base::DS;
+  static constexpr int G = 4;  // output slices summed together in fresh fragments
+  static_assert(G % 4 == 0 && DS % G == 0, "slices in fours");
+
+  // the output column of slice d's fragment column n
+  __device__ static int column(int d, int n) {
+    return 8 * G * (d / G) + 32 * (d % G / 4) + 4 * n + d % 4;
+  }
+
+  // A staged tile of ATT_KEYS rows split as x = hi + lo: hi over x, lo into
+  // `lo`; every thread of the block takes its share, the caller syncs
+  __device__ static void split_tile(T* hi, T* lo) {
+    constexpr int CHUNKS = DT / 4;  // 16-byte chunks a row
+#pragma unroll 4
+    for (int u = 0; u < ATT_KEYS * CHUNKS / ATT_THREADS; ++u) {
+      const int x = threadIdx.x + u * ATT_THREADS;
+      const int at = (x / CHUNKS) * S + 4 * (x % CHUNKS);
+      const float4 v = *reinterpret_cast<const float4*>(hi + at);
+      uint32_t h[4], l[4];
+      tf32_split(v.x, h[0], l[0]);
+      tf32_split(v.y, h[1], l[1]);
+      tf32_split(v.z, h[2], l[2]);
+      tf32_split(v.w, h[3], l[3]);
+      *reinterpret_cast<float4*>(hi + at) = make_float4(
+          __uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+      *reinterpret_cast<float4*>(lo + at) = make_float4(
+          __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+  }
+
+  // MmaTf32::qk on a split B tile (hi rows at bh, lo rows at bl), one key
+  // slice at a time (8 registers of B fragments); each s[j] takes its MMAs
+  // in MmaTf32::qk's order
+  template <int kSlices = 8>
+  __device__ void qk(float (&s)[kSlices][4], const T* bh, const T* bl, int lane) const {
+#pragma unroll
+    for (int h = 0; h < DT / 16; ++h) {  // dims 16h .. 16h + 15: k-steps 2h, 2h+1
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) this->split(2 * h + u, ah[u], al[u]);
+#pragma unroll
+      for (int j = 0; j < kSlices; ++j) {
+        const int at = (8 * j + lane % 8) * S + 16 * h + 4 * (lane / 8);
+        uint32_t bhi[4], blo[4];
+        ldmatrix_x4(bhi, bh + at);
+        ldmatrix_x4(blo, bl + at);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          mma_tf32(s[j], al[u], bhi[2 * u], bhi[2 * u + 1]);
+          mma_tf32(s[j], ah[u], blo[2 * u], blo[2 * u + 1]);
+          mma_tf32(s[j], ah[u], bhi[2 * u], bhi[2 * u + 1]);
+        }
+      }
+    }
+  }
+
+  // MmaTf32::pv on a split B tile (hi rows at bh, lo rows at bl), output
+  // slices interleaved (column()); each group's sums go to add(d0, acc),
+  // which rescales and adds them to output slices d0 .. d0 + G - 1 as
+  // rescale_add does
+  template <int kSlices, typename Add>
+  __device__ static void pv(const float (&p)[kSlices][4], const T* bh, const T* bl, int lane,
+                            Add add) {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int dh = 0; dh < DS / G; ++dh) {  // dims 8G dh .. 8G dh + 8G - 1
+      float acc[G][4] = {};
+#pragma unroll
+      for (int j = 0; j < kSlices; ++j) {  // columns 8j .. 8j + 7, read as 8j + {2t, 2t+1}
+        uint32_t ah[4], al[4];
+        tf32_split(p[j][0], ah[0], al[0]);  // row g,     column 2t   -> A column t
+        tf32_split(p[j][2], ah[1], al[1]);  // row g + 8, column 2t
+        tf32_split(p[j][1], ah[2], al[2]);  // row g,     column 2t+1 -> A column t + 4
+        tf32_split(p[j][3], ah[3], al[3]);  // row g + 8, column 2t+1
+        const int at = (8 * j + 2 * t) * S + 8 * G * dh + 4 * g;
+        uint32_t vh[G][2], vl[G][2];
+#pragma unroll
+        for (int a = 0; a < G / 4; ++a) {  // slices 4a .. 4a + 3
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {  // key rows 2t and 2t + 1
+            const uint4 x = *reinterpret_cast<const uint4*>(bh + at + r * S + 32 * a);
+            const uint4 y = *reinterpret_cast<const uint4*>(bl + at + r * S + 32 * a);
+            vh[4 * a][r] = x.x, vh[4 * a + 1][r] = x.y, vh[4 * a + 2][r] = x.z, vh[4 * a + 3][r] = x.w;
+            vl[4 * a][r] = y.x, vl[4 * a + 1][r] = y.y, vl[4 * a + 2][r] = y.z, vl[4 * a + 3][r] = y.w;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < G; ++d) mma_tf32(acc[d], al, vh[d][0], vh[d][1]);
+#pragma unroll
+        for (int d = 0; d < G; ++d) mma_tf32(acc[d], ah, vl[d][0], vl[d][1]);
+#pragma unroll
+        for (int d = 0; d < G; ++d) mma_tf32(acc[d], ah, vh[d][0], vh[d][1]);
+      }
+      add(G * dh, acc);
+    }
+  }
+};
+
+// The forward's products: A (Q) resident in registers in bf16 at every width
+// and in f32 up to DT = 64 (pre-split as hi and lo); in f32 at DT = 128
+// (kStagedQ) MmaTf32Wide, for attention_fwd.cuh's staged kernel: resident,
+// Q's f32 values alone were 64 registers a thread beside the output
+// accumulator's 64, and the kernel spilled.
 template <typename T, int DT>
 struct FwdMma {
+  static constexpr bool kStagedQ = false;
   using type = MmaBf16<DT, false>;
 };
 template <int DT>
 struct FwdMma<float, DT> {
+  static constexpr bool kStagedQ = false;
   using type = MmaTf32<(DT <= 64), DT>;
+};
+template <>
+struct FwdMma<float, 128> {
+  static constexpr bool kStagedQ = true;
+  using type = MmaTf32Wide<128>;
 };
 
 // Raise a kernel's dynamic shared memory limit above the 48 KB default,

@@ -21,9 +21,11 @@
 // the card and summed in a fixed order.
 //
 // Plain C interface for ctypes; the launches go on the caller's stream and
-// the function returns the first CUDA error. Built once per tile width
-// (-DATT_TILE_D=16, 32, 64 or 128): it takes head dims D that are
-// multiples of 8 up to that width.
+// the function returns the first CUDA error. dslopes holds the (2, H)
+// output, then the dq pass's slope partials, zeroed by the caller: for each
+// (triangle, head) a row of one per batch and 64 queries, B * ceil(N / 64)
+// floats. Built once per tile width (-DATT_TILE_D=16, 32, 64 or 128): it
+// takes head dims D that are multiples of 8 up to that width.
 
 #include "attention_bwd.cuh"
 
@@ -48,7 +50,8 @@ extern "C" int isp_flash_bwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(seed), o, static_cast<const float*>(lse), dout,
                     dq, dk, dv, static_cast<float*>(dslopes), static_cast<float*>(delta),
                     static_cast<float*>(work), B, N, M, H, Hkv, offset, causal, scale, thresh,
-                    inv_keep, splits, hash_heads, seed_shift, D};
+                    inv_keep, splits, hash_heads, seed_shift, D,
+                    B * ((N + ATT_ROWS - 1) / ATT_ROWS)};
   const dim3 grid1((N + ATT_ROWS - 1) / ATT_ROWS, H, B);
   const dim3 grid2((M + ATT_ROWS - 1) / ATT_ROWS, splits * heads, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -26,9 +26,12 @@
 // order.
 //
 // Plain C interface for ctypes; the launches go on the caller's stream and
-// the function returns the first CUDA error. Built once per tile width
-// (-DATT_TILE_D=16, 32, 64 or 128): it takes head dims D that are
-// multiples of 8 up to that width.
+// the function returns the first CUDA error. dslopes holds the (2, H)
+// output, then the dq pass's slope partials, zeroed by the caller: for each
+// (triangle, head) a row of one per batch and 64 folded rows,
+// B * ceil(N*H / 64) floats. Built once per tile width (-DATT_TILE_D=16,
+// 32, 64 or 128): it takes head dims D that are multiples of 8 up to that
+// width.
 
 #include "attention_bwd.cuh"
 
@@ -50,7 +53,8 @@ extern "C" int isp_mqa_bwd(const void* q, const void* k, const void* v,
                     static_cast<const int*>(seed), o, static_cast<const float*>(lse), dout,
                     dq, dk, dv, static_cast<float*>(dslopes), static_cast<float*>(delta),
                     static_cast<float*>(work), B, N, M, H, 1, offset, causal, scale, thresh,
-                    inv_keep, splits, hash_heads, seed_shift, D};
+                    inv_keep, splits, hash_heads, seed_shift, D,
+                    B * ((N * H + ATT_ROWS - 1) / ATT_ROWS)};
   const dim3 grid1((N * H + ATT_ROWS - 1) / ATT_ROWS, B);
   const dim3 grid2((M + ATT_ROWS - 1) / ATT_ROWS, splits, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

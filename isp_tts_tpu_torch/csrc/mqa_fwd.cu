@@ -73,5 +73,11 @@ extern "C" int isp_mqa_fwd(const void* q, const void* k, const void* v,
 // Dynamic shared memory of one block of the dtype's kernel, in bytes.
 extern "C" int isp_mqa_fwd_smem_bytes(int dtype) { return fwd_smem_bytes_of<ATT_DT>(dtype); }
 
+// Blocks of the dtype's kernel (full: the D == DT instantiation, else
+// D < DT) that fit an SM of the current device; -1 on an error.
+extern "C" int isp_mqa_fwd_blocks_per_sm(int dtype, int full) {
+  return fwd_blocks_per_sm_of<ATT_DT, FoldedRows>(dtype, full);
+}
+
 // The tile width this library was built for: the largest head dim it takes.
 extern "C" int isp_mqa_fwd_tile_d() { return ATT_DT; }

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ...config import as_dict, build_config
+from ...nn.embeddings import Embedding
 from ...nn.transformer import Transformer, TransformerConfig
 from ...utils.masks import get_mask_from_lengths
 from ..base import Model
@@ -60,7 +61,7 @@ class AcousticModel(Model):
         self.config = cfg
         self.encoding_map = dict(cfg.encoding_map)
         self.mel_dim = cfg.mel_dim
-        self.text_embedding = nn.Embedding(len(cfg.encoding_map), cfg.text_dim)
+        self.text_embedding = Embedding(len(cfg.encoding_map), cfg.text_dim)
         enc_cfg = build_config(TransformerConfig, as_dict(cfg.encoder), emb_dim=cfg.text_dim)
         self.encoder = Transformer(enc_cfg)
         self.aligner = Aligner(build_config(AlignerConfig, as_dict(cfg.aligner),

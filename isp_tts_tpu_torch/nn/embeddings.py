@@ -1,4 +1,5 @@
-"""Positional embeddings: sinusoids, learned ALiBi, flow-time embedding.
+"""Positional embeddings: sinusoids, learned ALiBi, flow-time embedding;
+and the token embedding whose gradient repeats itself bit for bit.
 
 Counterpart of ``isp_tts_tpu/nn/embeddings.py``.
 """
@@ -12,6 +13,44 @@ from torch import nn
 
 from ..parallel.mesh import copy_to, reduce_from
 from .layers import choose_activation
+
+
+class _EmbeddingRows(torch.autograd.Function):
+    """The rows of ``weight`` at ``ids``. The weight's gradient sums each
+    row's gradients as a one-hot product in float64, which gives the same
+    bits on every call: PyTorch's CUDA embedding backward adds repeated ids
+    in a run-dependent order past 3072 ids (a batch of 32 x 192 tokens,
+    most of them padding), so two runs of the same steps drifted apart."""
+
+    @staticmethod
+    def forward(ctx, ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = weight.shape[0], weight.dtype
+        return nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        # a comparison, not F.one_hot, which reads the ids' range on the host
+        one_hot = (flat[:, None] == torch.arange(ctx.rows, device=flat.device)).to(torch.float64)
+        summed = one_hot.T @ grad.reshape(flat.numel(), -1).to(torch.float64)
+        return None, summed.to(ctx.dtype)
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` (no padding index, norm limit or sparse gradient)
+    whose weight gradient is the same bits on every call
+    (:class:`_EmbeddingRows`); without a gradient, the plain lookup."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if (self.padding_idx is not None or self.max_norm is not None or self.sparse
+                or self.scale_grad_by_freq):
+            raise ValueError("Embedding takes no padding_idx, max_norm, sparse or "
+                             "scale_grad_by_freq")
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            return _EmbeddingRows.apply(ids, self.weight)
+        return nn.functional.embedding(ids, self.weight)
 
 
 def alibi_slopes(heads: int) -> list[float]:

@@ -572,6 +572,13 @@ def _dkv_work(splits: int, k: torch.Tensor):
     return torch.empty((splits, 2, *k.shape), dtype=torch.float32, device=k.device)
 
 
+def _slope_buffer(parts: int, H: int, device) -> torch.Tensor:
+    """dslopes' (2, H) f32, then zeroed rows of the dq pass's ``parts``
+    partials for each (triangle, head), which the backward sums in a fixed
+    order (no float atomics: the same bits on every call)."""
+    return torch.zeros(2 * H * (1 + parts), dtype=torch.float32, device=device)
+
+
 def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
             offset=0, causal=False, dropout_rate=0.0, batch0=0, head0=0,
             heads_total=None):
@@ -603,9 +610,11 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     if lse.shape != (B, N * H) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be ({B}, {N * H}) float32")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dslopes = torch.zeros((2, H), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_(), dslopes
+        return (dq.zero_(), dk.zero_(), dv.zero_(),
+                torch.zeros((2, H), dtype=torch.float32, device=q.device))
+    # the (2, H) sums, then their partials for each batch and 64 folded rows
+    dslopes = _slope_buffer(B * -(-N * H // 64), H, q.device)
     # each dk/dv block walks H * ceil(N/64) row tiles
     splits = _dkv_splits(H * -(-N // 64))
     delta = torch.empty((B, N * H), dtype=torch.float32, device=q.device)
@@ -626,7 +635,7 @@ def mqa_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     if err != 0:
         raise RuntimeError(f"K2 mqa_bwd launch failed: CUDA error {err}")
     _counted(mqa_bwd, lib)
-    return dq, dk, dv, dslopes
+    return dq, dk, dv, dslopes[:2 * H].view(2, H)
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)
@@ -722,9 +731,11 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     if lse.shape != (B, H, N) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be ({B}, {H}, {N}) float32")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dslopes = torch.zeros((2, H), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_(), dslopes
+        return (dq.zero_(), dk.zero_(), dv.zero_(),
+                torch.zeros((2, H), dtype=torch.float32, device=q.device))
+    # the (2, H) sums, then their partials for each batch and 64 queries
+    dslopes = _slope_buffer(B * -(-N // 64), H, q.device)
     # each dk/dv block walks ceil(N/64) row tiles of its head (Hkv = H) or
     # of every head (Hkv = 1)
     splits = _dkv_splits((1 if Hkv != 1 else H) * -(-N // 64))
@@ -746,7 +757,7 @@ def flash_bwd(q, k, v, slopes, key_lens, q_lens, seed, o, lse, do, scale,
     if err != 0:
         raise RuntimeError(f"K5b flash_bwd launch failed: CUDA error {err}")
     _counted(flash_bwd, lib)
-    return dq, dk, dv, dslopes
+    return dq, dk, dv, dslopes[:2 * H].view(2, H)
 
 
 #: kernel launches since the count was last set to 0 (CPU calls never count)

@@ -492,6 +492,30 @@ def test_f32_slope_gradient_holds_over_16_draws(card, kernel, Hkv):
                              False, 0.1, 1e-4)
 
 
+# The backward's slope gradients are summed over the dq pass's blocks in a
+# fixed order (no float atomics), so a call gives the same bits every time:
+# a training run resumed from a checkpoint retraces the uninterrupted one.
+@pytest.mark.parametrize("kernel,Hkv,dtype", [
+    ("K2", 1, torch.bfloat16), ("K5b", 6, torch.bfloat16), ("K5b", 1, torch.float32)])
+def test_backward_is_bit_equal_over_repeated_calls(card, kernel, Hkv, dtype):
+    from isp_tts_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, slopes, key_lens, q_lens = _flash(card, 8, 640, 640, 6, Hkv, dtype, seed=5)
+    if kernel == "K2":
+        fwd, bwd = fa.mqa_fwd, fa.mqa_bwd
+        k, v = k[:, :, 0].contiguous(), v[:, :, 0].contiguous()
+    else:
+        fwd, bwd = fa.flash_fwd, fa.flash_bwd
+    seed = torch.tensor([41], dtype=torch.int32, device=card)
+    o, lse = fwd(q, k, v, slopes, key_lens, 0.125, 0, q_lens, False, 0.1, seed)
+    args = (q, k, v, slopes, key_lens, q_lens, seed, o, lse, _do(card, q, 0), 0.125, 0, False,
+            0.1)
+    first = bwd(*args)
+    for _ in range(20):
+        for name, a, b in zip(("dq", "dk", "dv", "dslopes"), first, bwd(*args)):
+            assert torch.equal(a, b), f"{name} differs between calls"
+
+
 VOCODER = "docs/assets/scale_r5/vocoder_joint10k_r5.f16.ckpt"
 AUDIO_TEXTS = ["The birch canoe slid away.", "Glue the sheet to the dark blue background."]
 

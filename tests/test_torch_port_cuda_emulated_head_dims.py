@@ -4,7 +4,10 @@ at the tile widths they launch (16 for D 8; 32; 128 for D 96 and 128) and
 held against their plain versions on the CPU at the bounds the card is held
 to (f32 1e-4, bf16 2e-2 of the plain version's max-abs):
 ``check_attention.HEAD_DIM_CASES``, both families, f32 and bf16, causal at
-an offset with dropout, the backward with one row split and with two. The
+an offset with dropout, the backward with one row split and with two, and
+the f32 forward at tile width 128 (Q staged, K and V split once a tile,
+interleaved output columns) at D 128 and 96 over key counts 1-65, row
+counts 1-65, a key length of 0 and the offset M - N at N 48, M 320. The
 emulation checks the tile width's fragment layouts, k-steps and output
 slices, the zero columns past D, the staged A operands at width 128 and
 the row strides of D; it says nothing of speed, registers or races between

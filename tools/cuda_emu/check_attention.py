@@ -12,8 +12,10 @@ dslopes vanish in exact arithmetic, so they are read on dv's scale (times
 the largest distance for dslopes), as the ``cuda`` tests do. The cases
 run at head dim 64 (the tile width 64), and ``HEAD_DIM_CASES`` at head
 dims 8, 32, 96 and 128 (tile widths 16, 32 and 128, 96 below its tile's
-width). ``--sweep`` adds row and key counts of 1, 63, 64, 65 and 70 in
-both types, causal and not, with and without row splits. A case takes
+width), with the f32 forward at tile width 128 (its own kernel) at its
+tile edges and a far offset. ``--sweep`` adds row and key counts of 1, 63,
+64, 65 and 70 in both types, causal and not, with and without row splits.
+A case takes
 about a second; the emulation says nothing of speed, registers or races
 between warps: only the card does.
 """
@@ -113,7 +115,9 @@ def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1,
     ref = plain_bwd(q, k, v, sl, kl, ql, sd, o, lse, do, SCALE, offset, causal, rate, *origin)
     nan = float("nan")
     dq, dk, dv = (torch.full_like(x, nan) for x in (q, k, v))
-    dsl, delta = torch.zeros(2, H), torch.full(lse.shape, nan)
+    # the (2, H) sums, then the dq pass's partials per batch and row block
+    rows = N * H if Hkv is None else N
+    dsl, delta = torch.zeros(2 * H * (1 + B * -(-rows // 64))), torch.full(lse.shape, nan)
     work = torch.full((splits, 2, *k.shape), nan) if splits > 1 else None
     ptrs = [x.data_ptr() for x in (q, k, v, sl, kl, ql, sd, o, lse, do, dq, dk, dv, dsl, delta)]
     ptrs.append(None if work is None else work.data_ptr())
@@ -132,7 +136,7 @@ def backward(libs, B, N, M, H, Hkv, dtype, causal, offset, rate, splits=1,
     one_key = M == 1
     dv_scale, far = ref[2], N + abs(offset)
     return [rel(a, b, dv_scale * (far if i == 3 else 1) if one_key and i != 2 else None)
-            for i, (a, b) in enumerate(zip((dq, dk, dv, dsl), ref))]
+            for i, (a, b) in enumerate(zip((dq, dk, dv, dsl[:2 * H].view(2, H)), ref))]
 
 
 CASES = [  # B, N, M, H, Hkv (None: folded MQA), dtype, causal, offset, rate, splits
@@ -173,6 +177,22 @@ HEAD_DIM_CASES = [
     ((2, 70, 40, 2, 1, torch.float32, False, 0, 0.1, 2), 128),
     ((2, 65, 63, 2, None, torch.bfloat16, False, 0, 0.1, 2), 128),
     ((3, 37, 45, 2, 2, torch.bfloat16, True, 3, 0.1, 1), 96),
+] + [
+    # f32 at tile width 128 (attention_fwd_kernel_staged), D 128 and 96: key
+    # counts 1, 31, 32, 33, 63 and 65 (around half a key tile and a whole
+    # one) and row counts 1, 63, 64 and 65 (K1's rows folded: N x H),
+    # causal and not, dropout 0.1, batch row 1's key length 0 (B 3), and
+    # the cross-attention offset M - N at N 48, M 320
+    ((3, 1, 1, 1, None, torch.float32, False, 0, 0.1, 1), 128),
+    ((3, 63, 31, 1, None, torch.float32, True, 0, 0.1, 1), 128),
+    ((3, 32, 32, 2, None, torch.float32, False, 0, 0.1, 1), 96),
+    ((3, 65, 33, 1, None, torch.float32, True, -5, 0.1, 1), 96),
+    ((2, 48, 320, 1, None, torch.float32, False, 272, 0.1, 1), 128),
+    ((3, 64, 63, 2, 2, torch.float32, False, 0, 0.1, 1), 128),
+    ((3, 65, 65, 2, 1, torch.float32, True, 0, 0.1, 1), 128),
+    ((3, 1, 31, 2, 2, torch.float32, True, 30, 0.1, 1), 96),
+    ((3, 63, 32, 3, 3, torch.float32, False, 0, 0.1, 1), 96),
+    ((2, 48, 320, 1, 1, torch.float32, True, 272, 0.1, 1), 96),
 ]
 
 
